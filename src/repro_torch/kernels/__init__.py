@@ -1,0 +1,9 @@
+"""Hand-written Hopper kernels of the port, their wrappers and their plain
+versions.
+
+segment_spmm -- batched weighted neighbor scatter-add (CUDA C++, sm_90a),
+                one launch per message-passing layer for a bucket batch
+
+ops.py holds the public wrappers and launch counts; ref.py the plain-torch
+versions; csrc/ the CUDA sources; _build.py builds them with nvcc.
+"""

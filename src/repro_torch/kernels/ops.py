@@ -1,0 +1,107 @@
+"""Public wrappers over the port's kernels, plus the shape-padding helpers.
+
+Counterpart of ``src/repro/kernels/ops.py``.  Where the JAX package counts
+``pallas_call`` eqns in a jaxpr (``count_pallas_calls``), the port counts
+launches: every kernel wrapper adds one to its entry of
+``kernel_launches()`` when it launches, and nowhere else.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels import segment_spmm as _spmm
+
+
+# ---------------------------------------------------------------------------
+# shape-padding helpers (shared by serve/cache.py and store/)
+#
+# Scatter/gather row sets vary per batch; padding their length to the next
+# power of two keeps the set of shapes O(log capacity).  Padding repeats the
+# LAST entry, so a padded scatter writes the same (row, value) pair twice —
+# a deterministic no-op — and a padded gather reads rows the caller then
+# ignores.
+# ---------------------------------------------------------------------------
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def prev_pow2(n: int) -> int:
+    """Largest power of two <= n (n >= 1)."""
+    return 1 << (n.bit_length() - 1)
+
+
+def pad_rows_pow2(rows: Sequence[int], *alongside: Sequence,
+                  ) -> Tuple[np.ndarray, ...]:
+    """Pad ``rows`` (and any parallel index lists) to the next power of two
+    by repeating the last entry.  Returns int32 numpy arrays ready for a
+    padded scatter/gather; ``rows`` must be non-empty."""
+    n = next_pow2(len(rows))
+    out = []
+    for seq in (rows,) + alongside:
+        seq = list(seq)
+        out.append(np.asarray(seq + [seq[-1]] * (n - len(seq)), np.int32))
+    return tuple(out)
+
+
+def pad_leading(x, target: int):
+    """Zero-pad the leading axis of ``x`` (numpy array or tensor) to
+    ``target`` rows (no-op when already there)."""
+    n = x.shape[0]
+    if n == target:
+        return x
+    if isinstance(x, np.ndarray):
+        pad = np.zeros((target - n,) + x.shape[1:], x.dtype)
+        return np.concatenate([x, pad], axis=0)
+    return torch.cat([x, x.new_zeros((target - n,) + tuple(x.shape[1:]))])
+
+
+# ---------------------------------------------------------------------------
+# kernel entry points
+# ---------------------------------------------------------------------------
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Launches of each kernel since the last ``reset_kernel_launches``."""
+    return dict(_spmm.LAUNCHES)
+
+
+def reset_kernel_launches() -> None:
+    for k in _spmm.LAUNCHES:
+        _spmm.LAUNCHES[k] = 0
+
+
+def batched_neighbor_sum(h, src, dst, w, *, use_kernels: bool = True):
+    """Batched weighted scatter-add over N segments in ONE kernel launch.
+
+    h: (N, m, d); src/dst: (N, e) int32; w: (N, e) float32.  The GNN hot
+    path: every message-passing layer of graphs/gnn.py::_encode_batched
+    makes exactly one call here.  ``use_kernels`` False takes the plain
+    version on any device.
+    """
+    if use_kernels:
+        return _spmm.segment_spmm_batched(h, src, dst, w)
+    return ref.segment_spmm_batched_ref(h, src, dst, w)
+
+
+def neighbor_aggregate(h, src, dst, edge_valid, *, num_nodes: int,
+                       use_kernels: bool = True):
+    """Masked neighbor mean of one segment: (mean (m, d), deg (m,)).
+
+    The sum runs through the SpMM kernel (N = 1); the degree is a cheap
+    O(e) reduction in plain torch."""
+    if use_kernels:
+        s = _spmm.segment_spmm(h, src, dst, edge_valid)
+    else:
+        s = ref.segment_spmm_ref(h, src, dst, edge_valid, num_nodes)
+    deg = torch.zeros(num_nodes, dtype=edge_valid.dtype, device=h.device)
+    deg.index_add_(0, dst.long(), edge_valid)
+    return s / deg.clamp_min(1.0)[:, None], deg

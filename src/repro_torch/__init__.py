@@ -4,7 +4,11 @@ reference and stays as it is).
 Slice 1 is the graph-property serving path: ``launch/serve_graphs.py`` ->
 ``serve/engine.py::ServeEngine`` -> ``graphs/gnn.py::encode_segments``, whose
 neighbor aggregation runs the hand-written CUDA kernel
-``kernels/csrc/segment_spmm.cu`` on the card.
+``kernels/csrc/segment_spmm.cu`` on the card.  Slice 2 is graph-track GST
+training: ``launch/train.py`` -> ``graphs/experiment.py::run_experiment`` ->
+the steps of ``core/gst.py``, which add the SpMM's backward (the same
+kernel, src and dst swapped) and the fused SED pooling
+``kernels/csrc/sed_pool.cu``.
 
 Device rule: entry points run on ``cuda`` unless the caller asks for the
 CPU; asking for ``cuda`` where no card is visible raises.  TF32 is switched

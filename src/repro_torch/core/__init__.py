@@ -1,1 +1,2 @@
-"""GST core of the port: heads and the historical embedding table."""
+"""GST core of the port: segment sampling and SED, the historical embedding
+table, the heads and the train/eval/refresh/finetune steps."""

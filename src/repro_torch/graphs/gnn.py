@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 from torch import nn
@@ -257,3 +257,15 @@ def encode_segments(params: GNN, cfg: GNNConfig,
         return _encode_batched(params, cfg, seg_inputs)
     return _encode_one(params, cfg, seg_inputs["x"], seg_inputs["edges"],
                        seg_inputs["edge_valid"], seg_inputs["node_valid"])
+
+
+def make_encode_fn(cfg: GNNConfig) -> Callable:
+    """Returns encode_fn(params, seg_inputs) -> (emb (N, hidden), aux = 0.),
+    the GST core's backbone interface (a thin wrapper around
+    ``encode_segments`` adding the aux-loss slot)."""
+
+    def encode(params: GNN, seg_inputs):
+        emb = encode_segments(params, cfg, seg_inputs)
+        return emb, emb.new_zeros((), dtype=torch.float32)
+
+    return encode

@@ -2,7 +2,10 @@
 versions.
 
 segment_spmm -- batched weighted neighbor scatter-add (CUDA C++, sm_90a),
-                one launch per message-passing layer for a bucket batch
+                one launch per message-passing layer for a bucket batch;
+                its backward's dh is the same kernel with src and dst swapped
+sed_pool     -- fused Eq.-1 SED weighting + segment pooling, unaged and
+                aged (CUDA C++, sm_90a), one launch per pooling
 
 ops.py holds the public wrappers and launch counts; ref.py the plain-torch
 versions; csrc/ the CUDA sources; _build.py builds them with nvcc.

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import sed_pool as _sed
 from repro_torch.kernels import segment_spmm as _spmm
 
 
@@ -69,14 +70,20 @@ def pad_leading(x, target: int):
 # ---------------------------------------------------------------------------
 
 
+_COUNTERS = (_spmm.LAUNCHES, _sed.LAUNCHES)
+
+
 def kernel_launches() -> Dict[str, int]:
-    """Launches of each kernel since the last ``reset_kernel_launches``."""
-    return dict(_spmm.LAUNCHES)
+    """Launches of each kernel since the last ``reset_kernel_launches``:
+    the SpMM forward (``segment_spmm_batched``) and backward
+    (``segment_spmm_batched_bwd``), ``sed_pool`` and ``sed_pool_aged``."""
+    return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def reset_kernel_launches() -> None:
-    for k in _spmm.LAUNCHES:
-        _spmm.LAUNCHES[k] = 0
+    for counts in _COUNTERS:
+        for k in counts:
+            counts[k] = 0
 
 
 def batched_neighbor_sum(h, src, dst, w, *, use_kernels: bool = True):
@@ -105,3 +112,19 @@ def neighbor_aggregate(h, src, dst, edge_valid, *, num_nodes: int,
     deg = torch.zeros(num_nodes, dtype=edge_valid.dtype, device=h.device)
     deg.index_add_(0, dst.long(), edge_valid)
     return s / deg.clamp_min(1.0)[:, None], deg
+
+
+def sed_aggregate(h, seg_valid, fresh_mask, drop_mask, ages=None, *,
+                  keep_prob: float, num_sampled: int, agg: str = "mean",
+                  decay: float = 0.0, use_kernels: bool = True):
+    """Fused Eq.-1 η-weighting + ⊕ pooling over segments: (B, J, d) -> (B, d).
+
+    ``ages``/``decay``: optional (B, J) age-in-steps and λ of the
+    staleness-decayed stale branch (ref.sed_eta); λ = 0 keeps the unaged
+    kernel.  ``use_kernels`` False takes the plain version on any device."""
+    if use_kernels:
+        return _sed.sed_pool(h, seg_valid, fresh_mask, drop_mask,
+                             keep_prob=keep_prob, num_sampled=num_sampled,
+                             agg=agg, ages=ages, decay=decay)
+    return ref.sed_pool_ref(h, seg_valid, fresh_mask, drop_mask, keep_prob,
+                            num_sampled, agg, ages, decay)

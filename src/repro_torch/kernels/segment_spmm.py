@@ -8,13 +8,20 @@ _spmm_batched_kernel`` (see the source's note for the design and its bound).
 
 Device rule: a CPU tensor goes to the plain version (``ref.py``); a CUDA
 tensor launches the kernel or raises.  Nothing falls back.  ``LAUNCHES``
-counts the kernel's launches, one per launch, so a run can show that its
-main path went through the kernel.
+counts the kernel's launches, one per launch and under the key of the pass
+that made it, so a run can show that its main path went through the kernel.
 
-Forward only: the backward kernel (dh is the same SpMM with src and dst
-swapped, dw the per-edge inner product) lands with the training slice.
-Until then a CUDA call that would need a gradient raises instead of
-leaving an autograd graph that silently differs.
+Backward (``_SpmmBatched``, the counterpart of the ``custom_vjp`` at
+``src/repro/kernels/segment_spmm.py:128-151``): the transpose of the
+weighted scatter-add is the same SpMM with src and dst swapped,
+
+    ∂L/∂h[n, u] = Σ_{e: src_e = u} w_e · g[n, dst_e]
+
+so dh is one more launch of the same kernel with the roles exchanged
+(counted under ``segment_spmm_batched_bwd``), and dw[n, e] =
+⟨g[n, dst_e], h[n, src_e]⟩ is a gather and a product in plain torch, as
+the reference computes it in jnp outside Pallas.  The Function runs on
+both devices; on the CPU its two SpMMs are the plain version.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ import torch
 from repro_torch.kernels import ref
 
 KERNEL = "segment_spmm_batched"
-LAUNCHES = {KERNEL: 0}
+KERNEL_BWD = "segment_spmm_batched_bwd"
+LAUNCHES = {KERNEL: 0, KERNEL_BWD: 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -70,12 +78,9 @@ def _check(h, src, dst, w):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(h, src, dst, w) -> torch.Tensor:
+def _launch(h, src, dst, w, key: str) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors, counted under ``key``."""
     _check(h, src, dst, w)
-    if torch.is_grad_enabled() and (h.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "segment_spmm_batched on CUDA is forward-only: the backward "
-            "lands with the training slice (call it under torch.no_grad())")
     N, m, d = h.shape
     e = src.shape[1]
     out = torch.empty_like(h)
@@ -97,8 +102,47 @@ def _launch(h, src, dst, w) -> torch.Tensor:
     if err != 0:
         raise RuntimeError("segment_spmm_batched launch failed: "
                            + lib.segment_spmm_error_string(err).decode())
-    LAUNCHES[KERNEL] += 1
+    LAUNCHES[key] += 1
     return out
+
+
+def _spmm(h, src, dst, w, key: str) -> torch.Tensor:
+    if h.device.type == "cpu":
+        return ref.segment_spmm_batched_ref(h, src, dst, w)
+    if h.device.type != "cuda":
+        raise ValueError(f"segment_spmm_batched runs on cpu or cuda, not "
+                         f"{h.device}")
+    return _launch(h, src, dst, w, key)
+
+
+def segment_spmm_batched_transpose(g: torch.Tensor, src: torch.Tensor,
+                                   dst: torch.Tensor,
+                                   w: torch.Tensor) -> torch.Tensor:
+    """The transposed SpMM, dh[n, u] = Σ_{e: src[n,e]=u} w[n,e] · g[n, dst[n,e]]:
+    the forward with src and dst swapped.  On CUDA one launch of the
+    kernel, counted under ``segment_spmm_batched_bwd``."""
+    return _spmm(g, dst, src, w, KERNEL_BWD)
+
+
+class _SpmmBatched(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, h, src, dst, w):
+        ctx.save_for_backward(h, src, dst, w)
+        return _spmm(h, src, dst, w, KERNEL)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, src, dst, w = ctx.saved_tensors
+        g = g.contiguous().to(h.dtype)
+        dh = segment_spmm_batched_transpose(g, src, dst, w).to(h.dtype)
+        dw = None
+        if ctx.needs_input_grad[3]:
+            d = g.shape[-1]
+            g_dst = torch.gather(g, 1, dst.long()[..., None].expand(-1, -1, d))
+            h_src = torch.gather(h, 1, src.long()[..., None].expand(-1, -1, d))
+            dw = torch.sum(g_dst.float() * h_src.float(), dim=-1).to(w.dtype)
+        return dh, None, None, dw
 
 
 def segment_spmm_batched(h: torch.Tensor, src: torch.Tensor,
@@ -108,13 +152,9 @@ def segment_spmm_batched(h: torch.Tensor, src: torch.Tensor,
     h: (N, m, d) float32/bfloat16; src/dst: (N, e) int32; w: (N, e) float32,
     0 on padding edges.  Summed in f32, returned in h's dtype.  One kernel
     launch for the whole batch on CUDA; the plain version on the CPU.
+    Differentiable in h and w (the backward's dh is one more launch).
     """
-    if h.device.type == "cpu":
-        return ref.segment_spmm_batched_ref(h, src, dst, w)
-    if h.device.type != "cuda":
-        raise ValueError(f"segment_spmm_batched runs on cpu or cuda, not "
-                         f"{h.device}")
-    return _launch(h, src, dst, w)
+    return _SpmmBatched.apply(h, src, dst, w)
 
 
 def segment_spmm(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,

@@ -143,6 +143,14 @@ class EmbeddingStore:
         """(ages (n_rows, J), initialized (n_rows, J)) as numpy."""
         raise NotImplementedError
 
+    def refresh_ages(self, table: tbl.EmbeddingTable) -> None:
+        """Re-report device-plane ages to the eviction bookkeeping; a no-op
+        for backends whose eviction never consults ages."""
+
+    def flush_writebacks(self) -> None:
+        """Wait until every pending device->host write-back has landed
+        (none without a host tier)."""
+
     def close(self) -> None:
         pass
 

@@ -1,6 +1,8 @@
-"""The port's CUDA segment-SpMM kernel on the card, against its plain
-version (kernels/ref.py): within rtol = atol = 1e-5 in f32 (6e-2 in bf16),
-bitwise equal from launch to launch, and refusing what it cannot do.
+"""The port's CUDA kernels on the card (the segment SpMM, its backward, and
+sed_pool / sed_pool_aged), against their plain versions (kernels/ref.py):
+within rtol = atol = 1e-5 in f32 forward (6e-2 in bf16) and 1e-4 for
+gradients, bitwise equal from launch to launch, refusing what they cannot
+do; and a few GST train steps through them, against the plain path.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -15,6 +17,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import sed_pool as sp  # noqa: E402
 from repro_torch.kernels import segment_spmm as spmm  # noqa: E402
 
 # N, m, d, e, padding edges per segment, segment 0 without edges
@@ -90,11 +93,7 @@ def test_kernel_bf16(cuda):
 
 
 @pytest.mark.gpu
-def test_kernel_refuses_grad_and_oversize(cuda):
-    h, src, dst, w = (torch.from_numpy(a).to(cuda) for a in
-                      _inputs(2, 8, 4, 6, seed=0))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        spmm.segment_spmm_batched(h.requires_grad_(), src, dst, w)
+def test_kernel_refuses_oversize(cuda):
     big = torch.zeros(1, 4, 4, device=cuda)
     idx = torch.zeros(1, 70000, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
@@ -134,3 +133,184 @@ def test_encode_kernel_path_matches_plain_on_card(cuda):
             want = encode_segments(params, GNNConfig(backbone=backbone), si)
         assert ops.kernel_launches()["segment_spmm_batched"] == cfg.n_mp
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the SpMM backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,m,d,e,n_pad,empty_seg", CASES[:5] + [
+    (8, 64, 64, 382, 100, False), (160, 64, 64, 382, 100, False)])
+def test_backward_matches_plain_autograd(cuda, N, m, d, e, n_pad, empty_seg):
+    h, src, dst, w = (torch.from_numpy(a).to(cuda) for a in
+                      _inputs(N, m, d, e, seed=e + 1, n_pad=n_pad,
+                              empty_seg=empty_seg))
+    g = torch.randn(N, m, d, generator=torch.Generator().manual_seed(e)
+                    ).to(cuda)
+    grads = []
+    for fn in (spmm.segment_spmm_batched, ref.segment_spmm_batched_ref):
+        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+        torch.sum(fn(hh, src, dst, ww) * g).backward()
+        grads.append((hh.grad, ww.grad))
+    (dh, dw), (dh_ref, dw_ref) = grads
+    torch.testing.assert_close(dh, dh_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dw, dw_ref, rtol=1e-4, atol=1e-4)
+    ops.reset_kernel_launches()
+    a = spmm.segment_spmm_batched_transpose(g, src, dst, w)
+    b = spmm.segment_spmm_batched_transpose(g, src, dst, w)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, dh)
+    assert ops.kernel_launches()["segment_spmm_batched_bwd"] == 2
+
+
+# ---------------------------------------------------------------------------
+# sed_pool and sed_pool_aged
+# ---------------------------------------------------------------------------
+
+
+def _sed_inputs(B, J, d, seed, cuda):
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(B, J, d)).astype(np.float32)
+    n_valid = rng.integers(1, J + 1, B)
+    valid = (np.arange(J)[None, :] < n_valid[:, None]).astype(np.float32)
+    fresh = np.zeros((B, J), np.float32)
+    fresh[np.arange(B), rng.integers(0, n_valid)] = 1.0
+    drop = (rng.uniform(size=(B, J)) > 0.5).astype(np.float32)
+    drop[0] = 1.0                          # every stale segment dropped
+    ages = rng.integers(0, 30, (B, J)).astype(np.float32)
+    return [torch.from_numpy(a).to(cuda) for a in (h, valid, fresh, drop, ages)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", [0.0, 0.05])
+@pytest.mark.parametrize("agg", ["mean", "sum"])
+@pytest.mark.parametrize("B,J,d", [(8, 20, 64), (8, 16, 1), (5, 7, 130),
+                                   (1024, 64, 256)])
+def test_sed_pool_matches_plain(cuda, B, J, d, agg, decay):
+    h, valid, fresh, drop, ages = _sed_inputs(B, J, d, seed=B + J + d,
+                                              cuda=cuda)
+    kw = dict(keep_prob=0.5, num_sampled=1, agg=agg, ages=ages, decay=decay)
+    g = torch.randn(B, d, generator=torch.Generator().manual_seed(d)).to(cuda)
+    ops.reset_kernel_launches()
+    hh = h.clone().requires_grad_()
+    a = sp.sed_pool(hh, valid, fresh, drop, **kw)
+    torch.sum(a * g).backward()
+    b = sp.sed_pool(h, valid, fresh, drop, **kw)
+    key = "sed_pool_aged" if decay > 0 else "sed_pool"
+    assert ops.kernel_launches()[key] == 2
+    assert torch.equal(a.detach(), b)
+    hr = h.clone().requires_grad_()
+    want = ref.sed_pool_ref(hr, valid, fresh, drop, 0.5, 1, agg, ages, decay)
+    torch.sum(want * g).backward()
+    torch.testing.assert_close(b, want.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hh.grad, hr.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_sed_pool_bf16(cuda):
+    h, valid, fresh, drop, _ = _sed_inputs(8, 20, 64, seed=1, cuda=cuda)
+    got = sp.sed_pool(h.bfloat16(), valid, fresh, drop, keep_prob=0.5,
+                      num_sampled=1)
+    assert got.dtype == torch.bfloat16
+    want = ref.sed_pool_ref(h, valid, fresh, drop, 0.5, 1)
+    torch.testing.assert_close(got.float(), want, rtol=6e-2, atol=6e-2)
+
+
+# ---------------------------------------------------------------------------
+# GST train steps through the kernels
+# ---------------------------------------------------------------------------
+
+
+def _train_setup(cuda, backbone="sage", dataset="malnet", sed_decay=0.0):
+    from repro_torch.core import gst as G
+    from repro_torch.core.embedding_table import init_table
+    from repro_torch.graphs.batching import batch_iterator, segment_dataset
+    from repro_torch.graphs.data import make_malnet_like, make_tpugraphs_like
+    from repro_torch.graphs.gnn import GNNConfig, gnn_init, make_encode_fn
+    from repro_torch.optim import make_optimizer
+    from repro_torch.serve.engine import to_device
+
+    make = make_malnet_like if dataset == "malnet" else make_tpugraphs_like
+    head_mode, loss_kind, agg, n_out = (
+        ("mlp", "ce", "mean", 5) if dataset == "malnet"
+        else ("segment_sum", "pairwise_hinge", "sum", 1))
+    ds = segment_dataset(make(n_graphs=16, seed=0), max_seg_nodes=64)
+    tups = list(batch_iterator(ds, 8, rng=np.random.default_rng(0)))
+    batches = [G.GSTBatch(to_device(t[0], cuda), to_device(
+        {"v": t[1]}, cuda)["v"], torch.from_numpy(t[2].astype(np.int64)).to(
+        cuda), torch.from_numpy(np.asarray(t[3])).to(cuda)) for t in tups]
+    runs = {}
+    for use_kernels in (True, False):
+        cfg = GNNConfig(backbone=backbone, use_kernels=use_kernels)
+        gen = torch.Generator().manual_seed(0)
+        bb = gnn_init(cfg, gen, cuda)
+        head = G.head_init(cfg.hidden, n_out, head_mode, gen, cuda)
+        opt = make_optimizer("adam", lr=5e-3)
+        st = G.TrainState(bb, head, None,
+                          init_table(ds.n, ds.j_max, cfg.hidden, device=cuda),
+                          0)
+        st = st._replace(opt_state=opt.init(G.train_params(st)))
+        step = G.make_train_step(
+            make_encode_fn(cfg), opt, G.VARIANTS["gst_efd"],
+            head_mode=head_mode, loss_kind=loss_kind, agg=agg,
+            use_kernels=use_kernels, sed_decay=sed_decay)
+        runs[use_kernels] = (st, step, cfg)
+    return batches, runs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backbone,dataset,decay", [
+    ("sage", "malnet", 0.0), ("gcn", "tpugraphs", 0.0),
+    ("sage", "malnet", 0.05)])
+def test_train_steps_kernel_path_matches_plain(cuda, backbone, dataset,
+                                               decay):
+    """Per step: n_mp SpMM forward and n_mp backward launches and one
+    sed_pool (or sed_pool_aged) launch; loss, gradients (from the Adam
+    first moment), parameters and table equal to the plain path on the
+    card given the same draws, each step from the same state.  A parameter
+    element whose gradient is below 1e-6 in both paths is held by its
+    gradient only: Adam's eps (1e-8) turns float noise around an exactly-zero
+    gradient into a step of up to lr."""
+    from repro_torch.core import gst as G
+    from repro_torch.core import segment as seg
+
+    batches, runs = _train_setup(cuda, backbone, dataset, decay)
+    (st_k, step_k, cfg), (st_p, step_p, _) = runs[True], runs[False]
+    gen = torch.Generator().manual_seed(1)
+    pool = "sed_pool_aged" if decay > 0 else "sed_pool"
+    for i in range(3):
+        batch = batches[i % len(batches)]
+        draws = (seg.sample_segments(gen, batch.seg_valid.cpu(), 1),
+                 torch.rand(batch.seg_valid.shape, generator=gen))
+        mu_prev = [m.clone() for m in st_p.opt_state["mu"]]
+        ops.reset_kernel_launches()
+        st_k, m_k = step_k(st_k, batch, draws=draws)
+        torch.cuda.synchronize()
+        assert ops.kernel_launches() == {
+            "segment_spmm_batched": cfg.n_mp,
+            "segment_spmm_batched_bwd": cfg.n_mp,
+            "sed_pool": int(pool == "sed_pool"),
+            "sed_pool_aged": int(pool == "sed_pool_aged")}
+        st_p, m_p = step_p(st_p, batch, draws=draws)
+        torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-4,
+                                   atol=1e-5)
+        with torch.no_grad():
+            for pk, pp, mk, mp, m0 in zip(
+                    G.train_params(st_k), G.train_params(st_p),
+                    st_k.opt_state["mu"], st_p.opt_state["mu"], mu_prev):
+                gk, gp = (mk - 0.9 * m0) / 0.1, (mp - 0.9 * m0) / 0.1
+                torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-4)
+                held = (gk.abs() >= 1e-6) | (gp.abs() >= 1e-6)
+                torch.testing.assert_close(pk[held], pp[held], rtol=0,
+                                           atol=1e-4)
+            torch.testing.assert_close(st_k.table.emb, st_p.table.emb,
+                                       rtol=1e-5, atol=1e-5)
+            assert torch.equal(st_k.table.age, st_p.table.age)
+            # the next step starts from the same state on both paths
+            for a, b in zip(G.train_params(st_k) + st_k.opt_state["mu"]
+                            + st_k.opt_state["nu"] + list(st_k.table),
+                            G.train_params(st_p) + st_p.opt_state["mu"]
+                            + st_p.opt_state["nu"] + list(st_p.table)):
+                a.copy_(b)

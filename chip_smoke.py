@@ -483,70 +483,35 @@ def phase_streaming(torch, dev):
     engine.close()
 
 
-def _copy_state(torch, dst, src):
-    """Set train state ``dst`` to ``src`` in place (parameters, Adam moments
-    and count, table, step)."""
-    from repro_torch.core import gst as G
-
-    with torch.no_grad():
-        pairs = list(zip(G.train_params(dst), G.train_params(src)))
-        pairs += list(zip(dst.opt_state["mu"], src.opt_state["mu"]))
-        pairs += list(zip(dst.opt_state["nu"], src.opt_state["nu"]))
-        pairs += list(zip(dst.table, src.table))
-        for a, b in pairs:
-            a.copy_(b)
-    return dst._replace(opt_state=dict(dst.opt_state,
-                                       step=src.opt_state["step"]),
-                        step=src.step)
-
-
-def train_step_parity(torch, dev, dataset, backbone, decay, n_steps=3):
+def train_step_parity(torch, dev, dataset, backbone, decay):
     """The first train steps of the kernel path against the plain path on
-    the card, given the same draws, each from the same state: loss rtol
-    1e-4, the step's gradients (from the Adam first moment) 1e-4, the
-    parameters after the step 1e-4 where the gradient is above 1e-6 (Adam's
-    eps 1e-8 turns float noise in an exactly-zero gradient into a step of
-    up to lr), the table 1e-5 with ages and flags equal.  Each kernel step
-    must launch n_mp SpMM forwards, n_mp backwards and one pooling."""
+    the card, given the same draws, each from the same state
+    (``repro_torch.core.step_parity``: losses rtol 1e-4, gradients and
+    parameters 1e-4, the table 1e-5).  The third step shows the first
+    step's batch again, so the table's stale segments (and, with a decay,
+    their ages) weigh in Eq. 1 on both paths.  Each kernel step must launch
+    n_mp SpMM forwards, n_mp backwards and one pooling."""
     import numpy as np
 
-    from repro_torch.core import segment as seg
+    from repro_torch.core.step_parity import kernel_step_parity
     from repro_torch.graphs.batching import batch_iterator
     from repro_torch.graphs.experiment import to_batch
-    from repro_torch.kernels import ops
 
     runs = []
     for use_kernels in (True, False):
         ds, st, step = train_setup(torch, dev, dataset, backbone, decay,
                                    use_kernels)
-        runs.append([st, step])
+        runs.append((st, step))
     n_mp = st.backbone.cfg.n_mp
     want_counts = {"segment_spmm_batched": n_mp,
                    "segment_spmm_batched_bwd": n_mp,
                    "sed_pool": int(decay == 0), "sed_pool_aged": int(decay > 0)}
-    gen = torch.Generator().manual_seed(1)
-    worst = 0.0
     tups = batch_iterator(ds, 8, rng=np.random.default_rng(3))
-    for i, tup in zip(range(n_steps), tups):
-        batch = to_batch(*tup, dev)
-        draws = (seg.sample_segments(gen, batch.seg_valid.cpu(), 1),
-                 torch.rand(batch.seg_valid.shape, generator=gen))
-        (st_k, step_k), (st_p, step_p) = runs
-        mu_prev = [m.clone() for m in st_p.opt_state["mu"]]
-        ops.reset_kernel_launches()
-        st_k, m_k = step_k(st_k, batch, draws=draws)
-        torch.cuda.synchronize()
-        counts = ops.kernel_launches()
-        if counts != want_counts:
-            raise AssertionError(f"step {i}: launches {counts}, want "
-                                 f"{want_counts}")
-        st_p, m_p = step_p(st_p, batch, draws=draws)
-        torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=GRAD_TOL,
-                                   atol=TOL)
-        with torch.no_grad():
-            worst = max(worst, _compare_step(torch, st_k, st_p, mu_prev))
-        runs = [[_copy_state(torch, st_k, st_p), step_k], [st_p, step_p]]
-    return want_counts, worst
+    b0, b1 = (to_batch(*t, dev) for _, t in zip(range(2), tups))
+    worst, n_stale = kernel_step_parity(
+        runs[0], runs[1], [b0, b1, b0], torch.Generator().manual_seed(1),
+        want_counts)
+    return want_counts, worst, n_stale
 
 
 def train_setup(torch, dev, dataset, backbone, decay, use_kernels):
@@ -626,39 +591,17 @@ def phase_profile(torch, dev, n_steps=5):
     return prof
 
 
-def _compare_step(torch, st_k, st_p, mu_prev):
-    """One step's gradients, parameters and table, kernel vs plain path;
-    returns the largest parameter difference held to the tolerance."""
-    from repro_torch.core import gst as G
-
-    worst = 0.0
-    for pk, pp, mk, mp, m0 in zip(
-            G.train_params(st_k), G.train_params(st_p),
-            st_k.opt_state["mu"], st_p.opt_state["mu"], mu_prev):
-        gk, gp = (mk - 0.9 * m0) / 0.1, (mp - 0.9 * m0) / 0.1
-        torch.testing.assert_close(gk, gp, rtol=GRAD_TOL, atol=GRAD_TOL)
-        held = (gk.abs() >= 1e-6) | (gp.abs() >= 1e-6)
-        torch.testing.assert_close(pk[held], pp[held], rtol=0, atol=GRAD_TOL)
-        diff = (pk - pp)[held].abs()
-        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
-    torch.testing.assert_close(st_k.table.emb, st_p.table.emb, rtol=TOL,
-                               atol=TOL)
-    if not (torch.equal(st_k.table.age, st_p.table.age) and torch.equal(
-            st_k.table.initialized, st_p.table.initialized)):
-        raise AssertionError("table ages or flags differ")
-    return worst
-
-
 def phase_training(torch, dev, dataset, backbone, decay):
     """Step parity, then run_experiment on cuda with kernels on (the main
     path, its launches counted from 0)."""
     from repro_torch.graphs.experiment import run_experiment
     from repro_torch.kernels import ops
 
-    per_step, worst = train_step_parity(torch, dev, dataset, backbone,
-                                        decay)
+    per_step, worst, n_stale = train_step_parity(torch, dev, dataset,
+                                                 backbone, decay)
     log(f"[training] {dataset}/{backbone} λ={decay}: 3 steps kernel path = "
-        f"plain path (max param diff {worst:.3e}); launches a step {per_step}")
+        f"plain path (max param diff {worst:.3e}, {n_stale} stale segments "
+        f"kept); launches a step {per_step}")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -698,7 +641,8 @@ def phase_training(torch, dev, dataset, backbone, decay):
                       "test_metric": r.test_metric,
                       "ms_per_iter": r.ms_per_iter, "peak_bytes": peak,
                       "base_bytes": base, "seconds": seconds,
-                      "launches": launches, "parity_max_param_diff": worst}
+                      "launches": launches, "parity_max_param_diff": worst,
+                      "parity_stale_kept": n_stale}
 
 
 def kernel_entry(name, source, replaces, launches, rows, headline):

@@ -235,7 +235,6 @@ def make_train_step(
     use_kernels: bool = False,
     table_lookup: Optional[Callable] = None,
     table_update: Optional[Callable] = None,
-    table_lookup_age: Optional[Callable] = None,
     sed_decay: float = 0.0,
 ):
     """Returns ``step(state, batch, generator=None, draws=None) -> (state,
@@ -249,10 +248,9 @@ def make_train_step(
     table_lookup / table_update: alternative historical-table accessors
     with the signatures of ``tbl.lookup`` / ``tbl.update_sampled``.
 
-    sed_decay / table_lookup_age: λ of the staleness decay exp(-λ·age)
-    folded into the stale branch of Eq. 1.  λ = 0 (the default) reads no
-    ages.  ``table_lookup_age(table, graph_ids) -> (B, J)`` reads the
-    per-segment last-refresh step; the default reads ``table.age``.
+    sed_decay: λ of the staleness decay exp(-λ·age) folded into the stale
+    branch of Eq. 1, with the age read from ``table.age``.  λ = 0 (the
+    default) reads no ages.
 
     The step draws the sampled segments and the SED uniforms from
     ``generator``, unless ``draws = (idx (B, S), u (B, J))`` hands them in.
@@ -263,7 +261,6 @@ def make_train_step(
     t_lookup = table_lookup or tbl.lookup
     t_update = table_update or tbl.update_sampled
     use_age = variant.use_sed and variant.use_table and sed_decay > 0.0
-    t_age = table_lookup_age or (lambda table, ids: table.age[ids])
 
     def step(state: TrainState, batch: GSTBatch, generator=None, draws=None):
         B, J = batch.seg_valid.shape
@@ -285,7 +282,7 @@ def make_train_step(
                 batch.seg_valid.dtype)
             if use_age:
                 age_steps = torch.clamp(
-                    state.step - t_age(state.table, batch.graph_ids),
+                    state.step - state.table.age[batch.graph_ids],
                     min=0).float()
         elif variant.recompute_stale:
             with torch.no_grad():
@@ -307,13 +304,19 @@ def make_train_step(
                 eta, drop_mask = seg._sed_from_uniform(
                     torch.as_tensor(draws[1], device=dev), batch.seg_valid,
                     fresh_mask, keep_prob, S)
-            # uninitialized stale -> 0
-            eta = eta * torch.where(fresh_mask > 0, 1.0, stale_valid.float())
-            if age_steps is not None:
-                # staleness decay on the stale branch only — fresh segments
-                # have age 0 by definition (ref.sed_eta's aged formula)
+            if fused_sed:
+                # the sed_pool kernel builds η from the masks and the ages
+                # (_fused_sed_pool); the plain η is never read
+                eta = None
+            else:
+                # uninitialized stale -> 0
                 eta = eta * torch.where(fresh_mask > 0, 1.0,
-                                        torch.exp(-sed_decay * age_steps))
+                                        stale_valid.float())
+                if age_steps is not None:
+                    # staleness decay on the stale branch only — fresh
+                    # segments have age 0 by definition (ref.sed_eta)
+                    eta = eta * torch.where(fresh_mask > 0, 1.0,
+                                            torch.exp(-sed_decay * age_steps))
         elif variant.sampled_only:
             eta = fresh_mask
         elif variant.name == "full":
@@ -413,21 +416,16 @@ def make_eval_step(encode_fn: Callable, *, head_mode: str = "mlp",
     return step
 
 
-def make_refresh_step(encode_fn: Callable,
-                      table_update_all: Optional[Callable] = None):
-    """Algorithm 2 line 12: refresh T with the final backbone (in place).
-
-    table_update_all: alternative writer with the ``tbl.update_all``
-    signature."""
-    t_update_all = table_update_all or tbl.update_all
+def make_refresh_step(encode_fn: Callable):
+    """Algorithm 2 line 12: refresh T with the final backbone (in place)."""
 
     @torch.no_grad()
     def step(state: TrainState, batch: GSTBatch):
         B, J = batch.seg_valid.shape
         h_flat, _ = encode_fn(state.backbone, _flatten_bs(batch.seg_inputs))
         h_all = h_flat.reshape(B, J, -1)
-        table = t_update_all(state.table, batch.graph_ids, h_all,
-                             batch.seg_valid, state.step)
+        table = tbl.update_all(state.table, batch.graph_ids, h_all,
+                               batch.seg_valid, state.step)
         return state._replace(table=table)
 
     return step
@@ -435,8 +433,7 @@ def make_refresh_step(encode_fn: Callable,
 
 def make_finetune_step(optimizer, *, head_mode: str = "mlp",
                        loss_kind: str = "ce", agg: str = "mean",
-                       use_kernels: bool = False,
-                       table_lookup: Optional[Callable] = None):
+                       use_kernels: bool = False):
     """Algorithm 2 lines 13-18: train F' only, inputs from the (fresh) table.
 
     Supports both heads: the MLP graph head F' (pool then predict) and the
@@ -444,10 +441,9 @@ def make_finetune_step(optimizer, *, head_mode: str = "mlp",
     The optimizer state covers the head's parameters only.
     """
     loss_pair = ce_loss if loss_kind == "ce" else pairwise_hinge_loss
-    t_lookup = table_lookup or tbl.lookup
 
     def step(state: TrainState, batch: GSTBatch):
-        h_all, _ = t_lookup(state.table, batch.graph_ids)
+        h_all, _ = tbl.lookup(state.table, batch.graph_ids)
         h_all = h_all.float()
         eta = batch.seg_valid.float()
         if head_mode != "segment_sum":

@@ -18,8 +18,8 @@ telemetry slice.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +44,6 @@ class ExperimentResult:
     use_kernels: bool = True
     finetuned: bool = False      # whether the Algorithm-2 head-finetuning
                                  # phase (lines 11-18) actually ran
-    curve: List[Dict] = field(default_factory=list)
     store_stats: Optional[Dict] = None   # residency counters (store/)
     train_steps: int = 0         # train steps taken (finetune steps apart)
     finetune_steps: int = 0
@@ -117,7 +116,6 @@ def run_experiment(
     num_sampled: int = 1,
     seed: int = 0,
     test_frac: float = 0.25,
-    record_curve: bool = False,
     use_kernels: bool = True,
     device="cuda",
     table_device_rows: Optional[int] = None,
@@ -192,7 +190,6 @@ def run_experiment(
         return to_batch(*tup, dev)._replace(graph_ids=route(tup))
 
     try:
-        curve = []
         iter_times = []
         brng = np.random.default_rng(seed + 3)
         last_train = 0.0
@@ -213,9 +210,6 @@ def run_experiment(
                 ep_metrics.append(float(m["metric"]))
             last_train = float(np.mean(ep_metrics))
             store.refresh_ages(state.table)
-            if record_curve:
-                curve.append({"epoch": epoch, "train": last_train,
-                              "test": evaluate(ds_test, state)})
         train_steps = state.step
 
         # ---- head finetuning phase (Algorithm 2 lines 11-18) -----------------
@@ -232,14 +226,11 @@ def run_experiment(
             ft_step = G.make_finetune_step(
                 ft_opt, head_mode=head_mode, loss_kind=loss_kind, agg=agg,
                 use_kernels=use_kernels)
-            for fe in range(finetune_epochs):
+            for _ in range(finetune_epochs):
                 for tup in Bt.batch_iterator(ds, batch_size, rng=brng):
-                    state, m = ft_step(state, routed(tup))
+                    state, _ = ft_step(state, routed(tup))
                     finetuned = True
                     finetune_steps += 1
-                if record_curve:
-                    curve.append({"epoch": epochs + fe, "train": float(m["metric"]),
-                                  "test": evaluate(ds_test, state)})
             state = state._replace(opt_state=opt.init(G.train_params(state)))
 
         store.flush_writebacks()
@@ -253,5 +244,5 @@ def run_experiment(
         train_metric=last_train,
         test_metric=evaluate(ds_test, state),
         ms_per_iter=ms_per_iter, use_kernels=use_kernels,
-        finetuned=finetuned, curve=curve, store_stats=store_stats,
+        finetuned=finetuned, store_stats=store_stats,
         train_steps=train_steps, finetune_steps=finetune_steps)

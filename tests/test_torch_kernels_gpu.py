@@ -267,50 +267,21 @@ def _train_setup(cuda, backbone="sage", dataset="malnet", sed_decay=0.0):
 def test_train_steps_kernel_path_matches_plain(cuda, backbone, dataset,
                                                decay):
     """Per step: n_mp SpMM forward and n_mp backward launches and one
-    sed_pool (or sed_pool_aged) launch; loss, gradients (from the Adam
-    first moment), parameters and table equal to the plain path on the
-    card given the same draws, each step from the same state.  A parameter
-    element whose gradient is below 1e-6 in both paths is held by its
-    gradient only: Adam's eps (1e-8) turns float noise around an exactly-zero
-    gradient into a step of up to lr."""
-    from repro_torch.core import gst as G
-    from repro_torch.core import segment as seg
+    sed_pool (or sed_pool_aged) launch; loss, gradients, parameters and
+    table equal to the plain path on the card given the same draws, each
+    step from the same state (``repro_torch.core.step_parity``).  The third
+    step shows the first batch again, so stale table entries (and their
+    ages) weigh in Eq. 1."""
+    from repro_torch.core.step_parity import kernel_step_parity
 
     batches, runs = _train_setup(cuda, backbone, dataset, decay)
     (st_k, step_k, cfg), (st_p, step_p, _) = runs[True], runs[False]
-    gen = torch.Generator().manual_seed(1)
     pool = "sed_pool_aged" if decay > 0 else "sed_pool"
-    for i in range(3):
-        batch = batches[i % len(batches)]
-        draws = (seg.sample_segments(gen, batch.seg_valid.cpu(), 1),
-                 torch.rand(batch.seg_valid.shape, generator=gen))
-        mu_prev = [m.clone() for m in st_p.opt_state["mu"]]
-        ops.reset_kernel_launches()
-        st_k, m_k = step_k(st_k, batch, draws=draws)
-        torch.cuda.synchronize()
-        assert ops.kernel_launches() == {
-            "segment_spmm_batched": cfg.n_mp,
-            "segment_spmm_batched_bwd": cfg.n_mp,
-            "sed_pool": int(pool == "sed_pool"),
-            "sed_pool_aged": int(pool == "sed_pool_aged")}
-        st_p, m_p = step_p(st_p, batch, draws=draws)
-        torch.testing.assert_close(m_k["loss"], m_p["loss"], rtol=1e-4,
-                                   atol=1e-5)
-        with torch.no_grad():
-            for pk, pp, mk, mp, m0 in zip(
-                    G.train_params(st_k), G.train_params(st_p),
-                    st_k.opt_state["mu"], st_p.opt_state["mu"], mu_prev):
-                gk, gp = (mk - 0.9 * m0) / 0.1, (mp - 0.9 * m0) / 0.1
-                torch.testing.assert_close(gk, gp, rtol=1e-4, atol=1e-4)
-                held = (gk.abs() >= 1e-6) | (gp.abs() >= 1e-6)
-                torch.testing.assert_close(pk[held], pp[held], rtol=0,
-                                           atol=1e-4)
-            torch.testing.assert_close(st_k.table.emb, st_p.table.emb,
-                                       rtol=1e-5, atol=1e-5)
-            assert torch.equal(st_k.table.age, st_p.table.age)
-            # the next step starts from the same state on both paths
-            for a, b in zip(G.train_params(st_k) + st_k.opt_state["mu"]
-                            + st_k.opt_state["nu"] + list(st_k.table),
-                            G.train_params(st_p) + st_p.opt_state["mu"]
-                            + st_p.opt_state["nu"] + list(st_p.table)):
-                a.copy_(b)
+    _, n_stale = kernel_step_parity(
+        (st_k, step_k), (st_p, step_p), [batches[0], batches[1], batches[0]],
+        torch.Generator().manual_seed(1),
+        {"segment_spmm_batched": cfg.n_mp,
+         "segment_spmm_batched_bwd": cfg.n_mp,
+         "sed_pool": int(pool == "sed_pool"),
+         "sed_pool_aged": int(pool == "sed_pool_aged")})
+    assert n_stale > 0

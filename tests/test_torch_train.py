@@ -156,6 +156,34 @@ def test_eval_refresh_finetune_match_jax(dataset, use_kernels):
     assert st.step == int(js.step) == 2
 
 
+@pytest.mark.parametrize("dataset,decay", [("malnet", 0.0),
+                                           ("tpugraphs", 0.0),
+                                           ("malnet", 0.1)])
+def test_step_parity_kernel_path_matches_plain_path(dataset, decay):
+    """The comparison the card runs (repro_torch.core.step_parity), here
+    with the kernels' plain versions: the fused sed_pool composition (η
+    built from the masks, uninitialized stale slots folded into the drop
+    operand, the ages) against the plain η of the step, over batches 0, 1,
+    0, with stale segments kept; no launch on the CPU."""
+    from repro_torch.core.step_parity import kernel_step_parity
+
+    ds, tups = batches(dataset)
+    pair = Pair(dataset, "sage", n_table=ds.n, j_max=ds.j_max)
+    runs = []
+    for use_kernels in (True, False):
+        _, step = pair.steps("gst_efd", use_kernels=use_kernels,
+                             sed_decay=decay)
+        st = pair.state
+        if use_kernels:     # a state of its own, equal to the plain one
+            st = Pair(dataset, "sage", n_table=ds.n, j_max=ds.j_max).state
+        runs.append((st, step))
+    _, n_stale = kernel_step_parity(
+        runs[0], runs[1], [port_batch(t) for t in (tups[0], tups[1], tups[0])],
+        torch.Generator().manual_seed(1),
+        dict.fromkeys(ops.kernel_launches(), 0))
+    assert n_stale > 0
+
+
 def test_train_step_updates_table_in_place():
     """The twin of test_donated_state_reuses_table_buffer: the step writes
     the table's storage in place, never a copy of the largest tensor."""

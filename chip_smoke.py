@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path and its graph-track training path on the card
-at the repo's full model width (GNNConfig / ServeConfig / run_experiment
-defaults: hidden 64, 2 message-passing layers, max_seg_nodes 64, batch 8)
-with random weights from a seed, and holds each hand-written kernel against
-its plain PyTorch version.  Phases, in order; an error in any of them fails
-the run (none catches its own):
+Drives the port's serving path, its graph-track training path and its
+distributed training path on the card at the repo's full model width
+(GNNConfig / ServeConfig / run_experiment defaults: hidden 64, 2
+message-passing layers, max_seg_nodes 64, batch 8) with random weights from
+a seed, and holds each hand-written kernel against its plain PyTorch
+version.  Phases, in order; an error in any of them fails the run (none
+catches its own):
 
   1. card       the device name and nvidia-smi's name and power limit
   2. build      nvcc builds every kernel source from the checkout, all at
-                once; registers, spills and shared memory from -Xptxas -v
+                once (one nvcc each, in parallel); registers, spills and
+                shared memory from -Xptxas -v
   3. kernel     each kernel vs its plain version, two launches bitwise
                 equal, times (CUDA events) beside the bound from bytes and
                 flops and one PyTorch library call as the yardstick:
@@ -21,7 +23,11 @@ the run (none catches its own):
                 (dh by the same kernel with src and dst swapped, dw in
                 torch) against plain autograd (1e-4); sed_pool and
                 sed_pool_aged at the two training shapes and a 64 MiB
-                stress shape (1e-5)
+                stress shape (1e-5); the six pack / unpack kernels of the
+                compressed exchange BITWISE at the distributed run's own
+                (R, N) (ring and alltoall lookups, bucketed buckets,
+                write-backs), a 40 MiB stress shape and edge cases (R = 1,
+                N not a multiple of 32, zero rows, ±0, nearest-even ties)
   4. serving    the default TrafficConfig replay through ServeEngine on cuda
                 for sage and gcn: kernel launches = encode batches x n_mp,
                 every encoded bucket batch = the plain encoder on the card,
@@ -38,8 +44,24 @@ the run (none catches its own):
                 launch per step; then the run itself: finite metrics, the
                 finetune phase ran, launches as the step counts predict;
                 ms per iteration and peak device memory
-  7. kernels    one JSON line: per kernel, launches on the main path
-                (serving and training), error, times and bound
+  7. dist       train_dist with 4 shards as threads on the card (sage,
+                gst_efd, 64 graphs, batch 8, hidden 64, max_seg_nodes 64):
+                ring / int8, alltoall / bf16, bucketed / int8 with SED age
+                weighting 0.05 (epochs cut from 5 to 3, finetune epochs
+                from 3 to 2).  Each: the first 3 distributed steps of
+                the kernel path = the plain path on the card given the
+                same draws and bits, a stale segment kept, the launches of
+                every shard as the exchange predicts; then the run: finite
+                metrics, the finetune phase ran, every kernel's launches
+                as the step counts predict, the exchange bytes a step as
+                the model; ms per iteration, peak memory, exch KiB.  Then
+                the same f32 run through the three strategies, 2 epochs:
+                identical per-epoch losses.  Then 5 ring / int8 steps
+                under torch.profiler (device busy share), and the wall
+                time of a step at 1, 2 and 4 shards
+  8. kernels    one JSON line: per kernel, launches on the main path
+                (serving, training and distributed training), error,
+                times and bound
 
 It exits nonzero without a result where torch.cuda.is_available() is False
 or where the port's sources are not beside it.  The last line of standard
@@ -84,6 +106,22 @@ SED_SHAPES = [(8, 20, 64), (8, 16, 1), (1024, 64, 256)]
 TRAIN_RUNS = [("malnet", "sage", 0.0), ("tpugraphs", "gcn", 0.0),
               ("malnet", "sage", 0.05)]
 TRAIN_EPOCHS, FINETUNE_EPOCHS = 5, 2     # run_experiment's are 30 and 10
+# the distributed runs: 4 shards as threads on the one card, train_dist's
+# defaults (64 graphs, batch 8) at the graph track's full width, epochs
+# cut from 5 to 3 and finetune epochs from 3 to 2 for time; (exchange,
+# payload dtype, SED age weighting λ)
+DIST_SHARDS = 4
+DIST_EPOCHS, DIST_FINETUNE_EPOCHS = 3, 2
+DIST_ARGS = ["--device", "cuda", "--devices", str(DIST_SHARDS),
+             "--backbone", "sage", "--variant", "gst_efd", "--n-graphs", "64",
+             "--batch-size", "8", "--hidden", "64", "--max-seg-nodes", "64",
+             "--epochs", str(DIST_EPOCHS),
+             "--finetune-epochs", str(DIST_FINETUNE_EPOCHS)]
+DIST_RUNS = [("ring", "int8", 0.0), ("alltoall", "bf16", 0.0),
+             ("bucketed", "int8", 0.05)]
+QUANT_STRESS = (8192, 1280)             # 40 MiB of f32 rows
+# (R, N) edge cases: one row, N not a multiple of 32, a wide ragged row
+QUANT_EDGES = [(1, 4), (3, 33), (2, 1000)]
 
 
 def log(msg: str) -> None:
@@ -162,6 +200,7 @@ def phase_build():
     """Build every csrc/*.cu at once (one nvcc each) and load the wrappers'
     libraries."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels import quant as qt
     from repro_torch.kernels import sed_pool as sp
     from repro_torch.kernels import segment_spmm as spmm
 
@@ -171,6 +210,7 @@ def phase_build():
         paths = list(pool.map(_build.build, names))
     spmm._lib()
     sp._lib()
+    qt._lib()
     log(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.3f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for path in paths:
@@ -191,6 +231,11 @@ def sparse_adjacency(torch, src, dst, w, m):
                        (src.long() + offs).reshape(-1)])
     return torch.sparse_coo_tensor(idx, w.reshape(-1), (N * m, N * m),
                                    check_invariants=True).coalesce()
+
+
+def launched(counts):
+    """The kernels launched at least once (no entry and 0 are the same)."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def bound(n_bytes, flops):
@@ -626,7 +671,7 @@ def phase_training(torch, dev, dataset, backbone, decay):
     want = {"segment_spmm_batched": n_mp * (steps + refresh + evals),
             "segment_spmm_batched_bwd": n_mp * steps, **pools}
     if steps != 7 * TRAIN_EPOCHS or ft != 7 * FINETUNE_EPOCHS \
-            or launches != want:
+            or launched(launches) != launched(want):
         raise AssertionError(f"{dataset}/{backbone}: {steps} steps, {ft} "
                              f"finetune steps, launches {launches}, want "
                              f"{want}")
@@ -643,6 +688,373 @@ def phase_training(torch, dev, dataset, backbone, decay):
                       "base_bytes": base, "seconds": seconds,
                       "launches": launches, "parity_max_param_diff": worst,
                       "parity_stale_kept": n_stale}
+
+
+# ---------------------------------------------------------------------------
+# the compressed exchange's pack and unpack kernels
+# ---------------------------------------------------------------------------
+
+# per element: operations (f32 rate) and bytes beyond the f32 row it reads
+# or writes; int8 adds a 4-byte scale a row
+QUANT_OPS = {"quant_pack_bf16_det": 1, "quant_pack_bf16": 3,
+             "quant_pack_int8_det": 6, "quant_pack_int8": 11,
+             "quant_unpack_bf16": 1, "quant_unpack_int8": 2}
+
+
+def quant_bytes(name, R, N):
+    n = R * N
+    if name == "quant_pack_bf16_det":
+        return n * 4 + n * 2
+    if name == "quant_pack_bf16":
+        return n * 8 + n * 2
+    if name == "quant_pack_int8_det":
+        return n * 4 + n + R * 4
+    if name == "quant_pack_int8":
+        return n * 8 + n + R * 4
+    if name == "quant_unpack_bf16":
+        return n * 2 + n * 4
+    return n + R * 4 + n * 4                     # quant_unpack_int8
+
+
+def quant_inputs(torch, R, N, seed, dev):
+    """Random rows; row 0 zero, row 1 with ±0, nearest-even ties of both
+    grids and amax 127 (an int8 scale of exactly 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(R, N)) * 3.0).astype(np.float32)
+    x[0] = 0.0
+    if R > 1:
+        ties = np.asarray([-0.0, 1.0 + 2.0 ** -8, 63.5, -0.5, 2.5, 1e-30],
+                          np.float32)
+        x[1, :min(N, 6)] = ties[:min(N, 6)]
+        x[1, -1] = 127.0
+    bits = rng.integers(0, 2 ** 32, (R, N), dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(bits).to(dev)
+
+
+def bitwise_equal(torch, a, b):
+    if a.dtype in (torch.bfloat16, torch.float32):
+        view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def dist_geometry():
+    """The distributed runs' (J_max, hidden, bucketed cap), from the run's
+    own set-up."""
+    from repro_torch.launch.train_dist import build_parser, setup
+
+    s = setup(build_parser().parse_args(
+        DIST_ARGS + ["--exchange", "bucketed", "--payload-dtype", "int8"]))
+    return s.ds.j_max, s.args.hidden, s.cap
+
+
+def phase_kernel_quant(torch, dev):
+    """The six pack / unpack kernels against their plain versions, BITWISE,
+    two launches bitwise equal, at the distributed run's own (R, N), the
+    stress shape and the edge cases; timed at the ring's lookup and
+    write-back shapes and the stress shape, beside x.to(bfloat16) and
+    .float() where one call computes the same function (none for int8
+    and for stochastic rounding)."""
+    from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import ref
+
+    j_max, d, cap = dist_geometry()
+    b_local, D = 8 // DIST_SHARDS, DIST_SHARDS
+    shapes = {"lookup (ring)": (b_local, j_max * d),
+              "lookup (alltoall)": (D * b_local, j_max * d),
+              "lookup (bucketed)": (D * cap, j_max * d),
+              "write-back": (b_local, d),
+              "write-back (gathered)": (D * b_local, d),
+              "stress": QUANT_STRESS}
+    shapes.update({f"edge {r}x{n}": (r, n) for r, n in QUANT_EDGES})
+    timed = ("lookup (ring)", "write-back", "stress")
+    log(f"[quant] J_max {j_max}, hidden {d}, bucketed cap {cap}; shapes "
+        + ", ".join(f"{k} {v}" for k, v in shapes.items()))
+    rows = {name: [] for name in QUANT_OPS}
+    for label, (R, N) in shapes.items():
+        x, bits = quant_inputs(torch, R, N, seed=R * 7 + N, dev=dev)
+        for dtype in ("bf16", "int8"):
+            packs = {False: f"quant_pack_{dtype}_det",
+                     True: f"quant_pack_{dtype}"}
+            for stochastic, name in packs.items():
+                b = bits if stochastic else None
+                a1 = qt.quantize_rows(x, dtype, b)
+                a2 = qt.quantize_rows(x, dtype, b)
+                want = ref.quantize_rows_ref(x, dtype, b)
+                torch.cuda.synchronize()
+                for p1, p2, pw in zip(a1, a2, want):
+                    if not bitwise_equal(torch, p1, p2):
+                        raise AssertionError(f"{name} {R}x{N}: two launches "
+                                             "differ")
+                    if not bitwise_equal(torch, p1, pw):
+                        raise AssertionError(f"{name} {R}x{N}: kernel != "
+                                             "plain version")
+                lib = (lambda: x.to(torch.bfloat16)) if name == \
+                    "quant_pack_bf16_det" else None
+                rows[name].append(quant_row(
+                    torch, name, label, R, N, label in timed,
+                    lambda: qt.quantize_rows(x, dtype, b),
+                    lambda: ref.quantize_rows_ref(x, dtype, b), lib))
+            parts = ref.quantize_rows_ref(x, dtype, bits)
+            name = f"quant_unpack_{dtype}"
+            u1 = qt.dequantize_rows(parts, dtype)
+            u2 = qt.dequantize_rows(parts, dtype)
+            uw = ref.dequantize_rows_ref(parts, dtype)
+            torch.cuda.synchronize()
+            if not (bitwise_equal(torch, u1, u2)
+                    and bitwise_equal(torch, u1, uw)):
+                raise AssertionError(f"{name} {R}x{N}: kernel != plain or "
+                                     "two launches differ")
+            lib = (lambda: parts[0].float()) if dtype == "bf16" else None
+            rows[name].append(quant_row(
+                torch, name, label, R, N, label in timed,
+                lambda: qt.dequantize_rows(parts, dtype),
+                lambda: ref.dequantize_rows_ref(parts, dtype), lib))
+    return rows
+
+
+def quant_row(torch, name, label, R, N, timed, fn, plain, library):
+    row = {"shape": {"what": label, "R": R, "N": N}, "max_abs_err": 0.0,
+           "ms": None, "plain_ms": None, "library_ms": None,
+           **bound(quant_bytes(name, R, N), QUANT_OPS[name] * R * N + R)}
+    if timed:
+        iters = 50 if label == "stress" else 100
+        row["ms"] = time_ms(torch, fn, iters)
+        row["plain_ms"] = time_ms(torch, plain, iters)
+        row["library_ms"] = (time_ms(torch, library, iters)
+                             if library is not None else None)
+        log(f"[quant] {name} {label} ({R}, {N}): bitwise equal to the plain "
+            f"version, twice; kernel {row['ms']:.6f} ms, plain "
+            f"{row['plain_ms']:.6f} ms, library "
+            + (f"{row['library_ms']:.6f} ms" if library else "-")
+            + f", bound {row['bound_ms']:.7f} ms ({row['bound_by']}, "
+            f"{row['bytes']} B)")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# distributed training
+# ---------------------------------------------------------------------------
+
+
+def dist_args(exchange, dtype, decay, *extra, shards=DIST_SHARDS):
+    from repro_torch.launch.train_dist import build_parser
+
+    return build_parser().parse_args(
+        DIST_ARGS + ["--exchange", exchange, "--payload-dtype", dtype,
+                     "--sed-age-weighting", str(decay), *extra,
+                     "--devices", str(shards)])
+
+
+def dist_step_launches(ex, n_mp, decay, D):
+    """A distributed train step's launches, all D shards together."""
+    want = {"segment_spmm_batched": D * n_mp,
+            "segment_spmm_batched_bwd": D * n_mp,
+            "sed_pool": D * (decay == 0), "sed_pool_aged": D * (decay > 0)}
+    for op in ("lookup", "update_sampled"):
+        for k, v in ex.codec_launches(op).items():
+            want[k] = want.get(k, 0) + D * v
+    return want
+
+
+def dist_step_parity(torch, exchange, dtype, decay):
+    """The first 3 distributed steps, kernel path against plain path on
+    the card (repro_torch.core.step_parity.dist_step_parity), batches 0, 1
+    and 0 again of the first epoch."""
+    from repro_torch.core.step_parity import dist_step_parity as parity
+    from repro_torch.dist.pipeline import _assemble
+    from repro_torch.launch.train_dist import setup
+
+    runs = []
+    for flag in ("--use-kernels", "--no-use-kernels"):
+        s = setup(dist_args(exchange, dtype, decay, flag))
+        runs.append((s.ctx, s.states, s.step))
+    want = dist_step_launches(runs[0][2].exchanges[0], 2, decay,
+                              DIST_SHARDS)
+    sched = s.train_scheds[0]
+    worst, n_stale = parity(
+        runs[0], runs[1], [_assemble(s.ds, i) for i in (sched[0], sched[1],
+                                                         sched[0])],
+        torch.Generator().manual_seed(1), want)
+    return want, worst, n_stale
+
+
+def phase_dist(torch, exchange, dtype, decay):
+    """Step parity, then train_dist on the card with kernels on (the main
+    path, its launches counted from 0)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_dist import run
+    from repro_torch.dist.exchange import make_exchange
+
+    per_step, worst, n_stale = dist_step_parity(torch, exchange, dtype,
+                                                decay)
+    log(f"[dist] {exchange}/{dtype} λ={decay}: 3 steps kernel path = plain "
+        f"path on {DIST_SHARDS} shards (max param diff {worst:.3e}, "
+        f"{n_stale} stale segments kept); launches a step {per_step}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    r = run(dist_args(exchange, dtype, decay),
+            log=lambda msg, **k: log(f"[dist] run: {msg}"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    if not (r.finetuned and all(map(math.isfinite, (
+            r.train_metric, r.finetune_loss, r.ms_per_iter,
+            *r.epoch_losses)))):
+        raise AssertionError(f"dist {exchange}/{dtype}: bad result {r}")
+    D, n_mp = DIST_SHARDS, 2
+    ex = make_exchange(exchange, num_shards=D, rows=1, cap=r.cap,
+                       payload_dtype=dtype)
+    steps, ft, refresh = r.train_steps, r.finetune_steps, r.refresh_steps
+    evals = 64 // 8
+    want = {"segment_spmm_batched": D * n_mp * (steps + refresh + evals),
+            "segment_spmm_batched_bwd": D * n_mp * steps,
+            "sed_pool": D * (steps * (decay == 0) + ft + evals),
+            "sed_pool_aged": D * steps * (decay > 0)}
+    for op, calls in (("lookup", steps + ft), ("update_sampled", steps),
+                      ("update_all", refresh)):
+        for k, v in ex.codec_launches(op).items():
+            want[k] = want.get(k, 0) + D * calls * v
+    got = launched(launches)
+    if got != launched(want):
+        raise AssertionError(f"dist {exchange}/{dtype}: launches {launches}, "
+                             f"want {want}")
+    per_epoch = steps // len(r.epoch_losses)
+    step_bytes = [b / per_epoch for b in r.epoch_exchange_bytes]
+    if decay == 0 and any(b != r.step_bytes_model for b in step_bytes):
+        raise AssertionError(f"dist {exchange}/{dtype}: {step_bytes} bytes a "
+                             f"step, model {r.step_bytes_model}")
+    log(f"[dist] {exchange}/{dtype} λ={decay}: {steps} train + {ft} finetune "
+        f"steps in {seconds:.3f} s, train metric {r.train_metric:.4f}, "
+        f"{r.ms_per_iter:.6f} ms/iter, exch {step_bytes[-1] / 1024:.3f} KiB "
+        f"a step a shard (model {r.step_bytes_model / 1024:.3f}), peak device "
+        f"memory {peak} B above the {base} B allocated before; launches "
+        f"{got}")
+    return launches, {"exchange": exchange, "payload_dtype": dtype,
+                      "sed_age_weighting": decay, "shards": D,
+                      "cap": r.cap, "train_steps": steps,
+                      "finetune_steps": ft, "epoch_losses": r.epoch_losses,
+                      "train_metric": r.train_metric,
+                      "ms_per_iter": r.ms_per_iter,
+                      "exch_bytes_per_step_per_shard": step_bytes[-1],
+                      "exch_bytes_model": r.step_bytes_model,
+                      "peak_bytes": peak, "base_bytes": base,
+                      "seconds": seconds, "launches": got,
+                      "parity_max_param_diff": worst,
+                      "parity_stale_kept": n_stale}
+
+
+def phase_dist_f32_strategies(torch):
+    """The same f32 run through the three strategies, 2 epochs: the
+    per-epoch losses (and the train metric) must be identical (the
+    reference's bit-exact exchange contract)."""
+    from repro_torch.launch.train_dist import run
+
+    out = {}
+    for exchange in ("ring", "alltoall", "bucketed"):
+        r = run(dist_args(exchange, "f32", 0.0, "--epochs", "2",
+                          "--finetune-epochs", "1"), log=lambda *a, **k: None)
+        out[exchange] = (r.epoch_losses, r.train_metric)
+    if not out["ring"] == out["alltoall"] == out["bucketed"]:
+        raise AssertionError(f"f32 strategies differ: {out}")
+    log(f"[dist] f32, 2 epochs: per-epoch losses {out['ring'][0]} and train "
+        f"metric {out['ring'][1]} identical through ring, alltoall and "
+        "bucketed")
+    return out["ring"][0]
+
+
+def phase_dist_profile(torch, n_steps=5):
+    """Where a distributed step's time goes (ring / int8, 4 shards):
+    torch.profiler over ``n_steps`` kernel-path steps after 3 warm-up
+    steps; device events a step, their summed device time, the
+    hand-written kernels' share, and the wall time under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist.pipeline import _assemble
+    from repro_torch.graphs.experiment import epoch_generator
+    from repro_torch.launch.train_dist import setup
+
+    s = setup(dist_args("ring", "int8", 0.0))
+    gens = [epoch_generator(0, 0) for _ in range(DIST_SHARDS)]
+    batches = [s.put(_assemble(s.ds, ids))
+               for ids in s.train_scheds[0][:3 + n_steps]]
+    states = s.states
+    for b in batches[:3]:
+        states, _ = s.step(states, b, gens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[3:]:
+            states, _ = s.step(states, b, gens)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    ours = [e for e in dev_events if "segment_spmm_fwd_kernel" in e.name
+            or "sed_pool_fwd_kernel" in e.name or "pack_" in e.name
+            or "unpack_" in e.name]
+    ours_us = sum(e.time_range.elapsed_us() for e in ours)
+    out = {"steps": n_steps, "shards": DIST_SHARDS,
+           "device_events_per_step": len(dev_events) / n_steps,
+           "device_busy_ms_per_step": busy_us / n_steps / 1e3,
+           "wall_ms_per_step": wall_us / n_steps / 1e3,
+           "busy_share": busy_us / wall_us,
+           "handwritten_launches_per_step": len(ours) / n_steps,
+           "handwritten_ms_per_step": ours_us / n_steps / 1e3}
+    log(f"[profile] {n_steps} distributed steps (ring / int8, "
+        f"{DIST_SHARDS} shards): {out['device_events_per_step']:.1f} device "
+        f"events a step, device busy {out['device_busy_ms_per_step']:.6f} ms "
+        f"of {out['wall_ms_per_step']:.6f} ms wall (busy share "
+        f"{out['busy_share']:.4f}), hand-written kernels "
+        f"{out['handwritten_launches_per_step']:.1f} launches "
+        f"{out['handwritten_ms_per_step']:.6f} ms a step")
+    return out
+
+
+def phase_dist_scaling(torch, n_steps=5):
+    """Wall ms of one distributed step (ring / int8; f32 at one shard, where
+    the codec is pinned) at 1, 2 and 4 shards as threads, no profiler, and
+    at 4 shards again with the interpreter's thread switch interval cut
+    from its default to 0.1 ms: how the shards' host dispatch shares the
+    interpreter lock."""
+    from repro_torch.dist.pipeline import _assemble
+    from repro_torch.graphs.experiment import epoch_generator
+    from repro_torch.launch.train_dist import setup
+
+    out = {}
+    default = sys.getswitchinterval()
+    for shards, interval in ((1, default), (2, default), (4, default),
+                             (4, 1e-4)):
+        s = setup(dist_args("ring", "int8", 0.0, shards=shards))
+        gens = [epoch_generator(0, 0) for _ in range(shards)]
+        batches = [s.put(_assemble(s.ds, ids))
+                   for ids in s.train_scheds[0][:3 + n_steps]]
+        states = s.states
+        sys.setswitchinterval(interval)
+        try:
+            times = []
+            for b in batches:
+                t0 = time.perf_counter()
+                states, _ = s.step(states, b, gens)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            sys.setswitchinterval(default)
+        key = f"{shards} shards, switch interval {interval * 1e3:g} ms"
+        out[key] = statistics.median(times[3:])
+    log("[profile] ms a distributed step (median of "
+        f"{n_steps} after 3 warm-up): " + ", ".join(
+            f"{k}: {v:.6f}" for k, v in out.items()))
+    return out
 
 
 def kernel_entry(name, source, replaces, launches, rows, headline):
@@ -679,6 +1091,7 @@ def main() -> int:
     bwd_rows = phase_kernel_bwd(torch, dev)
     sed_rows = phase_kernel_sed(torch, dev, aged=False)
     aged_rows = phase_kernel_sed(torch, dev, aged=True)
+    quant_rows = phase_kernel_quant(torch, dev)
     main_launches = {}
     serving = []
     for backbone in ("sage", "gcn"):
@@ -688,7 +1101,8 @@ def main() -> int:
         serving.append(summary)
     phase_streaming(torch, dev)
     log(f"[training] epochs cut from 30 to {TRAIN_EPOCHS}, finetune epochs "
-        f"from 10 to {FINETUNE_EPOCHS}, for time")
+        f"from 10 to {FINETUNE_EPOCHS}, for time; distributed epochs from 5 "
+        f"to {DIST_EPOCHS}, finetune epochs from 3 to {DIST_FINETUNE_EPOCHS}")
     training = []
     for dataset, backbone, decay in TRAIN_RUNS:
         launches, summary = phase_training(torch, dev, dataset, backbone,
@@ -697,7 +1111,17 @@ def main() -> int:
             main_launches[k] = main_launches.get(k, 0) + v
         training.append(summary)
 
+    dist = []
+    for exchange, dtype, decay in DIST_RUNS:
+        launches, summary = phase_dist(torch, exchange, dtype, decay)
+        for k, v in launches.items():
+            main_launches[k] = main_launches.get(k, 0) + v
+        dist.append(summary)
+    f32_losses = phase_dist_f32_strategies(torch)
+
     profile = phase_profile(torch, dev)
+    dist_profile = phase_dist_profile(torch)
+    dist_scaling = phase_dist_scaling(torch)
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -716,11 +1140,23 @@ def main() -> int:
                      "src/repro/kernels/sed_pool.py:40",
                      main_launches["sed_pool_aged"], aged_rows, 0),
     ]
+    quant_src = "src/repro/kernels/quant.py:"
+    for kernel, line, headline in (
+            ("quant_pack_bf16", 139, 3), ("quant_pack_bf16_det", 143, 0),
+            ("quant_pack_int8", 147, 3), ("quant_pack_int8_det", 153, 0),
+            ("quant_unpack_bf16", 159, 0), ("quant_unpack_int8", 163, 0)):
+        kernels.append(kernel_entry(kernel, csrc + "quant.cu",
+                                    quant_src + str(line),
+                                    main_launches.get(kernel, 0),
+                                    quant_rows[kernel], headline))
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
     log(json.dumps({"serving": serving, "training": training,
-                    "profile": profile, "card": smi,
+                    "profile": profile, "dist": dist,
+                    "dist_f32_epoch_losses": f32_losses,
+                    "dist_profile": dist_profile,
+                    "dist_scaling_ms": dist_scaling, "card": smi,
                     "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -4,13 +4,17 @@ Counterpart of ``src/repro/core/embedding_table.py``: the table, its
 graph-addressed reads and writes (the train, refresh and finetune steps)
 and its slot-addressed view (the serving cache).  Where the JAX package
 donates the table through jit, the port updates it in place under
-``torch.no_grad()``: a write costs no copy of the table.  ``mode="drop"``
-(writes that skip rows owned by another shard) lands with the distributed
-slice.
+``torch.no_grad()``: a write costs no copy of the table.
+
+``mode="drop"`` on the writes is the counterpart of JAX's ``.at[].set(...,
+mode="drop")``: rows outside ``[0, n)`` are skipped, which is how a table
+shard ignores the rows another shard owns (the distributed exchange points
+them at row ``n``).  torch raises on such rows instead, so the drop is a
+selection made explicitly, before the scatter.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,14 +41,30 @@ def lookup(table: EmbeddingTable, graph_ids: torch.Tensor
     return table.emb[graph_ids], table.initialized[graph_ids]
 
 
+def _in_range(table: EmbeddingTable, graph_ids: torch.Tensor, mode):
+    """Positions of the rows a write keeps: all of them, or (``mode="drop"``)
+    those inside the table."""
+    if mode is None:
+        return None
+    if mode != "drop":
+        raise ValueError(f"mode must be None or 'drop', not {mode!r}")
+    n = table.emb.shape[0]
+    return torch.nonzero((graph_ids >= 0) & (graph_ids < n)).reshape(-1)
+
+
 @torch.no_grad()
 def update_sampled(table: EmbeddingTable, graph_ids: torch.Tensor,
                    seg_idx: torch.Tensor, h_new: torch.Tensor,
-                   step: int) -> EmbeddingTable:
+                   step: int, *, mode: Optional[str] = None) -> EmbeddingTable:
     """Write back fresh embeddings of the sampled segments, in place.
 
     graph_ids: (B,); seg_idx: (B, S); h_new: (B, S, d) (written detached).
+    ``mode="drop"`` skips rows outside the table.
     """
+    keep = _in_range(table, graph_ids, mode)
+    if keep is not None:
+        graph_ids, seg_idx, h_new = graph_ids[keep], seg_idx[keep], h_new[keep]
+    graph_ids, seg_idx = graph_ids.long(), seg_idx.long()
     b_idx = graph_ids[:, None].expand(seg_idx.shape)
     table.emb[b_idx, seg_idx] = h_new.to(table.emb.dtype)
     table.age[b_idx, seg_idx] = step
@@ -55,10 +75,14 @@ def update_sampled(table: EmbeddingTable, graph_ids: torch.Tensor,
 @torch.no_grad()
 def update_all(table: EmbeddingTable, graph_ids: torch.Tensor,
                h_all: torch.Tensor, seg_valid: torch.Tensor,
-               step: int) -> EmbeddingTable:
+               step: int, *, mode: Optional[str] = None) -> EmbeddingTable:
     """Refresh every segment of the given graphs, in place (the
     head-finetuning phase): emb from h_all (B, J, d), initialized from
-    seg_valid (B, J)."""
+    seg_valid (B, J).  ``mode="drop"`` skips rows outside the table."""
+    keep = _in_range(table, graph_ids, mode)
+    if keep is not None:
+        graph_ids, h_all, seg_valid = graph_ids[keep], h_all[keep], seg_valid[keep]
+    graph_ids = graph_ids.long()
     table.emb[graph_ids] = h_all.to(table.emb.dtype)
     table.age[graph_ids] = step
     table.initialized[graph_ids] = seg_valid.bool()

@@ -20,8 +20,14 @@ the new ``TrainState`` (the same modules and table, the next host step).
 Randomness comes from an explicit ``torch.Generator``, or from an injected
 draw ``(idx (B, S), u (B, J))``: the parity tests pass JAX's own draws,
 ``split(fold_in(rng, step))`` as ``src/repro/core/gst.py:248-284`` makes
-them.  The data-parallel ``axis_name`` (pmean) and per-row keys land with
-the distributed slice.
+them.
+
+Data parallelism (``dist/train.py``): where the JAX step takes an
+``axis_name`` and ``pmean``s over it inside ``shard_map``, the port's
+steps take a ``comm`` (``dist/comm.py``) and average the gradients, the
+loss and the metric through ``comm.all_reduce_mean``; a batch carrying
+``batch_pos`` draws per row (``segment.per_row_keys``), so every shard
+samples what the single-device step samples for its rows.
 """
 from __future__ import annotations
 
@@ -141,11 +147,16 @@ class GSTBatch(NamedTuple):
     seg_valid:  (B, J_max) float32 1/0.
     graph_ids:  (B,) int64 row in the historical table.
     labels:     (B,) int32 (ce) or float32 (ranking).
+    batch_pos:  optional (B,) int64 CPU tensor, each row's position in the
+                GLOBAL batch: the draws are then made per row
+                (``segment.per_row_keys``), so a data-parallel shard of the
+                batch samples what the whole batch samples on one device.
     """
     seg_inputs: Any
     seg_valid: torch.Tensor
     graph_ids: torch.Tensor
     labels: torch.Tensor
+    batch_pos: Optional[torch.Tensor] = None
 
 
 class TrainState(NamedTuple):
@@ -208,6 +219,21 @@ def _mlp_loss(loss_pair, loss_kind, out, labels):
     return loss_pair(out[..., 0] if out.dim() > 1 else out, labels)
 
 
+def _pmean(comm, tensors):
+    """The mean of each tensor over the shards of ``comm`` (JAX's
+    ``jax.lax.pmean``), through ONE ``all_reduce_mean`` of the tensors
+    flattened into one f32 vector; the tensors as they are without a comm."""
+    if comm is None:
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    mean = comm.all_reduce_mean(flat)
+    out, at = [], 0
+    for t in tensors:
+        out.append(mean[at:at + t.numel()].reshape(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
+
+
 def _grads(loss, params):
     """d loss / d params; zeros for a parameter the loss does not reach
     (as jax.grad gives)."""
@@ -235,7 +261,9 @@ def make_train_step(
     use_kernels: bool = False,
     table_lookup: Optional[Callable] = None,
     table_update: Optional[Callable] = None,
+    table_lookup_age: Optional[Callable] = None,
     sed_decay: float = 0.0,
+    comm=None,
 ):
     """Returns ``step(state, batch, generator=None, draws=None) -> (state,
     metrics)`` implementing Algorithm 1 (gst*) / Algorithm 2 lines 1-10
@@ -248,12 +276,19 @@ def make_train_step(
     table_lookup / table_update: alternative historical-table accessors
     with the signatures of ``tbl.lookup`` / ``tbl.update_sampled``.
 
-    sed_decay: λ of the staleness decay exp(-λ·age) folded into the stale
-    branch of Eq. 1, with the age read from ``table.age``.  λ = 0 (the
-    default) reads no ages.
+    sed_decay / table_lookup_age: λ of the staleness decay exp(-λ·age)
+    folded into the stale branch of Eq. 1.  ``table_lookup_age(table,
+    graph_ids) -> (B, J)`` reads the per-segment step of the last write
+    (the distributed step injects its exchange's ``lookup_ages``); the
+    default reads ``table.age``.  λ = 0 (the default) reads no ages.
+
+    comm: the shard's communicator when the step is one shard of a
+    data-parallel step: gradients, loss and metric are averaged over the
+    shards before the (replicated) optimizer update.
 
     The step draws the sampled segments and the SED uniforms from
-    ``generator``, unless ``draws = (idx (B, S), u (B, J))`` hands them in.
+    ``generator`` (per row where the batch carries ``batch_pos``), unless
+    ``draws = (idx (B, S), u (B, J))`` hands them in.
     """
     S = num_sampled
     loss_pair = ce_loss if loss_kind == "ce" else pairwise_hinge_loss
@@ -261,14 +296,24 @@ def make_train_step(
     t_lookup = table_lookup or tbl.lookup
     t_update = table_update or tbl.update_sampled
     use_age = variant.use_sed and variant.use_table and sed_decay > 0.0
+    t_age = table_lookup_age or (lambda table, ids: table.age[ids])
+    n_shards = 1 if comm is None else comm.size
 
     def step(state: TrainState, batch: GSTBatch, generator=None, draws=None):
         B, J = batch.seg_valid.shape
         dev = batch.seg_valid.device
         if draws is None and generator is None:
             raise ValueError("the train step needs a generator or draws")
+        row_keys = None
+        if draws is None and batch.batch_pos is not None:
+            row_keys = seg.per_row_keys(generator, batch.batch_pos,
+                                        B * n_shards)
         if draws is None:
-            idx = seg.sample_segments(generator, batch.seg_valid, S)  # (B, S)
+            if row_keys is None:
+                idx = seg.sample_segments(generator, batch.seg_valid, S)
+            else:
+                idx = seg.sample_segments_rowwise(row_keys, batch.seg_valid,
+                                                  S)                # (B, S)
         else:
             idx = torch.as_tensor(draws[0], device=dev).long()
         fresh_mask = seg.sampled_mask(idx, J) * batch.seg_valid       # (B, J)
@@ -282,7 +327,7 @@ def make_train_step(
                 batch.seg_valid.dtype)
             if use_age:
                 age_steps = torch.clamp(
-                    state.step - state.table.age[batch.graph_ids],
+                    state.step - t_age(state.table, batch.graph_ids),
                     min=0).float()
         elif variant.recompute_stale:
             with torch.no_grad():
@@ -297,9 +342,12 @@ def make_train_step(
         # ---- SED / η weights (Eq. 1) ------------------------------------
         drop_mask = None
         if variant.use_sed:
-            if draws is None:
+            if draws is None and row_keys is None:
                 eta, drop_mask = seg.sed_weights(generator, batch.seg_valid,
                                                  fresh_mask, keep_prob, S)
+            elif draws is None:
+                eta, drop_mask = seg.sed_weights_rowwise(
+                    row_keys, batch.seg_valid, fresh_mask, keep_prob, S)
             else:
                 eta, drop_mask = seg._sed_from_uniform(
                     torch.as_tensor(draws[1], device=dev), batch.seg_valid,
@@ -369,6 +417,10 @@ def make_train_step(
                                          batch.labels)
             total = loss + aux_weight * aux
         grads = _grads(total, params)
+        # data-parallel: per-shard means -> global means (the replicas stay
+        # equal because every shard applies the same averaged update)
+        *grads, total, metric = _pmean(comm, grads + [total.detach(),
+                                                      metric.detach()])
         _, new_opt, opt_metrics = optimizer.update(params, grads,
                                                    state.opt_state)
 
@@ -388,8 +440,9 @@ def make_train_step(
 
 def make_eval_step(encode_fn: Callable, *, head_mode: str = "mlp",
                    loss_kind: str = "ce", agg: str = "mean",
-                   use_kernels: bool = False):
-    """Test-time: every segment fresh (paper's P(⊕ h_j, y) distribution)."""
+                   use_kernels: bool = False, comm=None):
+    """Test-time: every segment fresh (paper's P(⊕ h_j, y) distribution).
+    ``comm``: loss and metric averaged over the shards."""
     loss_pair = ce_loss if loss_kind == "ce" else pairwise_hinge_loss
 
     @torch.no_grad()
@@ -411,21 +464,27 @@ def make_eval_step(encode_fn: Callable, *, head_mode: str = "mlp",
                 h_graph = seg.aggregate(h_all, eta, batch.seg_valid, agg)
             out = head_apply(state.head, h_graph, "mlp")
             loss, metric = _mlp_loss(loss_pair, loss_kind, out, batch.labels)
+        loss, metric = _pmean(comm, [loss, metric])
         return {"loss": loss, "metric": metric}
 
     return step
 
 
-def make_refresh_step(encode_fn: Callable):
-    """Algorithm 2 line 12: refresh T with the final backbone (in place)."""
+def make_refresh_step(encode_fn: Callable,
+                      table_update_all: Optional[Callable] = None):
+    """Algorithm 2 line 12: refresh T with the final backbone (in place).
+
+    table_update_all: alternative writer with the ``tbl.update_all``
+    signature (the distributed step injects its exchange's)."""
+    t_update_all = table_update_all or tbl.update_all
 
     @torch.no_grad()
     def step(state: TrainState, batch: GSTBatch):
         B, J = batch.seg_valid.shape
         h_flat, _ = encode_fn(state.backbone, _flatten_bs(batch.seg_inputs))
         h_all = h_flat.reshape(B, J, -1)
-        table = tbl.update_all(state.table, batch.graph_ids, h_all,
-                               batch.seg_valid, state.step)
+        table = t_update_all(state.table, batch.graph_ids, h_all,
+                             batch.seg_valid, state.step)
         return state._replace(table=table)
 
     return step
@@ -433,17 +492,21 @@ def make_refresh_step(encode_fn: Callable):
 
 def make_finetune_step(optimizer, *, head_mode: str = "mlp",
                        loss_kind: str = "ce", agg: str = "mean",
-                       use_kernels: bool = False):
+                       use_kernels: bool = False,
+                       table_lookup: Optional[Callable] = None, comm=None):
     """Algorithm 2 lines 13-18: train F' only, inputs from the (fresh) table.
 
     Supports both heads: the MLP graph head F' (pool then predict) and the
     per-segment scalar head of the TpuGraphs track (predict then Σ / mean).
     The optimizer state covers the head's parameters only.
+    ``table_lookup`` (the distributed step injects its exchange's) and
+    ``comm`` as in ``make_train_step``.
     """
     loss_pair = ce_loss if loss_kind == "ce" else pairwise_hinge_loss
+    t_lookup = table_lookup or tbl.lookup
 
     def step(state: TrainState, batch: GSTBatch):
-        h_all, _ = tbl.lookup(state.table, batch.graph_ids)
+        h_all, _ = t_lookup(state.table, batch.graph_ids)
         h_all = h_all.float()
         eta = batch.seg_valid.float()
         if head_mode != "segment_sum":
@@ -467,6 +530,8 @@ def make_finetune_step(optimizer, *, head_mode: str = "mlp",
                 loss, metric = _mlp_loss(loss_pair, loss_kind, out,
                                          batch.labels)
         grads = _grads(loss, params)
+        *grads, loss, metric = _pmean(comm, grads + [loss.detach(),
+                                                     metric.detach()])
         _, new_opt, _ = optimizer.update(params, grads, state.opt_state)
         return state._replace(opt_state=new_opt, step=state.step + 1), \
             {"loss": loss.detach(), "metric": metric.detach()}

@@ -13,13 +13,20 @@ SED weights (Eq. 1), with keep probability p and S backprop segments:
 Randomness comes from an explicit ``torch.Generator``.  It gives other
 numbers than ``jax.random`` from the same seed, so the parity tests hand
 both packages the same draws: the sampled indices, and the uniforms ``u``
-that ``_sed_from_uniform`` takes.  The per-row keys of the distributed
-step (``per_row_keys`` and the ``*_rowwise`` draws) land with the
-distributed slice.
+that ``_sed_from_uniform`` takes.
+
+Per-row draws (the distributed step): the JAX package derives one key per
+batch row from its GLOBAL batch position (``per_row_keys``), so a shard of
+the batch samples what the single-device step samples for the same rows.
+A ``torch.Generator`` has no keys to fold, so the port gets the same
+property another way: every shard draws the WHOLE global batch's noise
+from the step's generator (all shards hold generators in the same state)
+and keeps its own rows by ``batch_pos``.  Each row then gets exactly the
+draw the single-device step gives it.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -37,6 +44,58 @@ def sample_segments(generator: torch.Generator, seg_valid: torch.Tensor,
     scores = torch.where(seg_valid > 0, gumbel.to(seg_valid.device),
                          torch.tensor(float("-inf"), device=seg_valid.device))
     return torch.topk(scores, num_sampled, dim=-1).indices
+
+
+class RowKeys(NamedTuple):
+    """The per-row draw source of a shard: the step's generator, the rows'
+    positions in the global batch, and the global batch's row count."""
+    generator: torch.Generator
+    batch_pos: torch.Tensor      # (B_local,) int64, on the CPU
+    n_global: int
+
+
+def per_row_keys(generator: torch.Generator, batch_pos: torch.Tensor,
+                 n_global: int) -> RowKeys:
+    """The counterpart of ``src/repro/core/segment.py::per_row_keys``:
+    rows keyed by their global position ``batch_pos`` (just ``arange(B)``
+    on one device) in a global batch of ``n_global`` rows."""
+    return RowKeys(generator, torch.as_tensor(batch_pos).long().cpu(),
+                   int(n_global))
+
+
+def _rows_of_global(keys: RowKeys, draw) -> torch.Tensor:
+    """Draw the global (n_global, J) noise with ``draw`` on the generator's
+    device and keep the shard's rows."""
+    return draw(keys.n_global)[keys.batch_pos.to(keys.generator.device)]
+
+
+def sample_segments_rowwise(row_keys: RowKeys, seg_valid: torch.Tensor,
+                            num_sampled: int) -> torch.Tensor:
+    """``sample_segments`` for the shard's rows of the global batch: the
+    Gumbel noise of the global batch, the shard's rows of it."""
+    J = seg_valid.shape[-1]
+    gen = row_keys.generator
+
+    def draw(n):
+        e = torch.empty((n, J), device=gen.device)
+        return -torch.log(e.exponential_(generator=gen))
+
+    gumbel = _rows_of_global(row_keys, draw)
+    scores = torch.where(seg_valid > 0, gumbel.to(seg_valid.device),
+                         torch.tensor(float("-inf"), device=seg_valid.device))
+    return torch.topk(scores, num_sampled, dim=-1).indices
+
+
+def sed_weights_rowwise(row_keys: RowKeys, seg_valid, fresh_mask,
+                        keep_prob: float, num_sampled: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sed_weights`` for the shard's rows of the global batch."""
+    J = seg_valid.shape[-1]
+    gen = row_keys.generator
+    u = _rows_of_global(row_keys, lambda n: torch.rand(
+        (n, J), generator=gen, device=gen.device))
+    return _sed_from_uniform(u.to(seg_valid.device), seg_valid, fresh_mask,
+                             keep_prob, num_sampled)
 
 
 def sampled_mask(idx: torch.Tensor, J: int) -> torch.Tensor:

@@ -1,0 +1,265 @@
+"""Data-parallel GST training with the row-sharded table.
+
+Counterpart of ``src/repro/dist/train.py:54-391`` (without the prefetch
+lane).  Where the JAX package wraps the unchanged step functions of
+``core/gst.py`` in ``shard_map``, the port runs one step per shard, each
+in its own thread (``LocalGroup``) or process (``ProcessGroup``), with:
+
+  * backbone, head and AdamW state REPLICATED: every shard keeps its own
+    replica and applies the same averaged gradients, so after each step
+    all replicas are bitwise equal;
+  * the historical table ROW-SHARDED: shard k holds rows [k·R, (k+1)·R)
+    as its own (R, J, d) tensors, reached through the context's exchange
+    strategy (``dist/exchange.py``);
+  * the batch split on its leading dim, each row carrying its global
+    position ``batch_pos``, so every row draws what the single-device
+    step draws for it (``core/segment.py::per_row_keys``);
+  * gradients, loss and metric averaged over the shards inside the step
+    (``core/gst.py``'s ``comm``).
+
+A distributed state is the list of the shards' ``TrainState``s held by
+this process, in local order; a distributed batch the list of their
+batches.  The kernels run per shard unchanged: each shard hands them its
+(B/D)·S segments and they never see the other shards.
+"""
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import embedding_table as tbl
+from repro_torch.core import gst as G
+from repro_torch.dist import table as dtbl
+from repro_torch.dist.exchange import (EXCHANGES, PAYLOAD_DTYPES, Exchange,
+                                       make_exchange)
+from repro_torch.store import DeviceStore, EmbeddingStore
+
+
+# ---------------------------------------------------------------------------
+# context
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DistContext:
+    """Static facts every distributed step needs."""
+    group: Any                 # comm.LocalGroup or comm.ProcessGroup
+    num_shards: int
+    n_rows: int                # unpadded historical-table rows
+    rows_per_shard: int
+    # table-exchange strategy: "ring", "alltoall" or "bucketed" ("auto" is
+    # resolved by the launcher with select_exchange before make_context)
+    exchange: str = "ring"
+    # bucketed only: host-planned per-(shard, owner) bucket capacity
+    exchange_cap: Optional[int] = None
+    # wire format of the exchanged embeddings: "f32", "bf16" or "int8"
+    payload_dtype: str = "f32"
+    # pack/unpack through the kernels (False: their plain versions)
+    use_kernels: bool = True
+
+    @property
+    def device(self) -> torch.device:
+        return self.group.device
+
+    @property
+    def local_ranks(self) -> List[int]:
+        return self.group.local_ranks
+
+
+def make_context(group, n_rows: int, *, exchange: str = "ring",
+                 exchange_cap: Optional[int] = None,
+                 payload_dtype: str = "f32",
+                 use_kernels: bool = True) -> DistContext:
+    if exchange not in EXCHANGES:
+        raise ValueError(
+            f"unknown exchange strategy {exchange!r}: expected one of "
+            f"{EXCHANGES}; resolve 'auto' with exchange.select_exchange "
+            "before make_context")
+    if payload_dtype not in PAYLOAD_DTYPES:
+        raise ValueError(f"unknown payload dtype {payload_dtype!r}: expected "
+                         f"one of {PAYLOAD_DTYPES}")
+    d = group.size
+    return DistContext(group=group, num_shards=d, n_rows=n_rows,
+                       rows_per_shard=dtbl.rows_per_shard(n_rows, d),
+                       exchange=exchange, exchange_cap=exchange_cap,
+                       payload_dtype=payload_dtype, use_kernels=use_kernels)
+
+
+def make_dist_store(ctx: DistContext, j_max: int, d_h: int,
+                    dtype=torch.float32) -> EmbeddingStore:
+    """The context's embedding store: the device-resident backend, split
+    over the shards (the tiered store is not ported yet)."""
+    return DeviceStore(ctx.n_rows, j_max, d_h, num_shards=ctx.num_shards,
+                       dtype=dtype, device=ctx.device)
+
+
+def make_shard_exchange(ctx: DistContext, comm) -> Exchange:
+    return make_exchange(ctx.exchange, comm=comm, num_shards=ctx.num_shards,
+                         rows=ctx.rows_per_shard, cap=ctx.exchange_cap,
+                         payload_dtype=ctx.payload_dtype,
+                         use_kernels=ctx.use_kernels)
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+
+def replicate(state: G.TrainState, table, device) -> G.TrainState:
+    """A replica of ``state``'s modules and optimizer state on ``device``,
+    holding ``table``."""
+    opt = state.opt_state
+    opt = dict(opt, mu=[m.detach().clone().to(device) for m in opt["mu"]],
+               nu=[v.detach().clone().to(device) for v in opt["nu"]])
+    return G.TrainState(copy.deepcopy(state.backbone).to(device),
+                        copy.deepcopy(state.head).to(device), opt, table,
+                        state.step)
+
+
+def device_state(ctx: DistContext, state: G.TrainState,
+                 store: Optional[EmbeddingStore] = None) -> List[G.TrainState]:
+    """One replica of everything but the table for each shard this process
+    holds, with the shard's rows of ``state.table`` (the full dense table);
+    with a ``store`` the store seeds the shards' tables."""
+    if store is not None:
+        tables = store.restore(state.table, ctx.local_ranks)
+    else:
+        shards = dtbl.split_table(state.table, ctx.num_shards)
+        tables = [tbl.EmbeddingTable(*(t.to(ctx.device) for t in shards[k]))
+                  for k in ctx.local_ranks]
+    return [replicate(state, t, ctx.device) for t in tables]
+
+
+def host_table(ctx: DistContext, states: List[G.TrainState]):
+    """The full table from every shard's rows, on the host, padding
+    stripped (every shard must be in this process)."""
+    if len(states) != ctx.num_shards:
+        raise ValueError("host_table needs every shard in this process")
+    return dtbl.join_tables([tuple(t.cpu() for t in s.table) for s in states],
+                            ctx.n_rows)
+
+
+def shard_batch(ctx: DistContext, batch: G.GSTBatch) -> List[G.GSTBatch]:
+    """A host batch (numpy arrays) -> this process's shards' slices on the
+    device, each row carrying its global position ``batch_pos`` (a CPU
+    tensor), so the shards draw what the single-device step draws."""
+    B = batch.seg_valid.shape[0]
+    if B % ctx.num_shards:
+        raise ValueError(f"batch size {B} must divide over {ctx.num_shards} "
+                         "shards (drop-last batching guarantees this)")
+    pos = np.arange(B) if batch.batch_pos is None else np.asarray(
+        batch.batch_pos)
+    b = B // ctx.num_shards
+    dev = ctx.device
+
+    def put(x, sl, dtype=None):
+        a = np.ascontiguousarray(np.asarray(x)[sl])
+        t = torch.from_numpy(a if dtype is None else a.astype(dtype))
+        return t.to(dev)
+
+    out = []
+    for k in ctx.local_ranks:
+        sl = slice(k * b, (k + 1) * b)
+        out.append(G.GSTBatch(
+            {n: put(v, sl) for n, v in batch.seg_inputs.items()},
+            put(batch.seg_valid, sl), put(batch.graph_ids, sl, np.int64),
+            put(batch.labels, sl),
+            torch.from_numpy(pos[sl].astype(np.int64))))
+    return out
+
+
+def _shard_draws(draws, batch: G.GSTBatch):
+    """The shard's rows of the GLOBAL batch's injected (idx, u) draws."""
+    if draws is None:
+        return None
+    pos = batch.batch_pos.numpy()
+    return np.asarray(draws[0])[pos], np.asarray(draws[1])[pos]
+
+
+# ---------------------------------------------------------------------------
+# steps (the per-shard steps of core/gst.py, one per shard)
+# ---------------------------------------------------------------------------
+
+
+class _DistStep:
+    """Runs one per-shard step on every shard this process holds;
+    ``exchanges`` are the shards' exchanges (their codecs carry the
+    write-path bits hook)."""
+
+    def __init__(self, ctx: DistContext, build):
+        self.ctx = ctx
+        self.exchanges = [make_shard_exchange(ctx, c) for c in ctx.group.comms]
+        self.steps = [build(ex, c) for ex, c in zip(self.exchanges,
+                                                   ctx.group.comms)]
+
+    def _run(self, fn):
+        return self.ctx.group.run(lambda i, comm: fn(i, self.steps[i]))
+
+
+def make_dist_train_step(encode_fn, optimizer, variant: G.GSTVariant, *,
+                         ctx: DistContext, **kwargs):
+    """Data-parallel ``G.make_train_step``: ``step(states, batches,
+    generators=None, draws=None) -> (states, metrics)``, states from
+    ``device_state``, batches from ``shard_batch``, one generator per
+    local shard (all in the same state), ``draws`` the GLOBAL batch's
+    (idx (B, S), u (B, J)).  The metrics are the shards' means."""
+    decay = kwargs.get("sed_decay", 0.0)
+
+    def build(ex, comm):
+        # the age plane travels its own exchange collective (lookup_ages),
+        # only with the decay on
+        age = ex.lookup_ages if decay > 0.0 else None
+        return G.make_train_step(encode_fn, optimizer, variant,
+                                 table_lookup=ex.lookup,
+                                 table_update=ex.update_sampled,
+                                 table_lookup_age=age, comm=comm, **kwargs)
+
+    class TrainStep(_DistStep):
+        def __call__(self, states, batches, generators=None, draws=None):
+            out = self._run(lambda i, step: step(
+                states[i], batches[i],
+                None if generators is None else generators[i],
+                _shard_draws(draws, batches[i])))
+            return [s for s, _ in out], out[0][1]
+
+    return TrainStep(ctx, build)
+
+
+def make_dist_eval_step(encode_fn, *, ctx: DistContext, **kwargs):
+    """``step(states, batches) -> metrics`` (the shards' means)."""
+
+    class EvalStep(_DistStep):
+        def __call__(self, states, batches):
+            return self._run(lambda i, step: step(states[i], batches[i]))[0]
+
+    return EvalStep(ctx, lambda ex, comm: G.make_eval_step(
+        encode_fn, comm=comm, **kwargs))
+
+
+def make_dist_refresh_step(encode_fn, *, ctx: DistContext):
+    """``step(states, batches) -> states``: Algorithm 2 line 12 through the
+    exchange's ``update_all``."""
+
+    class RefreshStep(_DistStep):
+        def __call__(self, states, batches):
+            return self._run(lambda i, step: step(states[i], batches[i]))
+
+    return RefreshStep(ctx, lambda ex, comm: G.make_refresh_step(
+        encode_fn, table_update_all=ex.update_all))
+
+
+def make_dist_finetune_step(optimizer, *, ctx: DistContext, **kwargs):
+    """``step(states, batches) -> (states, metrics)``: the head trained
+    from the table, read through the exchange's ``lookup``."""
+
+    class FinetuneStep(_DistStep):
+        def __call__(self, states, batches):
+            out = self._run(lambda i, step: step(states[i], batches[i]))
+            return [s for s, _ in out], out[0][1]
+
+    return FinetuneStep(ctx, lambda ex, comm: G.make_finetune_step(
+        optimizer, table_lookup=ex.lookup, comm=comm, **kwargs))

@@ -12,9 +12,11 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref
 from repro_torch.kernels import sed_pool as _sed
 from repro_torch.kernels import segment_spmm as _spmm
+from repro_torch.kernels.quant import PAYLOAD_DTYPES  # noqa: F401
 
 
 # ---------------------------------------------------------------------------
@@ -70,20 +72,20 @@ def pad_leading(x, target: int):
 # ---------------------------------------------------------------------------
 
 
-_COUNTERS = (_spmm.LAUNCHES, _sed.LAUNCHES)
+_COUNTERS = (_spmm.LAUNCHES, _sed.LAUNCHES, _quant.LAUNCHES)
 
 
 def kernel_launches() -> Dict[str, int]:
     """Launches of each kernel since the last ``reset_kernel_launches``:
     the SpMM forward (``segment_spmm_batched``) and backward
-    (``segment_spmm_batched_bwd``), ``sed_pool`` and ``sed_pool_aged``."""
+    (``segment_spmm_batched_bwd``), ``sed_pool``, ``sed_pool_aged`` and the
+    six ``quant_*`` pack and unpack kernels."""
     return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def reset_kernel_launches() -> None:
     for counts in _COUNTERS:
-        for k in counts:
-            counts[k] = 0
+        counts.reset()
 
 
 def batched_neighbor_sum(h, src, dst, w, *, use_kernels: bool = True):
@@ -128,3 +130,22 @@ def sed_aggregate(h, seg_valid, fresh_mask, drop_mask, ages=None, *,
                              agg=agg, ages=ages, decay=decay)
     return ref.sed_pool_ref(h, seg_valid, fresh_mask, drop_mask, keep_prob,
                             num_sampled, agg, ages, decay)
+
+
+def quantize_payload(x, rand_bits=None, *, dtype: str,
+                     use_kernels: bool = True):
+    """Pack f32 rows into the compressed exchange wire format: (values
+    bf16,) or (values int8, scale (R,) f32), one scale per leading row.
+    ``rand_bits`` (int32 holding uint32 bits, x's shape) rounds
+    stochastically (the write path); None to nearest even (the read path).
+    ``use_kernels`` False takes the plain version on any device."""
+    if use_kernels:
+        return _quant.quantize_rows(x, dtype, rand_bits)
+    return ref.quantize_rows_ref(x, dtype, rand_bits)
+
+
+def dequantize_payload(parts, *, dtype: str, use_kernels: bool = True):
+    """Unpack compressed wire parts back to f32 rows."""
+    if use_kernels:
+        return _quant.dequantize_rows(parts, dtype)
+    return ref.dequantize_rows_ref(tuple(parts), dtype)

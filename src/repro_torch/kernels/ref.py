@@ -1,10 +1,14 @@
 """Plain-torch versions of the port's kernels: the CPU path of each wrapper
 and the yardstick the kernels are held against on the card.
 
-Counterpart of ``src/repro/kernels/ref.py``.  ``swa_attention_ref`` lands
-with the sequence slice.
+Counterpart of ``src/repro/kernels/ref.py``, plus the wire-format pack and
+unpack of ``src/repro/kernels/quant.py:64-130`` (``quantize_rows_ref``,
+``dequantize_rows_ref``).  ``swa_attention_ref`` lands with the sequence
+slice.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -79,3 +83,85 @@ def sed_pool_ref(h: torch.Tensor, seg_valid: torch.Tensor,
     if agg == "sum":
         return s
     return s / torch.clamp(J_i, min=1.0).to(s.dtype)
+
+
+# ---------------------------------------------------------------------------
+# compressed wire format (src/repro/kernels/quant.py:64-130)
+#
+# torch has no usable uint32 arithmetic: the random bits travel as an int32
+# tensor holding the uint32 bit pattern, and the bit math below runs in
+# int64 masked to 32 bits (``>>`` on int32 would be arithmetic, not
+# logical).  Every operation is the reference's, in its order, so given the
+# same bits the result is the JAX package's to the bit.
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+# Python scalars: an f32 tensor times a Python float multiplies by the
+# float rounded to f32 (torch's opmath for f32 is f32), as JAX's weak-typed
+# scalars do; 2^-24 is exact in f32.  A 0-dim tensor on the CPU would be
+# a copy to the card, which waits for it, at every call.
+_INV127 = 1.0 / 127.0
+_TWO_M24 = 2.0 ** -24
+
+
+def _u32(bits: torch.Tensor) -> torch.Tensor:
+    """int32 bit pattern -> its uint32 value, as int64."""
+    return bits.to(torch.int64) & _U32
+
+
+def _bf16_stochastic(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """f32 -> bf16 by adding the low 16 random bits below the bf16 mantissa
+    boundary and truncating: ``(u + (bits & 0xFFFF)) & 0xFFFF0000`` on the
+    f32 bit pattern u, mod 2^32.  The kept high half IS the bf16 value."""
+    u = _u32(x.contiguous().view(torch.int32))
+    hi = (((u + (_u32(bits) & 0xFFFF)) & _U32) >> 16)          # [0, 65535]
+    hi = torch.where(hi >= 0x8000, hi - 0x10000, hi).to(torch.int16)
+    return hi.view(torch.bfloat16)
+
+
+def _uniform01(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits -> uniform [0, 1) f32 from their high 24 bits."""
+    return (_u32(bits) >> 8).to(torch.float32) * _TWO_M24
+
+
+def _int8_quantize(x: torch.Tensor, bits=None):
+    """x (r, n) f32 -> (values (r, n) int8, scale (r, 1) f32).  ``bits``
+    None rounds to nearest even (read path), else stochastically."""
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    scale = amax * _INV127
+    v = x / torch.where(scale > 0, scale, torch.ones_like(scale))
+    if bits is None:
+        q = torch.round(v)                       # half to even, as jnp.round
+    else:
+        lo = torch.floor(v)
+        q = lo + (_uniform01(bits) < (v - lo)).to(torch.float32)
+    return torch.clamp(q, -127.0, 127.0).to(torch.int8), scale
+
+
+def quantize_rows_ref(x: torch.Tensor, dtype: str, rand_bits=None):
+    """x (R, ...) f32 -> wire parts: (values,) for bf16, (values int8,
+    scale (R,) f32) for int8.  ``rand_bits``: int32 of x's shape holding
+    uint32 random bits, for stochastic rounding (the write path); None
+    rounds to nearest even (the read path)."""
+    shape = x.shape
+    x2 = x.reshape(shape[0], math.prod(shape[1:]))
+    bits = None if rand_bits is None else rand_bits.reshape(x2.shape)
+    if dtype == "bf16":
+        if bits is None:
+            return (x2.to(torch.bfloat16).reshape(shape),)
+        return (_bf16_stochastic(x2, bits).reshape(shape),)
+    if dtype == "int8":
+        q, scale = _int8_quantize(x2, bits)
+        return q.reshape(shape), scale[:, 0]
+    raise ValueError(f"quantize dtype {dtype!r} not in ('bf16', 'int8')")
+
+
+def dequantize_rows_ref(parts, dtype: str) -> torch.Tensor:
+    """Inverse of ``quantize_rows_ref``: wire parts -> f32 (R, ...)."""
+    if dtype == "bf16":
+        (v,) = parts
+        return v.to(torch.float32)
+    if dtype == "int8":
+        v, scale = parts
+        return v.to(torch.float32) * scale.reshape((-1,) + (1,) * (v.dim() - 1))
+    raise ValueError(f"dequantize dtype {dtype!r} not in ('bf16', 'int8')")

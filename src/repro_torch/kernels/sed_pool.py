@@ -25,10 +25,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.counts import LaunchCounts
 
 KERNEL = "sed_pool"
 KERNEL_AGED = "sed_pool_aged"
-LAUNCHES = {KERNEL: 0, KERNEL_AGED: 0}
+LAUNCHES = LaunchCounts((KERNEL, KERNEL_AGED))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -98,7 +99,7 @@ def _launch(h, valid, fresh, drop, ages, keep_prob, num_sampled, agg, decay):
     if err != 0:
         raise RuntimeError("sed_pool launch failed: "
                            + lib.sed_pool_error_string(err).decode())
-    LAUNCHES[KERNEL if ages is None else KERNEL_AGED] += 1
+    LAUNCHES.add(KERNEL if ages is None else KERNEL_AGED)
     return out
 
 

@@ -30,10 +30,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.counts import LaunchCounts
 
 KERNEL = "segment_spmm_batched"
 KERNEL_BWD = "segment_spmm_batched_bwd"
-LAUNCHES = {KERNEL: 0, KERNEL_BWD: 0}
+LAUNCHES = LaunchCounts((KERNEL, KERNEL_BWD))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -102,7 +103,7 @@ def _launch(h, src, dst, w, key: str) -> torch.Tensor:
     if err != 0:
         raise RuntimeError("segment_spmm_batched launch failed: "
                            + lib.segment_spmm_error_string(err).decode())
-    LAUNCHES[key] += 1
+    LAUNCHES.add(key)
     return out
 
 

@@ -1,0 +1,369 @@
+"""Distributed GST training launcher of the port (data parallel, row-sharded
+table, pluggable table exchange, compressed wire format).
+
+Counterpart of ``src/repro/launch/train_dist.py``:
+
+    # 4 shards as threads on one card, ring exchange, int8 payloads
+    PYTHONPATH=src python -m repro_torch.launch.train_dist \
+        --devices 4 --exchange ring --payload-dtype int8 --epochs 5
+
+    # the same on the CPU (the kernels' plain versions)
+    PYTHONPATH=src python -m repro_torch.launch.train_dist --device cpu \
+        --devices 4 --exchange bucketed --epochs 2 --finetune-epochs 1
+
+    # one shard per card, one process each
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train_dist \
+        --exchange alltoall --payload-dtype bf16
+
+Started by ``torchrun`` (``WORLD_SIZE`` set), each process is one shard
+(``ProcessGroup``: NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
+cpu``); otherwise ``--devices D`` runs D shards as threads of this process
+on ``--device`` (``LocalGroup``), the counterpart of the reference's forced
+N-device host.  The payload codec only runs with two or more shards: at one
+shard nothing crosses a wire and ``--payload-dtype`` is pinned to f32, as
+in the reference.  ``--use-kernels`` routes the SpMM, the SED pooling and
+the payload pack/unpack through the port's kernels (their plain versions
+on a CPU tensor).
+
+Each epoch prints its last loss, the feeder's host-blocked time and the
+exchange traffic one shard sent, from the comm's counters.  Not ported
+yet, and raising ``NotImplementedError``: ``--prefetch-lookups`` and
+``--patch-cap`` (the prefetch lane), ``--table-device-rows``,
+``--evict-policy``, ``--wb-threshold`` and ``--stale-forecast`` (the
+tiered store); the telemetry flags are not parsed.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import gst as G
+from repro_torch.core.embedding_table import init_table
+from repro_torch.dist import exchange as EXC
+from repro_torch.dist import pipeline as DP
+from repro_torch.dist import train as DT
+from repro_torch.dist.comm import LocalGroup, ProcessGroup
+from repro_torch.dist.table import rows_per_shard
+from repro_torch.graphs import data as D
+from repro_torch.graphs.experiment import epoch_generator
+from repro_torch.graphs.gnn import GNNConfig, gnn_init, make_encode_fn
+from repro_torch.optim import make_optimizer
+
+
+@dataclass
+class DistResult:
+    """What a run of ``run`` gives back (the CLI prints it)."""
+    cap: Optional[int]
+    epoch_losses: List[float]
+    train_metric: float
+    finetuned: bool
+    finetune_loss: float
+    train_steps: int
+    finetune_steps: int
+    refresh_steps: int
+    ms_per_iter: float
+    step_bytes_model: int             # analytic exchange bytes a train step
+    epoch_exchange_bytes: List[int]   # one shard's counted bytes an epoch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--devices", type=int, default=None,
+                    help="data-parallel width: shards as threads of this "
+                         "process on --device (under torchrun: must equal "
+                         "the world size)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--dataset", default="malnet", choices=["malnet"])
+    ap.add_argument("--backbone", default="sage", choices=["gcn", "sage"])
+    ap.add_argument("--variant", default="gst_efd")
+    ap.add_argument("--n-graphs", type=int, default=64)
+    ap.add_argument("--max-seg-nodes", type=int, default=32)
+    ap.add_argument("--epochs", type=int, default=5)
+    ap.add_argument("--finetune-epochs", type=int, default=3)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--hidden", type=int, default=32)
+    ap.add_argument("--lr", type=float, default=5e-3)
+    ap.add_argument("--keep-prob", type=float, default=0.5)
+    ap.add_argument("--num-sampled", type=int, default=1,
+                    help="segments sampled for backprop per graph (S)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--use-kernels", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="route the SpMM, the SED pooling and the payload "
+                         "pack/unpack through the port's kernels (their "
+                         "plain versions on the CPU)")
+    ap.add_argument("--feeder", default="async", choices=["async", "sync"],
+                    help="host->device pipeline: async double buffering "
+                         "(default) or the synchronous baseline")
+    ap.add_argument("--depth", type=int, default=2,
+                    help="async pipeline depth (batches in flight)")
+    ap.add_argument("--exchange", default="ring",
+                    choices=["ring", "alltoall", "bucketed", "auto"],
+                    help="table-exchange strategy (dist/exchange.py); auto "
+                         "= fewest analytic bytes a step at this shard "
+                         "count and payload dtype")
+    ap.add_argument("--exchange-cap", type=int, default=None,
+                    help="bucketed only: per-(shard, owner) bucket capacity; "
+                         "default planned over the run's id schedules")
+    ap.add_argument("--payload-dtype", default="f32",
+                    choices=["f32", "bf16", "int8"],
+                    help="wire format of the exchanged embeddings: f32 "
+                         "(identity, bit-exact), bf16, or int8 with a "
+                         "per-row scale; write-backs round stochastically")
+    ap.add_argument("--sed-age-weighting", type=float, default=0.0,
+                    help="λ of the exp(-λ·age) staleness decay on the stale "
+                         "branch of Eq.-1 η (ages read exactly through the "
+                         "exchange). 0 = off")
+    ap.add_argument("--prefetch-lookups", action="store_true",
+                    help="the prefetch lane (not ported yet: raises)")
+    ap.add_argument("--patch-cap", type=int, default=None,
+                    help="the prefetch lane's patch buckets (not ported yet)")
+    ap.add_argument("--table-device-rows", type=int, default=None,
+                    help="the tiered store (not ported yet: raises)")
+    ap.add_argument("--evict-policy", default="lru",
+                    choices=["lru", "stale-first"],
+                    help="the tiered store (not ported yet: stale-first "
+                         "raises)")
+    ap.add_argument("--wb-threshold", type=float, default=0.0,
+                    help="the tiered store (not ported yet: > 0 raises)")
+    ap.add_argument("--stale-forecast", action="store_true",
+                    help="the tiered store (not ported yet: raises)")
+    return ap
+
+
+def _not_ported(args) -> None:
+    if args.prefetch_lookups or args.patch_cap is not None:
+        raise NotImplementedError(
+            "--prefetch-lookups/--patch-cap need the prefetch lane "
+            "(PrefetchLane, update_sampled_patch), which lands with the "
+            "next slice of the port")
+    if (args.table_device_rows is not None or args.evict_policy != "lru"
+            or args.wb_threshold > 0 or args.stale_forecast):
+        raise NotImplementedError(
+            "--table-device-rows, --evict-policy, --wb-threshold and "
+            "--stale-forecast need the TieredStore, which lands with the "
+            "tiered-store slice of the port")
+
+
+def _make_group(args):
+    """torchrun -> one shard per process; else --devices threads."""
+    if "WORLD_SIZE" not in os.environ:
+        return LocalGroup(args.devices or 1, resolve_device(args.device))
+    import torch.distributed as dist
+
+    if args.device == "cuda":
+        dev = resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+        torch.cuda.set_device(dev)
+    else:
+        dev = torch.device("cpu")
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    if args.devices not in (None, dist.get_world_size()):
+        raise ValueError(f"--devices {args.devices} disagrees with the "
+                         f"world size {dist.get_world_size()}")
+    return ProcessGroup(dev)
+
+
+@dataclass
+class DistSetup:
+    """A run's model, data, schedules and steps, before its first step."""
+    args: argparse.Namespace
+    ctx: DT.DistContext
+    ds: object              # graphs/batching.SegmentedDataset
+    spec: object            # serve/buckets.BucketSpec
+    variant: G.GSTVariant
+    enc: object             # the backbone's encode_fn
+    store: object           # store/base.DeviceStore, split over the shards
+    states: list            # the local shards' TrainStates
+    step: object            # dist/train.py train step
+    eval_step: object
+    train_scheds: list
+    refresh_sched: list
+    ft_scheds: list
+    eval_sched: list
+    cap: Optional[int]
+    xbytes: int
+
+    def put(self, b):
+        """A host batch -> its shards' device batches, the ids routed
+        through the store (the identity for the device-resident store)."""
+        prep = self.store.begin(np.asarray(b.graph_ids))
+        return DT.shard_batch(self.ctx, b._replace(graph_ids=prep.slots))
+
+
+def setup(args) -> DistSetup:
+    """The run's model, data, schedules and steps (``run`` drives them;
+    ``chip_smoke.py`` and the card's tests drive their steps directly)."""
+    _not_ported(args)
+    group = _make_group(args)
+    n_dev = group.size
+    if args.batch_size % n_dev:
+        raise ValueError(f"--batch-size {args.batch_size} must be divisible "
+                         f"by the shard count {n_dev}")
+    if args.epochs < 1:
+        raise ValueError("--epochs must be >= 1")
+    if args.n_graphs < args.batch_size:
+        raise ValueError(f"--n-graphs {args.n_graphs} yields an empty "
+                         f"drop-last epoch at --batch-size {args.batch_size}")
+
+    graphs = D.make_malnet_like(n_graphs=args.n_graphs, seed=args.seed)
+    ds, spec = DP.segment_dataset_shared(graphs, args.max_seg_nodes,
+                                         seed=args.seed)
+    var = G.VARIANTS[args.variant]
+    cfg = GNNConfig(backbone=args.backbone, n_feat=graphs[0].x.shape[1],
+                    hidden=args.hidden, use_kernels=args.use_kernels)
+    enc = make_encode_fn(cfg)
+    gen = torch.Generator().manual_seed(args.seed)
+    bb = gnn_init(cfg, gen, "cpu")
+    head = G.head_init(args.hidden, 5, "mlp", gen, "cpu")
+    opt = make_optimizer("adam", lr=args.lr)
+    state = G.TrainState(bb, head, None,
+                         init_table(ds.n, ds.j_max, args.hidden), 0)
+    state = state._replace(opt_state=opt.init(G.train_params(state)))
+
+    # every id schedule up front (the reference's rng draw order): the
+    # bucketed exchange plans its bucket capacity over the whole run
+    rng = np.random.default_rng(args.seed + 3)
+    train_scheds = [DP.epoch_ids(ds, args.batch_size, rng=rng)
+                    for _ in range(args.epochs)]
+    refresh_sched = DP.epoch_ids(ds, args.batch_size, rng=rng, shuffle=False)
+    ft_scheds = [DP.epoch_ids(ds, args.batch_size, rng=rng)
+                 for _ in range(args.finetune_epochs)] \
+        if var.finetune_head else []
+    eval_sched = DP.epoch_ids(ds, args.batch_size, rng=rng, shuffle=False)
+
+    need_cap = EXC.plan_capacity(
+        [ids for sched in (*train_scheds, refresh_sched, *ft_scheds)
+         for ids in sched], num_shards=n_dev,
+        rows=rows_per_shard(ds.n, n_dev))
+    cap = args.exchange_cap
+    if cap is None:
+        cap = need_cap
+    elif cap < need_cap:
+        raise ValueError(f"--exchange-cap {cap} is below the {need_cap} rows "
+                         "one owner bucket needs for this run's schedules: "
+                         "the bucketed exchange would lose writes")
+    b_local = args.batch_size // n_dev
+    exchange = args.exchange
+    if exchange == "auto":
+        exchange = EXC.select_exchange(n_dev, b_local, ds.j_max,
+                                       args.num_sampled, args.hidden,
+                                       cap=cap,
+                                       payload_dtype=args.payload_dtype)
+    cap = cap if exchange == "bucketed" else None
+    ctx = DT.make_context(group, ds.n, exchange=exchange, exchange_cap=cap,
+                          payload_dtype=args.payload_dtype,
+                          use_kernels=args.use_kernels)
+    store = DT.make_dist_store(ctx, ds.j_max, args.hidden)
+    step = DT.make_dist_train_step(enc, opt, var, ctx=ctx,
+                                   keep_prob=args.keep_prob,
+                                   num_sampled=args.num_sampled,
+                                   sed_decay=args.sed_age_weighting,
+                                   use_kernels=args.use_kernels)
+    xbytes = step.exchanges[0].train_step_bytes(
+        b_local, ds.j_max, args.num_sampled, args.hidden,
+        use_table=var.use_table)
+    return DistSetup(
+        args=args, ctx=ctx, ds=ds, spec=spec, variant=var, enc=enc,
+        store=store, states=DT.device_state(ctx, state, store=store),
+        step=step, eval_step=DT.make_dist_eval_step(
+            enc, ctx=ctx, use_kernels=args.use_kernels),
+        train_scheds=train_scheds, refresh_sched=refresh_sched,
+        ft_scheds=ft_scheds, eval_sched=eval_sched, cap=cap, xbytes=xbytes)
+
+
+def run(args, log=print) -> DistResult:
+    s = setup(args)
+    ctx, ds, step, states = s.ctx, s.ds, s.step, s.states
+    if ctx.local_ranks[0] != 0:
+        log = lambda *a, **k: None            # noqa: E731  (rank 0 prints)
+    ex = step.exchanges[0]
+    log(f"[dist] devices={ctx.num_shards} rows/shard={ctx.rows_per_shard} "
+        f"bucket={s.spec.key} feeder={args.feeder} device={ctx.device} "
+        f"exchange={ctx.exchange} (payload={ex.payload_dtype}, "
+        f"{s.xbytes / 1024:.1f} KiB/step/shard"
+        + (f", cap={s.cap}" if s.cap is not None else "") + ")", flush=True)
+
+    def sync():
+        if ctx.device.type == "cuda":
+            torch.cuda.synchronize(ctx.device)
+
+    comm0 = ctx.group.comms[0]
+    t_start = time.perf_counter()
+    iter_times, epoch_losses, epoch_bytes = [], [], []
+    stats = None
+    for epoch, sched in enumerate(s.train_scheds):
+        gens = [epoch_generator(args.seed, epoch) for _ in ctx.local_ranks]
+        feeder = DP.make_feeder(args.feeder, ds, sched, s.put,
+                                depth=args.depth)
+        sent0 = comm0.exchange_bytes
+        loss = None
+        for batches in feeder:
+            t0 = time.perf_counter()
+            states, m = step(states, batches, gens)
+            sync()
+            iter_times.append(time.perf_counter() - t0)
+            loss = m["loss"]
+        stats = feeder.stats
+        epoch_losses.append(float(loss))
+        epoch_bytes.append(comm0.exchange_bytes - sent0)
+        log(f"epoch {epoch}: loss={epoch_losses[-1]:.4f} "
+            f"host_blocked={stats.host_blocked_ms_per_batch:.2f} ms/batch "
+            f"exch KiB {epoch_bytes[-1] / 1024:.1f} "
+            f"({stats.batches} steps, {s.xbytes / 1024:.1f} KiB/step/shard "
+            "modelled)", flush=True)
+    train_steps = states[0].step
+
+    finetuned, ft_loss, ft_steps = False, float("nan"), 0
+    if s.variant.finetune_head:
+        refresh = DT.make_dist_refresh_step(s.enc, ctx=ctx)
+        for batches in DP.make_feeder("sync", ds, s.refresh_sched, s.put):
+            states = refresh(states, batches)
+        ft_opt = make_optimizer("adam", lr=args.lr * 0.5)
+        states = [st._replace(opt_state=ft_opt.init(list(
+            st.head.parameters()))) for st in states]
+        ft = DT.make_dist_finetune_step(ft_opt, ctx=ctx,
+                                        use_kernels=args.use_kernels)
+        m = None
+        for sched in s.ft_scheds:
+            for batches in DP.make_feeder(args.feeder, ds, sched, s.put,
+                                          depth=args.depth):
+                states, m = ft(states, batches)
+                ft_steps += 1
+        if m is not None:
+            finetuned, ft_loss = True, float(m["loss"])
+            log(f"finetune: loss={ft_loss:.4f}", flush=True)
+
+    # eval reads no table: no store routing
+    metrics = [float(s.eval_step(states, b)["metric"]) for b in
+               DP.make_feeder("sync", ds, s.eval_sched,
+                              lambda b: DT.shard_batch(ctx, b))]
+    train_metric = float(np.mean(metrics))
+    wall = time.perf_counter() - t_start
+    blocked = stats.host_blocked_ms_per_batch
+    log(f"[dist] done in {wall:.1f}s: train metric {train_metric:.3f}, "
+        f"host blocked {blocked:.2f} ms/batch ({args.feeder})", flush=True)
+    ms = (float(np.median(iter_times[3:]) * 1e3) if len(iter_times) > 4
+          else float("nan"))
+    return DistResult(cap=s.cap,
+                      epoch_losses=epoch_losses, train_metric=train_metric,
+                      finetuned=finetuned, finetune_loss=ft_loss,
+                      train_steps=train_steps, finetune_steps=ft_steps,
+                      refresh_steps=len(s.refresh_sched) if finetuned else 0,
+                      ms_per_iter=ms, step_bytes_model=s.xbytes,
+                      epoch_exchange_bytes=epoch_bytes)
+
+
+def main(argv=None) -> DistResult:
+    return run(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

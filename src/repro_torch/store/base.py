@@ -5,9 +5,14 @@ owns WHICH rows of the historical table live in device memory; callers
 address a plain ``EmbeddingTable`` of device rows through the row ids the
 store hands back from ``prepare``.  ``DeviceStore`` keeps the whole table on
 the device, so row ids ARE device rows and ``begin``/``commit`` are
-bookkeeping only.  One device, one shard: the row-sharded layout lands with
-the distributed slice, ``TieredStore`` (the host-RAM tier) with the store
+bookkeeping only.  ``TieredStore`` (the host-RAM tier) lands with the store
 slice.
+
+Row geometry (``src/repro/store/base.py:48-55,141-150``): ``n_rows`` rows
+split block-wise over ``num_shards`` shards, shard s owning rows
+[s·R, (s+1)·R) with R = ``rows_per_shard``; the last shard pads.  Each
+shard owns its own (R, J, d) tables (``init_shard_tables``), as it would
+with one process per card.
 """
 from __future__ import annotations
 
@@ -20,6 +25,15 @@ import torch
 from repro_torch.core import embedding_table as tbl
 from repro_torch.kernels.ops import pad_rows_pow2
 from repro_torch.obs.metrics import get_registry
+
+
+def rows_per_shard(n_rows: int, num_shards: int) -> int:
+    """R such that D·R >= n (block row partition, last shard may pad)."""
+    return -(-n_rows // max(num_shards, 1))
+
+
+def padded_rows(n_rows: int, num_shards: int) -> int:
+    return rows_per_shard(n_rows, num_shards) * max(num_shards, 1)
 
 
 @dataclass
@@ -68,16 +82,20 @@ class EmbeddingStore:
     """Geometry, counters and the residency contract (module docstring).
 
     ``n_rows`` logical rows of ``j_max`` segment slots of ``d_h`` values,
-    ``device_rows`` of them device-resident at a time, on ``device``.
+    split over ``num_shards`` shards, ``device_rows`` of them
+    device-resident at a time, on ``device``.
     """
 
     def __init__(self, n_rows: int, j_max: int, d_h: int, *,
-                 dtype=torch.float32, device="cpu"):
+                 num_shards: int = 1, dtype=torch.float32, device="cpu"):
         self.n_rows = n_rows
         self.j_max = j_max
         self.d_h = d_h
+        self.num_shards = max(num_shards, 1)
         self.dtype = dtype
         self.device = torch.device(device)
+        self.rows_per_shard = rows_per_shard(n_rows, self.num_shards)
+        self.padded_rows = padded_rows(n_rows, self.num_shards)
         self.counters = StoreCounters()
 
     # ``store.counters`` stays the mutation surface (callers reset it by
@@ -107,7 +125,7 @@ class EmbeddingStore:
 
     @property
     def device_rows(self) -> int:
-        return self.n_rows
+        return self.padded_rows
 
     # -- residency ---------------------------------------------------------
 
@@ -132,6 +150,19 @@ class EmbeddingStore:
         """A fresh (all-uninitialized) device tier."""
         return tbl.init_table(self.device_rows, self.j_max, self.d_h,
                               self.dtype, self.device)
+
+    def init_shard_tables(self, shards=None):
+        """Fresh device tiers of the given shards (default: all), one
+        (rows_per_shard, J, d) table each."""
+        shards = range(self.num_shards) if shards is None else shards
+        return [tbl.init_table(self.device_rows // self.num_shards,
+                               self.j_max, self.d_h, self.dtype, self.device)
+                for _ in shards]
+
+    def restore(self, table: tbl.EmbeddingTable, shards=None):
+        """The given shards' device tiers seeded from a full (n_rows, J, d)
+        table: shard s gets rows [s·R, (s+1)·R), zero-padded."""
+        raise NotImplementedError
 
     def invalidate_rows(self, table: tbl.EmbeddingTable,
                         rows) -> tbl.EmbeddingTable:
@@ -185,6 +216,17 @@ class DeviceStore(EmbeddingStore):
 
     def commit(self, table, prep):
         return table
+
+    def restore(self, table, shards=None):
+        shards = range(self.num_shards) if shards is None else shards
+        R = self.rows_per_shard
+        out = self.init_shard_tables(shards)
+        with torch.no_grad():
+            for s, dst in zip(shards, out):
+                for d, src in zip(dst, table):
+                    part = src[s * R:min((s + 1) * R, self.n_rows)]
+                    d[:part.shape[0]].copy_(part)
+        return out
 
     def invalidate_rows(self, table, rows) -> tbl.EmbeddingTable:
         if len(rows) == 0:

@@ -27,7 +27,11 @@ def test_importing_every_port_module_pulls_in_no_jax():
     mods = list(_port_modules())
     assert {"repro_torch.serve.engine", "repro_torch.graphs.experiment",
             "repro_torch.launch.train", "repro_torch.kernels.sed_pool",
-            "repro_torch.optim.adamw"} <= set(mods)
+            "repro_torch.optim.adamw", "repro_torch.kernels.quant",
+            "repro_torch.dist", "repro_torch.dist.comm",
+            "repro_torch.dist.exchange", "repro_torch.dist.table",
+            "repro_torch.dist.train", "repro_torch.dist.pipeline",
+            "repro_torch.launch.train_dist"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -163,7 +163,10 @@ def test_batched_neighbor_sum_cpu_takes_plain_path():
                                    rtol=0, atol=0)
     assert ops.kernel_launches() == {
         "segment_spmm_batched": 0, "segment_spmm_batched_bwd": 0,
-        "sed_pool": 0, "sed_pool_aged": 0}
+        "sed_pool": 0, "sed_pool_aged": 0, "quant_pack_bf16": 0,
+        "quant_pack_bf16_det": 0, "quant_pack_int8": 0,
+        "quant_pack_int8_det": 0, "quant_unpack_bf16": 0,
+        "quant_unpack_int8": 0}
 
 
 def test_spmm_other_device_raises():

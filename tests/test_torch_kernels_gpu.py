@@ -1,8 +1,10 @@
-"""The port's CUDA kernels on the card (the segment SpMM, its backward, and
-sed_pool / sed_pool_aged), against their plain versions (kernels/ref.py):
+"""The port's CUDA kernels on the card (the segment SpMM, its backward,
+sed_pool / sed_pool_aged, and the six pack / unpack kernels of the
+compressed exchange), against their plain versions (kernels/ref.py):
 within rtol = atol = 1e-5 in f32 forward (6e-2 in bf16) and 1e-4 for
-gradients, bitwise equal from launch to launch, refusing what they cannot
-do; and a few GST train steps through them, against the plain path.
+gradients, the pack and unpack kernels BITWISE, bitwise equal from launch
+to launch, refusing what they cannot do; and a few GST train steps through
+them, single-device and distributed, against the plain path.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -284,4 +286,117 @@ def test_train_steps_kernel_path_matches_plain(cuda, backbone, dataset,
          "segment_spmm_batched_bwd": cfg.n_mp,
          "sed_pool": int(pool == "sed_pool"),
          "sed_pool_aged": int(pool == "sed_pool_aged")})
+    assert n_stale > 0
+
+
+# ---------------------------------------------------------------------------
+# the compressed exchange's pack and unpack kernels
+# ---------------------------------------------------------------------------
+
+
+def _quant_inputs(R, N, seed, cuda):
+    """Random rows with a zero row, ±0, values on the nearest-even ties of
+    both grids, and a row whose amax is 127 (scale exactly 1)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(R, N)) * 3.0).astype(np.float32)
+    x[0] = 0.0
+    if R > 1:
+        ties = np.asarray([-0.0, 1.0 + 2.0 ** -8, 63.5, -0.5, 2.5, 1e-30],
+                          np.float32)
+        x[1, :min(N, 6)] = ties[:min(N, 6)]
+        x[1, -1] = 127.0
+    bits = rng.integers(0, 2 ** 32, (R, N), dtype=np.uint64).astype(
+        np.uint32).view(np.int32)
+    return torch.from_numpy(x).to(cuda), torch.from_numpy(bits).to(cuda)
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("R,N", [(1, 4), (2, 64), (3, 33), (8, 1280),
+                                 (16, 1000), (512, 1280)])
+def test_quant_kernels_bitwise_plain(cuda, R, N, dtype, stochastic):
+    from repro_torch.kernels import quant as Q
+
+    x, bits = _quant_inputs(R, N, seed=R + N, cuda=cuda)
+    bits = bits if stochastic else None
+    ops.reset_kernel_launches()
+    a = Q.quantize_rows(x, dtype, bits)
+    b = Q.quantize_rows(x, dtype, bits)
+    want = ref.quantize_rows_ref(x, dtype, bits)
+    back_a = Q.dequantize_rows(a, dtype)
+    back_b = Q.dequantize_rows(b, dtype)
+    torch.cuda.synchronize()
+    pack = {("bf16", False): Q.PACK_BF16_DET, ("bf16", True): Q.PACK_BF16,
+            ("int8", False): Q.PACK_INT8_DET,
+            ("int8", True): Q.PACK_INT8}[(dtype, stochastic)]
+    unpack = Q.UNPACK_BF16 if dtype == "bf16" else Q.UNPACK_INT8
+    assert {k: v for k, v in ops.kernel_launches().items() if v} == {
+        pack: 2, unpack: 2}
+    for pa, pb, pw in zip(a, b, want):
+        assert pa.dtype == pw.dtype and _same_bits(pa, pb)
+        assert _same_bits(pa, pw)
+    assert _same_bits(back_a, back_b)
+    assert _same_bits(back_a, ref.dequantize_rows_ref(want, dtype))
+
+
+@pytest.mark.gpu
+def test_quant_kernels_refuse_what_they_cannot_do(cuda):
+    from repro_torch.kernels import quant as Q
+
+    x, bits = _quant_inputs(4, 64, seed=0, cuda=cuda)
+    with pytest.raises(ValueError, match="rand_bits is on"):
+        Q.quantize_rows(x, "int8", bits.cpu())
+    with pytest.raises(TypeError, match="x must be"):
+        Q.quantize_rows(x.double(), "bf16")
+    with pytest.raises(TypeError, match="rand_bits must be"):
+        Q.quantize_rows(x, "bf16", bits.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.quantize_rows(x.t(), "int8")
+    v, s = Q.quantize_rows(x, "int8")
+    with pytest.raises(ValueError, match="scale is on"):
+        Q.dequantize_rows((v, s.cpu()), "int8")
+    with pytest.raises(TypeError, match="values must be"):
+        Q.dequantize_rows((v.float(),), "bf16")
+    with pytest.raises(ValueError, match="contiguous"):
+        Q.dequantize_rows((v.t(), s), "int8")
+
+
+@pytest.mark.gpu
+def test_dist_steps_kernel_path_matches_plain(cuda):
+    """Three distributed train steps, 2 shards as threads on the card, ring
+    with int8 payloads (repro_torch.core.step_parity.dist_step_parity):
+    per step the SpMM, sed_pool and the codec's launches on every shard,
+    loss, gradients, parameters and table shards equal to the plain path
+    given the same draws and bits, with a stale segment kept."""
+    from repro_torch.core.step_parity import dist_step_parity
+    from repro_torch.dist.pipeline import _assemble
+    from repro_torch.kernels import quant as Q
+    from repro_torch.launch.train_dist import build_parser, setup
+
+    runs = []
+    for flag in ("--use-kernels", "--no-use-kernels"):
+        s = setup(build_parser().parse_args([
+            "--device", "cuda", "--devices", "2", "--exchange", "ring",
+            "--payload-dtype", "int8", "--n-graphs", "16", "--hidden", "64",
+            "--max-seg-nodes", "64", flag]))
+        runs.append((s.ctx, s.states, s.step))
+    ids = s.train_scheds[0]
+    D, n_mp = 2, 2
+    want = {"segment_spmm_batched": D * n_mp,
+            "segment_spmm_batched_bwd": D * n_mp, "sed_pool": D,
+            Q.PACK_INT8_DET: D * D, Q.UNPACK_INT8: D + D * D,
+            Q.PACK_INT8: D}
+    _, n_stale = dist_step_parity(
+        runs[0], runs[1], [_assemble(s.ds, i) for i in (ids[0], ids[1],
+                                                         ids[0])],
+        torch.Generator().manual_seed(1), want)
     assert n_stale > 0

@@ -6,10 +6,11 @@
 Drives the port's serving path, its graph-track training path and its
 distributed training path on the card at the repo's full model width
 (GNNConfig / ServeConfig / run_experiment defaults: hidden 64, 2
-message-passing layers, max_seg_nodes 64, batch 8) with random weights from
-a seed, and holds each hand-written kernel against its plain PyTorch
-version.  Phases, in order; an error in any of them fails the run (none
-catches its own):
+message-passing layers, max_seg_nodes 64, batch 8), and the sequence
+track's serving path on internlm2-1.8b at full width and depth, with
+random weights from a seed, and holds each hand-written kernel against
+its plain PyTorch version.  Phases, in order; an error in any of them
+fails the run (none catches its own):
 
   1. card       the device name and nvidia-smi's name and power limit
   2. build      nvcc builds every kernel source from the checkout, all at
@@ -27,7 +28,12 @@ catches its own):
                 compressed exchange BITWISE at the distributed run's own
                 (R, N) (ring and alltoall lookups, bucketed buckets,
                 write-backs), a 40 MiB stress shape and edge cases (R = 1,
-                N not a multiple of 32, zero rows, ±0, nearest-even ties)
+                N not a multiple of 32, zero rows, ±0, nearest-even ties);
+                swa_attention (1e-5) at (B, S, H, KV, D, W) (2, 256, 4, 2,
+                64, 128), (1, 2048, 16, 8, 128, full), (1, 4096, ..., 1024),
+                (2, 1000, ..., 300), (1, 1, ..., full) against the (B, H, S,
+                S) oracle, and (1, 32768, ..., full) against the plain
+                chunked attention, beside scaled_dot_product_attention
   4. serving    the default TrafficConfig replay through ServeEngine on cuda
                 for sage and gcn: kernel launches = encode batches x n_mp,
                 every encoded bucket batch = the plain encoder on the card,
@@ -59,9 +65,20 @@ catches its own):
                 identical per-epoch losses.  Then 5 ring / int8 steps
                 under torch.profiler (device busy share), and the wall
                 time of a step at 1, 2 and 4 shards
-  8. kernels    one JSON line: per kernel, launches on the main path
-                (serving, training and distributed training), error,
-                times and bound
+  8. seq_serve  internlm2-1.8b (1.9 B parameters, f32) on the card: (a)
+                launch.serve.serve, B 2, prompt 16, 16 generated tokens,
+                ms a token; (b) Model.prefill of that prompt = the decode
+                loop (5e-4); (c) prefill B 2, S 2048, kernel path = plain
+                path (last logits, every layer's caches, 5e-4); (d)
+                prefill B 1, S 32768 through the kernel: time, peak
+                memory; (e) forward with window 8192 at S 16384, finite,
+                its first layer's attention = the plain chunked version;
+                (f) encode_segment over 8 documents x 8 segments x 512
+                tokens, kernel = plain (5e-4).  24 swa_attention launches
+                in each of (b)-(f); then one profiled prefill of (c)
+  9. kernels    one JSON line: per kernel, launches on the main path
+                (serving, training, distributed training and seq_serve),
+                error, times and bound
 
 It exits nonzero without a result where torch.cuda.is_available() is False
 or where the port's sources are not beside it.  The last line of standard
@@ -122,6 +139,27 @@ DIST_RUNS = [("ring", "int8", 0.0), ("alltoall", "bf16", 0.0),
 QUANT_STRESS = (8192, 1280)             # 40 MiB of f32 rows
 # (R, N) edge cases: one row, N not a multiple of 32, a wide ragged row
 QUANT_EDGES = [(1, 4), (3, 33), (2, 1000)]
+# the sequence track: internlm2-1.8b at full width and depth (24 layers,
+# d_model 2048, 16 query and 8 KV heads of 128, d_ff 8192, vocab 92,544)
+SEQ_ARCH = "internlm2-1.8b"
+# (B, S, H, KV, D, W; None = full causal): the reduced model's width, the
+# full model at 2048 tokens, a windowed 4096, S and W not multiples of a
+# tile, one token; then prefill_32k's length at batch 1
+SWA_SHAPES = [(2, 256, 4, 2, 64, 128), (1, 2048, 16, 8, 128, None),
+              (1, 4096, 16, 8, 128, 1024), (2, 1000, 16, 8, 128, 300),
+              (1, 1, 16, 8, 128, None)]
+SWA_LONG = (1, 32768, 16, 8, 128, None)
+SWA_HEADLINE = 1
+SEQ_TOL = 5e-4   # forward vs decode, kernel vs plain model (test_models.py:40)
+# seq_serve's sizes: serve (batch, prompt, generated); prefill (B, S) with
+# both paths; prefill_32k's length at batch 1; the windowed forward's S;
+# GST's segments (documents, segments a document, tokens a segment:
+# train_4k's 4096 tokens in gst_num_segments 8)
+SEQ_SERVE = (2, 16, 16)
+SEQ_PREFILL = (2, 2048)
+SEQ_LONG = (1, 32768)
+SEQ_WINDOW_S = 16384
+SEQ_DOCS = (8, 8, 512)
 
 
 def log(msg: str) -> None:
@@ -203,6 +241,7 @@ def phase_build():
     from repro_torch.kernels import quant as qt
     from repro_torch.kernels import sed_pool as sp
     from repro_torch.kernels import segment_spmm as spmm
+    from repro_torch.kernels import swa_attention as swa
 
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
@@ -211,6 +250,7 @@ def phase_build():
     spmm._lib()
     sp._lib()
     qt._lib()
+    swa._lib()
     log(f"[build] {', '.join(names)} in {time.perf_counter() - t0:.3f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for path in paths:
@@ -1057,6 +1097,373 @@ def phase_dist_scaling(torch, n_steps=5):
     return out
 
 
+def time_long_ms(torch, fn, iters: int = 3) -> float:
+    """Median device time of one call for calls of tens of ms and more,
+    from CUDA events around each call after one warm-up call (the host is
+    far ahead of such calls without a sleep kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def swa_pairs(S, W):
+    """Visible (query, key) pairs of causal attention in a window W."""
+    W = min(W, S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def swa_sdpa(torch, q, k, v, W, repeat_kv=False):
+    """The yardstick (the port never calls it): one
+    ``scaled_dot_product_attention`` call over the (B, H, S, D) views, with
+    ``is_causal`` or the band mask, GQA by ``enable_gqa``; or, where
+    ``repeat_kv``, over K/V repeated to H heads beforehand (untimed), which
+    lets PyTorch take its memory-efficient kernel in f32."""
+    import torch.nn.functional as F
+
+    S, H = q.shape[1], q.shape[2]
+    if repeat_kv:
+        k = k.repeat_interleave(H // k.shape[2], dim=2)
+        v = v.repeat_interleave(H // v.shape[2], dim=2)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    kw = {"enable_gqa": not repeat_kv}
+    if W >= S:
+        kw["is_causal"] = True
+    else:
+        i = torch.arange(S, device=q.device)
+        kw["attn_mask"] = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - W)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+
+def phase_kernel_swa(torch, dev):
+    """swa_attention against the plain version (ref.swa_attention_ref, the
+    (B, H, S, S) oracle; at 32k the plain chunked_causal_attention), two
+    launches bitwise equal, timed beside scaled_dot_product_attention."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swa_attention as swa
+    from repro_torch.models.common import chunked_causal_attention
+
+    rows = []
+    for shape in SWA_SHAPES + [SWA_LONG]:
+        B, S, H, KV, D, W = shape
+        W = S if W is None else W
+        g = torch.Generator(dev).manual_seed(S + W)
+        q = torch.randn(B, S, H, D, device=dev, generator=g)
+        k = torch.randn(B, S, KV, D, device=dev, generator=g)
+        v = torch.randn(B, S, KV, D, device=dev, generator=g)
+        long = shape == SWA_LONG
+        if long:
+            plain_fn = lambda: chunked_causal_attention(  # noqa: E731
+                q, k, v, window=0 if W >= S else W, chunk=1024)
+        else:
+            plain_fn = lambda: ref.swa_attention_ref(q, k, v, W)  # noqa: E731
+        a = swa.swa_attention(q, k, v, window=W)
+        b = swa.swa_attention(q, k, v, window=W)
+        plain = plain_fn()
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{shape}: two launches differ bitwise")
+        torch.testing.assert_close(a, plain, rtol=TOL, atol=TOL)
+        err = float((a - plain).abs().max())
+        del plain
+        # the math path of enable_gqa needs the (B, H, S, S) logits: 64 GiB
+        # at 32k, so there the yardstick runs on repeated K/V alone
+        repeated = swa_sdpa(torch, q, k, v, W, repeat_kv=True)
+        fns = [lambda: swa.swa_attention(q, k, v, window=W), plain_fn,
+               repeated]
+        if not long:
+            fns.append(swa_sdpa(torch, q, k, v, W))
+        for fn in fns[2:]:
+            torch.testing.assert_close(fn().transpose(1, 2), a, rtol=TOL,
+                                       atol=TOL)
+        times = [time_long_ms(torch, fn) if long else time_ms(torch, fn, 50)
+                 for fn in fns]
+        ms, plain_ms, repeated_ms = times[:3]
+        library_ms = times[-1]
+        P = swa_pairs(S, W)
+        row = {"shape": {"B": B, "S": S, "H": H, "KV": KV, "D": D, "W": W,
+                         "dtype": "float32"},
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "plain": "chunked_causal_attention" if long
+               else "swa_attention_ref",
+               "library_ms": library_ms,
+               "library": "sdpa, K/V repeated" if long
+               else "sdpa(enable_gqa=True)",
+               "sdpa_repeated_kv_ms": repeated_ms, "pairs": P,
+               **bound(4 * (2 * B * S * H * D + 2 * B * S * KV * D),
+                       4 * B * H * D * P)}
+        rows.append(row)
+        log(f"[kernel] swa_attention B={B} S={S} H={H} KV={KV} D={D} W={W}: "
+            f"max|kernel-plain| {err:.3e}, bitwise equal twice; kernel "
+            f"{ms:.6f} ms ({row['flops'] / ms / 1e9:.3f} TFLOP/s), plain "
+            f"{plain_ms:.6f} ms ({row['plain']}), {row['library']} "
+            f"{library_ms:.6f} ms, sdpa on repeated K/V {repeated_ms:.6f} ms, "
+            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}, "
+            f"{row['bytes']} B, {row['flops']} flop)")
+        del q, k, v, a, b
+        torch.cuda.empty_cache()
+    return rows
+
+
+def seq_tokens(torch, vocab, B, S, seed, dev):
+    import numpy as np
+
+    toks = np.random.default_rng(seed).integers(0, vocab, (B, S))
+    return torch.from_numpy(toks).to(dev)
+
+
+def max_diff(torch, a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def synced_s(torch, fn):
+    """(result, wall seconds) of ``fn`` ended by a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_seq_serve(torch, dev):
+    """The sequence track's serving path on internlm2-1.8b at full width
+    and depth, f32, random weights from seed 0 drawn on the card: (a)
+    launch.serve.serve as the reference runs it; (b) prefill of the same
+    prompt = the decode loop; (c) prefill at B 2, S 2048, kernel path =
+    plain path; (d) prefill at B 1, S 32768 (kernel path only); (e)
+    forward with the dense long-context window 8192 at S 16384, its first
+    layer's attention against the plain chunked version; (f)
+    encode_segment over 8 documents x 8 segments x 512 tokens, kernel =
+    plain.  Every swa_attention launch here is on the main path but for
+    the first-layer comparison in (e), which launches after the count is
+    read; a profiled prefill of (c)'s shape and a profiled decode step
+    follow the count."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.common import (attn_qkv,
+                                           chunked_causal_attention,
+                                           flatten_tree, make_norm)
+
+    cfg = get_config(SEQ_ARCH)
+    L = cfg.num_layers
+    kern = build_model(cfg, use_kernels=True, device=dev)
+    plain = build_model(cfg, use_kernels=False, device=dev)
+    params, init_s = synced_s(torch, lambda: kern.init(
+        torch.Generator(dev).manual_seed(0)))
+    n_params = sum(t.numel() for _, t in flatten_tree(params))
+    out = {"arch": SEQ_ARCH, "params": n_params, "init_s": init_s}
+    log(f"[seq_serve] {SEQ_ARCH}: {n_params} parameters ({L} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} x {cfg.num_kv_heads} heads "
+        f"of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), f32, drawn on the card in {init_s:.3f} s")
+    main = 0
+
+    def counted(fn, want):
+        """Run ``fn`` with the counts set to 0 just before, read just
+        after; every launch of it is on the main path."""
+        nonlocal main
+        ops.reset_kernel_launches()
+        res, secs = synced_s(torch, fn)
+        got = launched(ops.kernel_launches())
+        if got != ({"swa_attention": want} if want else {}):
+            raise AssertionError(f"launches {got}, want {want} swa_attention")
+        main += want
+        return res, secs
+
+    # (a) the serving launcher, as the reference runs it
+    B, prompt, n_gen = SEQ_SERVE
+    args = types.SimpleNamespace(arch=SEQ_ARCH, reduced=False, batch=B,
+                                 prompt_len=prompt, gen=n_gen, seed=0,
+                                 device=dev.type, use_kernels=True)
+    steps = prompt + n_gen - 1
+    gen, cold_s = counted(lambda: serve.serve(args, params=params), 0)
+    gen2, warm_s = counted(lambda: serve.serve(args, params=params), 0)
+    if gen.shape != (B, n_gen) or not (gen == gen2).all() \
+            or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+        raise AssertionError(f"serve generated {gen.shape} {gen2.shape}")
+    out["serve"] = {"batch": B, "prompt": prompt, "gen": n_gen,
+                    "steps": steps,
+                    "ms_per_token_cold": cold_s / steps * 1e3,
+                    "ms_per_token": warm_s / steps * 1e3}
+    log(f"[seq_serve] (a) serve B {B} prompt {prompt} gen {n_gen}: "
+        f"{steps} decode steps, "
+        f"{out['serve']['ms_per_token']:.3f} ms a token "
+        f"(first call {out['serve']['ms_per_token_cold']:.3f}); sample "
+        f"{gen[0][:8].tolist()}")
+
+    # (b) prefill of the same prompt = the teacher-forced decode loop
+    toks = seq_tokens(torch, cfg.vocab_size, B, prompt, args.seed, dev)
+    (lp, cp), _ = counted(lambda: kern.prefill(params, {"tokens": toks}), L)
+    caches = kern.init_cache(B, prompt)
+    for t in range(prompt):
+        ld, caches = kern.decode_step(params, toks[:, t:t + 1], caches,
+                                      torch.full((B,), t, device=dev))
+    torch.testing.assert_close(lp, ld, rtol=SEQ_TOL, atol=SEQ_TOL)
+    for name in ("k", "v"):
+        torch.testing.assert_close(cp[0][name], caches[0][name], rtol=SEQ_TOL,
+                                   atol=SEQ_TOL)
+    out["prefill_vs_decode"] = {
+        "logits": max_diff(torch, lp, ld),
+        "caches": max(max_diff(torch, cp[0][n], caches[0][n])
+                      for n in ("k", "v"))}
+    log(f"[seq_serve] (b) prefill = decode loop (B {B}, {prompt} tokens): "
+        f"max diff "
+        f"logits {out['prefill_vs_decode']['logits']:.3e}, caches "
+        f"{out['prefill_vs_decode']['caches']:.3e} (tol {SEQ_TOL})")
+    del cp, caches
+
+    # (c) prefill B 2, S 2048: kernel path = plain path
+    toks = seq_tokens(torch, cfg.vocab_size, *SEQ_PREFILL, 1, dev)
+    (lk, ck), k_s = counted(lambda: kern.prefill(params, {"tokens": toks}), L)
+    (lp, cp), p_s = synced_s(torch, lambda: plain.prefill(params,
+                                                          {"tokens": toks}))
+    torch.testing.assert_close(lk, lp, rtol=SEQ_TOL, atol=SEQ_TOL)
+    for name in ("k", "v"):
+        torch.testing.assert_close(ck[0][name], cp[0][name], rtol=SEQ_TOL,
+                                   atol=SEQ_TOL)
+    out["prefill"] = {"B": SEQ_PREFILL[0], "S": SEQ_PREFILL[1],
+        "kernel_s": k_s, "plain_s": p_s,
+        "max_diff_logits": max_diff(torch, lk, lp),
+        "max_diff_caches": max(max_diff(torch, ck[0][n], cp[0][n])
+                               for n in ("k", "v"))}
+    log(f"[seq_serve] (c) prefill B, S {SEQ_PREFILL}: kernel path "
+        f"{k_s:.3f} s "
+        f"({L} swa_attention launches), plain path {p_s:.3f} s; max diff "
+        f"logits {out['prefill']['max_diff_logits']:.3e}, caches of "
+        f"every layer {out['prefill']['max_diff_caches']:.3e} "
+        f"(tol {SEQ_TOL})")
+    del ck, cp
+
+    # (d) prefill B 1, S 32768, the kernel path only
+    toks = seq_tokens(torch, cfg.vocab_size, *SEQ_LONG, 2, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    (lk, ck), d_s = counted(lambda: kern.prefill(params, {"tokens": toks}), L)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    if tuple(lk.shape) != (1, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(lk).all()) or not all(
+            bool(torch.isfinite(ck[0][n]).all()) for n in ("k", "v")):
+        raise AssertionError("long prefill: non-finite or misshapen output")
+    n_tok = SEQ_LONG[0] * SEQ_LONG[1]
+    out["prefill_long"] = {"B": SEQ_LONG[0], "S": SEQ_LONG[1], "s": d_s,
+                          "tokens_per_s": n_tok / d_s,
+                          "peak_bytes_above_base": peak,
+                          "cache_bytes": sum(ck[0][n].numel() * 4
+                                             for n in ("k", "v"))}
+    log(f"[seq_serve] (d) prefill B, S {SEQ_LONG}: {d_s:.3f} s "
+        f"({n_tok / d_s:.1f} tokens/s), {L} swa_attention launches, peak "
+        f"device memory {peak / 2**30:.3f} GiB above the base (caches "
+        f"{out['prefill_long']['cache_bytes'] / 2**30:.3f} GiB)")
+    del lk, ck
+    torch.cuda.empty_cache()
+
+    # (e) the dense long-context window at S 16384
+    W, S = cfg.sliding_window, SEQ_WINDOW_S
+    toks = seq_tokens(torch, cfg.vocab_size, 1, S, 3, dev)
+    hid, e_s = counted(lambda: kern.forward(params, {"tokens": toks},
+                                            window=W), L)
+    if tuple(hid.shape) != (1, S, cfg.d_model) or not bool(
+            torch.isfinite(hid).all()):
+        raise AssertionError("windowed forward: non-finite or misshapen")
+    layer0 = {k: {n: t[0] for n, t in v.items()}
+              for k, v in params["runs"][0].items()}
+    x = make_norm(cfg.norm, cfg.d_model)[1](layer0["norm1"],
+                                            params["embed"][toks])
+    q, k, v = attn_qkv(layer0["attn"], x, num_heads=cfg.num_heads,
+                       num_kv=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+                       positions=torch.arange(S, device=dev)[None],
+                       rope_theta=cfg.rope_theta)
+    got = ops.sliding_window_attention(q, k, v, window=W)
+    want = chunked_causal_attention(q, k, v, window=W, chunk=1024)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    out["forward_window"] = {"S": S, "window": W, "s": e_s,
+                             "layer0_attention_max_diff":
+                             max_diff(torch, got, want)}
+    log(f"[seq_serve] (e) forward B 1 S {S} window {W}: {e_s:.3f} s, finite, "
+        f"{L} swa_attention launches; layer 0's attention kernel vs plain "
+        f"chunked max diff "
+        f"{out['forward_window']['layer0_attention_max_diff']:.3e} (tol {TOL})")
+    del hid, x, q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    # (f) GST's segment encoder: 8 documents x 8 segments x 512 tokens
+    docs, segs, seg_len = SEQ_DOCS
+    toks = seq_tokens(torch, cfg.vocab_size, docs * segs, seg_len, 4, dev)
+    (ek, _), f_s = counted(lambda: kern.encode_segment(
+        params, {"tokens": toks}), L)
+    (ep, _), fp_s = synced_s(torch, lambda: plain.encode_segment(
+        params, {"tokens": toks}))
+    torch.testing.assert_close(ek, ep, rtol=SEQ_TOL, atol=SEQ_TOL)
+    out["encode_segment"] = {"docs": docs, "segments": segs,
+                             "tokens": seg_len,
+                             "kernel_s": f_s, "plain_s": fp_s,
+                             "max_diff": max_diff(torch, ek, ep)}
+    log(f"[seq_serve] (f) encode_segment {docs} docs x {segs} segments x "
+        f"{seg_len} tokens: "
+        f"kernel path {f_s:.3f} s, plain path {fp_s:.3f} s, max diff "
+        f"{out['encode_segment']['max_diff']:.3e} (tol {SEQ_TOL})")
+    del ek, ep
+
+    # where the device time of a kernel-path prefill at (c)'s shape and of
+    # one decode step of (a) goes
+    toks = seq_tokens(torch, cfg.vocab_size, *SEQ_PREFILL, 1, dev)
+    out["prefill_profile"] = profiled(
+        torch, lambda: kern.prefill(params, {"tokens": toks}),
+        f"prefill B, S {SEQ_PREFILL}")
+    toks = seq_tokens(torch, cfg.vocab_size, B, 1, 5, dev)
+    caches = kern.init_cache(B, prompt + n_gen)
+    pos = torch.full((B,), prompt, device=dev)
+    out["decode_profile"] = profiled(
+        torch, lambda: kern.decode_step(params, toks, caches, pos),
+        f"decode step B {B}, cache {prompt + n_gen}")
+    del params
+    torch.cuda.empty_cache()
+    return main, out
+
+
+def profiled(torch, fn, label):
+    """One warm call of ``fn``, then one under torch.profiler: device
+    events, their summed time by kind (the attention kernel, matmuls, the
+    rest), and the busy share of the wall time (a lower bound: the
+    profiler's host overhead is in the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    by = {"swa_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in events:
+        kind = ("swa_attention" if "swa_attention_kernel" in e.name else
+                "gemm" if "gemm" in e.name.lower() else "other")
+        by[kind] += e.time_range.elapsed_us() / 1e3
+    busy = sum(by.values())
+    log(f"[seq_serve] profiled {label}: {len(events)} device events, busy "
+        f"{busy:.3f} ms of {wall_ms:.3f} ms wall (busy share "
+        f"{busy / wall_ms:.4f}): swa_attention {by['swa_attention']:.3f} ms, "
+        f"matmuls {by['gemm']:.3f} ms, other {by['other']:.3f} ms")
+    return {"device_events": len(events), "device_ms": by, "busy_ms": busy,
+            "wall_ms": wall_ms, "busy_share": busy / wall_ms}
+
+
 def kernel_entry(name, source, replaces, launches, rows, headline):
     head = rows[headline]
     return {"name": name, "route": "cuda", "source": source,
@@ -1092,6 +1499,7 @@ def main() -> int:
     sed_rows = phase_kernel_sed(torch, dev, aged=False)
     aged_rows = phase_kernel_sed(torch, dev, aged=True)
     quant_rows = phase_kernel_quant(torch, dev)
+    swa_rows = phase_kernel_swa(torch, dev)
     main_launches = {}
     serving = []
     for backbone in ("sage", "gcn"):
@@ -1122,6 +1530,7 @@ def main() -> int:
     profile = phase_profile(torch, dev)
     dist_profile = phase_dist_profile(torch)
     dist_scaling = phase_dist_scaling(torch)
+    main_launches["swa_attention"], seq_serve = phase_seq_serve(torch, dev)
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -1149,6 +1558,10 @@ def main() -> int:
                                     quant_src + str(line),
                                     main_launches.get(kernel, 0),
                                     quant_rows[kernel], headline))
+    kernels.append(kernel_entry(
+        "swa_attention", csrc + "swa_attention.cu",
+        "src/repro/kernels/swa_attention.py:27",
+        main_launches["swa_attention"], swa_rows, SWA_HEADLINE))
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
@@ -1156,7 +1569,8 @@ def main() -> int:
                     "profile": profile, "dist": dist,
                     "dist_f32_epoch_losses": f32_losses,
                     "dist_profile": dist_profile,
-                    "dist_scaling_ms": dist_scaling, "card": smi,
+                    "dist_scaling_ms": dist_scaling, "seq_serve": seq_serve,
+                    "card": smi,
                     "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

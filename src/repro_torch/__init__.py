@@ -8,7 +8,11 @@ neighbor aggregation runs the hand-written CUDA kernel
 training: ``launch/train.py`` -> ``graphs/experiment.py::run_experiment`` ->
 the steps of ``core/gst.py``, which add the SpMM's backward (the same
 kernel, src and dst swapped) and the fused SED pooling
-``kernels/csrc/sed_pool.cu``.
+``kernels/csrc/sed_pool.cu``.  Slice 3 is distributed training
+(``launch/train_dist.py``, the codec kernels ``kernels/csrc/quant.cu``).
+Slice 4 is sequence-track serving of the dense transformers:
+``launch/serve.py`` and ``models/registry.py::Model``, whose full-sequence
+passes run the attention kernel ``kernels/csrc/swa_attention.cu``.
 
 Device rule: entry points run on ``cuda`` unless the caller asks for the
 CPU; asking for ``cuda`` where no card is visible raises.  TF32 is switched

@@ -1,0 +1,21 @@
+"""InternLM2 20B dense GQA config. [arXiv:2403.17297]
+
+Assigned spec: 48L d_model=6144 48H (GQA kv=8) d_ff=16384 vocab=92544.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="internlm2-20b",
+    family="dense",
+    num_layers=48,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=16384,
+    vocab_size=92544,
+    head_dim=128,
+    norm="rmsnorm",
+    act="silu",
+    rope_theta=1_000_000.0,
+    source="arXiv:2403.17297",
+)

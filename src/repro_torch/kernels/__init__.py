@@ -10,6 +10,9 @@ quant        -- pack and unpack of the compressed exchange wire format
                 (bf16, int8 + per-row scale; nearest-even and stochastic
                 rounding) (CUDA C++, sm_90a), one launch per exchanged
                 buffer
+swa_attention -- causal sliding-window attention, GQA heads read in place
+                (CUDA C++, sm_90a), one launch per attention layer of a
+                dense transformer's full-sequence forward
 
 ops.py holds the public wrappers and launch counts (counts.py the
 thread-safe counter); ref.py the plain-torch versions; csrc/ the CUDA

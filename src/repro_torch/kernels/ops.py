@@ -16,6 +16,7 @@ from repro_torch.kernels import quant as _quant
 from repro_torch.kernels import ref
 from repro_torch.kernels import sed_pool as _sed
 from repro_torch.kernels import segment_spmm as _spmm
+from repro_torch.kernels import swa_attention as _swa
 from repro_torch.kernels.quant import PAYLOAD_DTYPES  # noqa: F401
 
 
@@ -72,14 +73,14 @@ def pad_leading(x, target: int):
 # ---------------------------------------------------------------------------
 
 
-_COUNTERS = (_spmm.LAUNCHES, _sed.LAUNCHES, _quant.LAUNCHES)
+_COUNTERS = (_spmm.LAUNCHES, _sed.LAUNCHES, _quant.LAUNCHES, _swa.LAUNCHES)
 
 
 def kernel_launches() -> Dict[str, int]:
     """Launches of each kernel since the last ``reset_kernel_launches``:
     the SpMM forward (``segment_spmm_batched``) and backward
-    (``segment_spmm_batched_bwd``), ``sed_pool``, ``sed_pool_aged`` and the
-    six ``quant_*`` pack and unpack kernels."""
+    (``segment_spmm_batched_bwd``), ``sed_pool``, ``sed_pool_aged``, the
+    six ``quant_*`` pack and unpack kernels and ``swa_attention``."""
     return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
@@ -149,3 +150,15 @@ def dequantize_payload(parts, *, dtype: str, use_kernels: bool = True):
     if use_kernels:
         return _quant.dequantize_rows(parts, dtype)
     return ref.dequantize_rows_ref(tuple(parts), dtype)
+
+
+def sliding_window_attention(q, k, v, *, window: int,
+                             use_kernels: bool = True):
+    """Causal sliding-window attention: q (B, S, H, D), k/v (B, S, KV, D)
+    -> (B, S, H, D); key j visible to query i iff i - window < j <= i, so
+    ``window`` >= S is full causal attention.  ``window`` is taken
+    literally, as the reference's op takes it.  ``use_kernels`` False takes
+    the plain version on any device."""
+    if use_kernels:
+        return _swa.swa_attention(q, k, v, window=window)
+    return ref.swa_attention_ref(q, k, v, window)

@@ -3,8 +3,7 @@ and the yardstick the kernels are held against on the card.
 
 Counterpart of ``src/repro/kernels/ref.py``, plus the wire-format pack and
 unpack of ``src/repro/kernels/quant.py:64-130`` (``quantize_rows_ref``,
-``dequantize_rows_ref``).  ``swa_attention_ref`` lands with the sequence
-slice.
+``dequantize_rows_ref``) and ``swa_attention_ref`` with GQA heads.
 """
 from __future__ import annotations
 
@@ -165,3 +164,28 @@ def dequantize_rows_ref(parts, dtype: str) -> torch.Tensor:
         v, scale = parts
         return v.to(torch.float32) * scale.reshape((-1,) + (1,) * (v.dim() - 1))
     raise ValueError(f"dequantize dtype {dtype!r} not in ('bf16', 'int8')")
+
+
+def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window: int) -> torch.Tensor:
+    """Causal sliding-window attention oracle (``src/repro/kernels/ref.py:
+    73-87``): key j is visible to query i iff  i - window < j <= i.
+
+    q: (B, S, H, D); k/v: (B, S, KV, D) with KV dividing H, expanded as the
+    models' ``_repeat_kv`` does (head h reads KV head h // (H // KV)); with
+    KV == H it is the reference's oracle.  ``window`` is taken literally,
+    as the reference takes it (0 masks every key, and the softmax over the
+    all -1e30 row is then uniform).  Materialises the (B, H, S, S) logits.
+    """
+    B, S, H, D = q.shape
+    if k.shape[2] != H:
+        k = k.repeat_interleave(H // k.shape[2], dim=2)
+        v = v.repeat_interleave(H // v.shape[2], dim=2)
+    scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = (j <= i) & (j > i - window)
+    logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)

@@ -1,27 +1,57 @@
-"""Shared model components of the port: init helpers.
+"""Shared model components of the port: init helpers, norms, rotary
+embeddings, attention (full / sliding-window / cached decode) and MLP
+blocks, plus the carry-over of parameters initialised by the JAX package.
 
-Counterpart of ``src/repro/models/common.py`` (``dense_init`` only, so far),
-plus the carry-over of parameters initialised by the JAX package.
+Counterpart of ``src/repro/models/common.py``.  As there, the components
+are functions over nested-dict parameter trees of tensors, with the
+reference's parameter names.  The reference's speed switches
+(``GQA_IMPL``, ``ATTN_IMPL``, ``CACHE_UPDATE``) are not ported: they
+compute the same function (``tests/test_perf_toggles.py``), and the port
+keeps their defaults ("repeat", "naive", "onehot").  Instead, the causal
+self-attention of a full-sequence forward goes through the hand-written
+sliding-window attention kernel when ``use_kernels`` is set
+(``kernels/ops.py::sliding_window_attention``).  M-RoPE (the VLM family)
+waits for ROADMAP A4.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+_A4 = "waits for a later slice of the port (ROADMAP A4)"
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
 
 
 def dense_init(d_in: int, d_out: int, generator: torch.Generator,
-               dtype=torch.float32, scale: Optional[float] = None) -> torch.Tensor:
+               dtype=torch.float32, scale: Optional[float] = None,
+               lead: Tuple[int, ...] = ()) -> torch.Tensor:
     """Truncated-normal fan-in init, matmul weight (d_in, d_out): a standard
-    normal cut at ±2σ, times 1/√d_in.  Drawn on the CPU from ``generator``,
-    so one seed gives the same weights whatever device they go to."""
+    normal cut at ±2σ, times 1/√d_in.  Drawn on ``generator``'s device
+    from it, so one seed gives the same weights whatever device a CPU
+    generator's weights go to.  ``lead``: leading axes of a stack of such
+    weights (one a layer), drawn at once."""
     if scale is None:
         scale = 1.0 / math.sqrt(d_in)
-    w = torch.empty(d_in, d_out, dtype=torch.float32)
+    w = torch.empty(*lead, d_in, d_out, dtype=torch.float32,
+                    device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * scale).to(dtype)
+
+
+def embed_init(vocab: int, d: int, generator: torch.Generator,
+               dtype=torch.float32) -> torch.Tensor:
+    w = torch.empty(vocab, d, dtype=torch.float32, device=generator.device)
+    w.normal_(0.0, 1.0, generator=generator)
+    return (w * 0.02).to(dtype)
 
 
 def flatten_tree(tree, prefix: str = ""):
@@ -38,22 +68,309 @@ def flatten_tree(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
-def load_jax_params(module: torch.nn.Module, np_tree) -> torch.nn.Module:
-    """Fill ``module``'s parameters from the JAX package's parameter tree
-    (nested dicts and lists of numpy arrays), matched by path name.  The
-    weight carry-over the parity tests use.  Raises when the names or the
-    shapes of the two disagree; returns ``module``."""
+def load_jax_params(target, np_tree):
+    """Fill ``target``'s parameters from the JAX package's parameter tree
+    (nested dicts and lists of numpy arrays), matched by path name, in
+    place.  ``target`` is an ``nn.Module`` (its named parameters) or a
+    nested dict/list tree of tensors (the sequence models' parameters).
+    The weight carry-over the parity tests use.  Raises when the names or
+    the shapes of the two disagree; returns ``target``."""
     flat = dict(flatten_tree(np_tree))
-    params = dict(module.named_parameters())
+    if isinstance(target, torch.nn.Module):
+        params = dict(target.named_parameters())
+    else:
+        params = dict(flatten_tree(target))
     if set(flat) != set(params):
         raise KeyError(f"parameter names differ: only in the tree "
                        f"{sorted(set(flat) - set(params))}, only in the "
-                       f"module {sorted(set(params) - set(flat))}")
+                       f"target {sorted(set(params) - set(flat))}")
     with torch.no_grad():
         for name, p in params.items():
             arr = np.asarray(flat[name])
             if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: tree shape {arr.shape} != module "
+                raise ValueError(f"{name}: tree shape {arr.shape} != target "
                                  f"shape {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(arr)).to(p.dtype))
-    return module
+    return target
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(dt)
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    if p is not None and "scale" in p:
+        y = y * p["scale"].float() + p["bias"].float()
+    return y.to(dt)
+
+
+def nonparam_ln(x, eps: float = 1e-5):
+    """OLMo-style LayerNorm without learnable affine. [arXiv:2402.00838]"""
+    return layernorm(None, x, eps)
+
+
+def make_norm(kind: str, d: int, dtype=torch.float32, lead: Tuple[int, ...] = (),
+              device=None):
+    """Returns (params, apply_fn).  ``nonparam_ln`` carries an empty dict so
+    the tree structure stays uniform across layer kinds; ``lead`` stacks
+    the parameters of several layers."""
+    if kind == "rmsnorm":
+        return ({"scale": torch.ones(*lead, d, dtype=dtype, device=device)},
+                rmsnorm)
+    if kind == "layernorm":
+        return ({"scale": torch.ones(*lead, d, dtype=dtype, device=device),
+                 "bias": torch.zeros(*lead, d, dtype=dtype, device=device)},
+                layernorm)
+    if kind == "nonparam_ln":
+        return {}, lambda p, x: nonparam_ln(x)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq)."""
+    half = x.shape[-1] // 2
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * inv  # (..., seq, half)
+    cos = torch.cos(ang)[..., None, :]  # (..., seq, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def apply_mrope(x, positions_thw, theta: float, sections: Tuple[int, ...]):
+    """Qwen2-VL M-RoPE (the VLM family) is not ported yet."""
+    raise NotImplementedError(f"M-RoPE (qwen2-vl) {_A4}")
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def write_cache(cache, new, idx):
+    """cache: (B, C, ...); new: (B, 1, ...); idx: (B,) target slot.  The
+    reference's default "onehot" update, cache·(1 − oh) + oh·new,
+    out of place."""
+    oh = F.one_hot(idx.long(), cache.shape[1]).to(cache.dtype)  # (B, C)
+    oh = oh.reshape(oh.shape + (1,) * (cache.dim() - 2))
+    return cache * (1.0 - oh) + oh * new
+
+
+def attn_params(generator: torch.Generator, d_model: int, num_heads: int,
+                num_kv: int, head_dim: int, dtype=torch.float32,
+                lead: Tuple[int, ...] = ()):
+    return {
+        "wq": dense_init(d_model, num_heads * head_dim, generator, dtype,
+                         lead=lead),
+        "wk": dense_init(d_model, num_kv * head_dim, generator, dtype,
+                         lead=lead),
+        "wv": dense_init(d_model, num_kv * head_dim, generator, dtype,
+                         lead=lead),
+        "wo": dense_init(num_heads * head_dim, d_model, generator, dtype,
+                         scale=1.0 / math.sqrt(num_heads * head_dim),
+                         lead=lead),
+    }
+
+
+def _repeat_kv(k, num_heads: int):
+    """(B, S, KV, D) -> (B, S, H, D) by repeating kv groups (head h reads
+    kv head h // (H // KV), as ``jnp.repeat``)."""
+    num_kv = k.shape[-2]
+    if num_kv == num_heads:
+        return k
+    return k.repeat_interleave(num_heads // num_kv, dim=-2)
+
+
+def sdpa(q, k, v, *, causal: bool, window: int = 0):
+    """Reference scaled-dot-product attention with optional causal +
+    sliding-window masking.  q: (B, Sq, H, D), k/v: (B, Sk, KV, D).
+    ``window``: if > 0, keys older than ``window`` positions are masked.
+    Materialises the (B, H, Sq, Sk) logits.  (The reference's decode-only
+    ``q_offset`` and ``kv_valid_len`` have no caller here: the port's
+    decode masks its cache itself, as the reference's does.)
+    """
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    k = _repeat_kv(k, H)
+    v = _repeat_kv(v, H)
+    scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    logits = torch.where(mask[None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def chunked_causal_attention(q, k, v, *, window: int = 0, chunk: int = 1024):
+    """Online-softmax causal (optionally windowed) attention over KV chunks,
+    peak activation O(S·chunk) instead of O(S²).  q/k/v: (B, S, H|KV, D)
+    -> (B, S, H, D); like the reference, it covers S // chunk chunks."""
+    B, S, H, D = q.shape
+    k = _repeat_kv(k, H)
+    v = _repeat_kv(v, H)
+    scale = 1.0 / math.sqrt(D)
+    q_pos = torch.arange(S, device=q.device)
+    qf = q.float()
+    m = torch.full((B, H, S, 1), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, S, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, S, H, D), dtype=torch.float32, device=q.device)
+    for i in range(S // chunk):
+        ks = k[:, i * chunk:(i + 1) * chunk].float()
+        vs = v[:, i * chunk:(i + 1) * chunk].float()
+        logits = torch.einsum("bqhd,bkhd->bhqk", qf, ks) * scale
+        k_pos = i * chunk + torch.arange(chunk, device=q.device)
+        mask = k_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        logits = torch.where(mask[None, None], logits, -1e30)
+        m_cur = torch.amax(logits, dim=-1, keepdim=True)
+        m_new = torch.maximum(m, m_cur)
+        p = torch.exp(logits - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1, keepdim=True)
+        acc = acc * alpha.transpose(1, 2) + torch.einsum(
+            "bhqk,bkhd->bqhd", p, vs)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)
+    return out.to(q.dtype)
+
+
+def attn_qkv(p, x, *, num_heads: int, num_kv: int, head_dim: int, positions,
+             rope_theta: float, kv_override=None):
+    """The projections of ``attn_forward``, rotated: (q (B, S, H, D),
+    k, v (B, S, KV, D)).  M-RoPE (the reference's ``mrope_sections``)
+    waits for the VLM family."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, num_heads, head_dim)
+    if kv_override is None:
+        k = (x @ p["wk"]).reshape(B, S, num_kv, head_dim)
+        v = (x @ p["wv"]).reshape(B, S, num_kv, head_dim)
+        if rope_theta:
+            q = apply_rope(q, positions, rope_theta)
+            k = apply_rope(k, positions, rope_theta)
+    else:
+        k, v = kv_override
+        if rope_theta:
+            q = apply_rope(q, positions, rope_theta)
+    return q, k, v
+
+
+def attn_forward(p, x, *, num_heads: int, num_kv: int, head_dim: int,
+                 positions, rope_theta: float, causal: bool = True,
+                 window: int = 0, kv_override=None, use_kernels: bool = True):
+    """Full attention over a sequence (train / prefill).  Returns (out,
+    (k, v)) so the prefill path can emit the cache.  ``kv_override``: (k, v)
+    from an encoder for cross-attention.
+
+    Causal self-attention with ``use_kernels`` runs the sliding-window
+    attention kernel, with the window S where ``window`` is 0 (full
+    causal): the op takes its window literally.  Otherwise ``sdpa``."""
+    B, S, _ = x.shape
+    q, k, v = attn_qkv(p, x, num_heads=num_heads, num_kv=num_kv,
+                       head_dim=head_dim, positions=positions,
+                       rope_theta=rope_theta, kv_override=kv_override)
+    if use_kernels and causal and kv_override is None:
+        out = ops.sliding_window_attention(q, k, v,
+                                           window=window if window > 0 else S)
+    else:
+        out = sdpa(q, k, v, causal=causal and kv_override is None,
+                   window=window)
+    out = out.reshape(B, S, num_heads * head_dim) @ p["wo"]
+    return out, (k, v)
+
+
+def attn_decode(p, x, cache_k, cache_v, cache_pos, *, num_heads: int,
+                num_kv: int, head_dim: int, rope_theta: float,
+                ring: bool = False):
+    """One-token cached decode.  x: (B, 1, d); cache_k/v: (B, C, KV, D);
+    cache_pos: (B,) absolute position of the new token.
+
+    ``ring``: cache is a ring buffer of size C: the write index is
+    ``cache_pos % C`` and all C slots attend once full (the window is the
+    ring's size; the reference's ``window`` argument here is unused).
+    Keys are stored post-RoPE so ring eviction needs no re-rotation.
+    Plain torch: the reference has no kernel here.
+    """
+    B = x.shape[0]
+    C = cache_k.shape[1]
+    q = (x @ p["wq"]).reshape(B, 1, num_heads, head_dim)
+    k = (x @ p["wk"]).reshape(B, 1, num_kv, head_dim)
+    v = (x @ p["wv"]).reshape(B, 1, num_kv, head_dim)
+    if rope_theta:
+        q = apply_rope(q, cache_pos[:, None], rope_theta)
+        k = apply_rope(k, cache_pos[:, None], rope_theta)
+    write_idx = (cache_pos % C) if ring else torch.clamp(cache_pos, max=C - 1)
+    cache_k = write_cache(cache_k, k, write_idx)
+    cache_v = write_cache(cache_v, v, write_idx)
+    valid = torch.clamp(cache_pos + 1, max=C)  # (B,)
+    k_pos = torch.arange(C, device=x.device)[None, :]  # slot index
+    vmask = k_pos < valid[:, None]  # (B, C)
+    kh = _repeat_kv(cache_k, num_heads)
+    vh = _repeat_kv(cache_v, num_heads)
+    scale = 1.0 / math.sqrt(head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kh).float() * scale
+    logits = torch.where(vmask[:, None, None, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
+    out = out.reshape(B, 1, num_heads * head_dim) @ p["wo"]
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLP / FFN
+# ---------------------------------------------------------------------------
+
+
+def _check_act(act: str):
+    if act not in ("silu", "swiglu"):
+        raise NotImplementedError(f"activation {act!r} (whisper's gelu, "
+                                  f"rwkv's relu_sq) {_A4}")
+
+
+def mlp_params(generator: torch.Generator, d_model: int, d_ff: int, act: str,
+               dtype=torch.float32, lead: Tuple[int, ...] = ()):
+    """The gated (SwiGLU) MLP of the dense family."""
+    _check_act(act)
+    return {
+        "w_in": dense_init(d_model, d_ff, generator, dtype, lead=lead),
+        "w_gate": dense_init(d_model, d_ff, generator, dtype, lead=lead),
+        "w_out": dense_init(d_ff, d_model, generator, dtype,
+                            scale=1.0 / math.sqrt(d_ff), lead=lead),
+    }
+
+
+def mlp_forward(p, x, act: str):
+    _check_act(act)
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]

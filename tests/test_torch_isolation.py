@@ -31,7 +31,12 @@ def test_importing_every_port_module_pulls_in_no_jax():
             "repro_torch.dist", "repro_torch.dist.comm",
             "repro_torch.dist.exchange", "repro_torch.dist.table",
             "repro_torch.dist.train", "repro_torch.dist.pipeline",
-            "repro_torch.launch.train_dist"} <= set(mods)
+            "repro_torch.launch.train_dist", "repro_torch.configs",
+            "repro_torch.configs.base", "repro_torch.configs.internlm2_1_8b",
+            "repro_torch.kernels.swa_attention", "repro_torch.models",
+            "repro_torch.models.common", "repro_torch.models.blocks",
+            "repro_torch.models.transformer", "repro_torch.models.registry",
+            "repro_torch.launch.serve"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

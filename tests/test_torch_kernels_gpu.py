@@ -1,10 +1,12 @@
 """The port's CUDA kernels on the card (the segment SpMM, its backward,
-sed_pool / sed_pool_aged, and the six pack / unpack kernels of the
-compressed exchange), against their plain versions (kernels/ref.py):
-within rtol = atol = 1e-5 in f32 forward (6e-2 in bf16) and 1e-4 for
-gradients, the pack and unpack kernels BITWISE, bitwise equal from launch
-to launch, refusing what they cannot do; and a few GST train steps through
-them, single-device and distributed, against the plain path.
+sed_pool / sed_pool_aged, the six pack / unpack kernels of the
+compressed exchange, and the sliding-window attention), against their
+plain versions (kernels/ref.py): within rtol = atol = 1e-5 in f32 forward
+(6e-2 in bf16) and 1e-4 for gradients, the pack and unpack kernels
+BITWISE, bitwise equal from launch to launch, refusing what they cannot
+do; a few GST train steps through them, single-device and distributed,
+against the plain path; and the reduced dense transformer's kernel path
+against its plain path.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -400,3 +402,109 @@ def test_dist_steps_kernel_path_matches_plain(cuda):
                                                          ids[0])],
         torch.Generator().manual_seed(1), want)
     assert n_stale > 0
+
+
+# ---------------------------------------------------------------------------
+# sliding-window attention
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KV, D, W; None = full causal): chip_smoke.py's phase-3 shapes
+SWA_CASES = [(2, 256, 4, 2, 64, 128), (1, 2048, 16, 8, 128, None),
+             (1, 4096, 16, 8, 128, 1024), (2, 1000, 16, 8, 128, 300),
+             (1, 1, 16, 8, 128, None)]
+
+
+def _swa_inputs(B, S, H, KV, D, seed, cuda):
+    g = torch.Generator(cuda).manual_seed(seed)
+    return (torch.randn(B, S, H, D, device=cuda, generator=g),
+            torch.randn(B, S, KV, D, device=cuda, generator=g),
+            torch.randn(B, S, KV, D, device=cuda, generator=g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,W", SWA_CASES)
+def test_swa_kernel_matches_plain_and_is_deterministic(cuda, B, S, H, KV, D,
+                                                       W):
+    from repro_torch.kernels import swa_attention as swa
+
+    q, k, v = _swa_inputs(B, S, H, KV, D, seed=S, cuda=cuda)
+    W = S if W is None else W
+    ops.reset_kernel_launches()
+    a = swa.swa_attention(q, k, v, window=W)
+    b = swa.swa_attention(q, k, v, window=W)
+    want = ref.swa_attention_ref(q, k, v, W)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["swa_attention"] == 2
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_swa_kernel_reads_strided_heads(cuda):
+    """q, k, v as column slices of one fused projection (strided heads),
+    and a window larger than S."""
+    from repro_torch.kernels import swa_attention as swa
+
+    B, S, H, KV, D = 2, 300, 4, 2, 64
+    g = torch.Generator(cuda).manual_seed(0)
+    qkv = torch.randn(B, S, (H + 2 * KV) * D, device=cuda, generator=g)
+    q = qkv[..., :H * D].unflatten(-1, (H, D))
+    k = qkv[..., H * D:(H + KV) * D].unflatten(-1, (KV, D))
+    v = qkv[..., (H + KV) * D:].unflatten(-1, (KV, D))
+    assert not q.is_contiguous()
+    got = swa.swa_attention(q, k, v, window=10_000)
+    torch.testing.assert_close(got, ref.swa_attention_ref(q, k, v, 10_000),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_swa_kernel_refuses_what_it_cannot_do(cuda):
+    from repro_torch.kernels import swa_attention as swa
+
+    q, k, v = _swa_inputs(1, 64, 4, 2, 96, seed=0, cuda=cuda)
+    with pytest.raises(ValueError, match="head dim 96"):
+        swa.swa_attention(q, k, v, window=64)
+    q, k, v = _swa_inputs(1, 64, 4, 2, 64, seed=0, cuda=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        swa.swa_attention(q.half(), k.half(), v.half(), window=64)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        swa._launch(q.cpu(), k.cpu(), v.cpu(), 64)
+    with pytest.raises(ValueError, match="is on cpu"):
+        swa.swa_attention(q, k.cpu(), v, window=64)
+    with pytest.raises(ValueError, match="window"):
+        swa.swa_attention(q, k, v, window=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,num_kv", [("internlm2-1.8b", 2),
+                                         ("olmo-1b", None)])
+def test_dense_model_kernel_path_matches_plain(cuda, arch, num_kv):
+    """The reduced dense transformer (head dim 64) on the card: prefill's
+    last logits and caches, and a windowed forward, through the kernel
+    (one launch a layer) against the plain path, at 5e-4 (the reference's
+    forward-vs-decode tolerance)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+
+    cfg = reduced(get_config(arch))
+    if num_kv:
+        cfg = dataclasses.replace(cfg, num_kv_heads=num_kv)
+    kern = build_model(cfg, use_kernels=True, device=cuda)
+    plain = build_model(cfg, use_kernels=False, device=cuda)
+    params = kern.init(torch.Generator(cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 200), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    ops.reset_kernel_launches()
+    lk, ck = kern.prefill(params, {"tokens": toks})
+    assert ops.kernel_launches()["swa_attention"] == cfg.num_layers
+    lp, cp = plain.prefill(params, {"tokens": toks})
+    torch.testing.assert_close(lk, lp, rtol=5e-4, atol=5e-4)
+    for name in ("k", "v"):
+        torch.testing.assert_close(ck[0][name], cp[0][name], rtol=5e-4,
+                                   atol=5e-4)
+    torch.testing.assert_close(kern.forward(params, {"tokens": toks}, window=64),
+                               plain.forward(params, {"tokens": toks},
+                                             window=64),
+                               rtol=5e-4, atol=5e-4)

@@ -1285,7 +1285,7 @@ def phase_seq_serve(torch, dev):
     B, prompt, n_gen = SEQ_SERVE
     args = types.SimpleNamespace(arch=SEQ_ARCH, reduced=False, batch=B,
                                  prompt_len=prompt, gen=n_gen, seed=0,
-                                 device=dev.type, use_kernels=True)
+                                 device=dev.type)
     steps = prompt + n_gen - 1
     gen, cold_s = counted(lambda: serve.serve(args, params=params), 0)
     gen2, warm_s = counted(lambda: serve.serve(args, params=params), 0)
@@ -1421,7 +1421,8 @@ def phase_seq_serve(torch, dev):
     toks = seq_tokens(torch, cfg.vocab_size, *SEQ_PREFILL, 1, dev)
     out["prefill_profile"] = profiled(
         torch, lambda: kern.prefill(params, {"tokens": toks}),
-        f"prefill B, S {SEQ_PREFILL}")
+        f"prefill B, S {SEQ_PREFILL}",
+        gemm_flops=prefill_gemm_flops(params, cfg, *SEQ_PREFILL))
     toks = seq_tokens(torch, cfg.vocab_size, B, 1, 5, dev)
     caches = kern.init_cache(B, prompt + n_gen)
     pos = torch.full((B,), prompt, device=dev)
@@ -1433,11 +1434,24 @@ def phase_seq_serve(torch, dev):
     return main, out
 
 
-def profiled(torch, fn, label):
+def prefill_gemm_flops(params, cfg, batch, seq):
+    """The matmul operations of ``Model.prefill``: every layer's
+    projections and MLP (the stacked (L, in, out) weights) over all
+    batch·seq tokens, and the lm_head over one token a sequence."""
+    from repro_torch.models.common import flatten_tree
+
+    layers = sum(t.numel() for _, t in flatten_tree(params["runs"])
+                 if t.dim() == 3)
+    head = params["embed" if cfg.tie_embeddings else "lm_head"].numel()
+    return 2 * batch * seq * layers + 2 * batch * head
+
+
+def profiled(torch, fn, label, gemm_flops=None):
     """One warm call of ``fn``, then one under torch.profiler: device
     events, their summed time by kind (the attention kernel, matmuls, the
     rest), and the busy share of the wall time (a lower bound: the
-    profiler's host overhead is in the wall)."""
+    profiler's host overhead is in the wall).  ``gemm_flops``: the
+    matmuls' operations, for their rate."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1460,8 +1474,15 @@ def profiled(torch, fn, label):
         f"{busy:.3f} ms of {wall_ms:.3f} ms wall (busy share "
         f"{busy / wall_ms:.4f}): swa_attention {by['swa_attention']:.3f} ms, "
         f"matmuls {by['gemm']:.3f} ms, other {by['other']:.3f} ms")
-    return {"device_events": len(events), "device_ms": by, "busy_ms": busy,
-            "wall_ms": wall_ms, "busy_share": busy / wall_ms}
+    res = {"device_events": len(events), "device_ms": by, "busy_ms": busy,
+           "wall_ms": wall_ms, "busy_share": busy / wall_ms}
+    if gemm_flops:
+        res["gemm_tflops"] = gemm_flops / 1e12
+        res["gemm_tflop_per_s"] = gemm_flops / (by["gemm"] * 1e-3) / 1e12
+        log(f"[seq_serve] profiled {label}: matmuls "
+            f"{res['gemm_tflops']:.3f} TFLOP at "
+            f"{res['gemm_tflop_per_s']:.2f} TFLOP/s")
+    return res
 
 
 def kernel_entry(name, source, replaces, launches, rows, headline):

@@ -15,9 +15,8 @@ Runs on the card (``--device cuda``, the default; it raises where no card
 is visible) unless ``--device cpu`` is given.  As in the reference, the
 prompt is run through ``decode_step`` token by token (the cache is as long
 as prompt + generated tokens), so no full-sequence pass and no attention
-kernel runs here: ``Model.prefill`` is the full forward that does
-(``--use-kernels`` reaches it, for a caller of ``serve`` that builds on
-the model).  Only the dense family is ported (ROADMAP A4).
+kernel runs here: ``Model.prefill`` is the full forward that does.  Only
+the dense family is ported (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -40,7 +39,7 @@ def serve(args, params=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    model = build_model(cfg, use_kernels=args.use_kernels, device=device)
+    model = build_model(cfg, device=device)
     if params is None:
         params = model.init(torch.Generator(device).manual_seed(args.seed))
     B = args.batch
@@ -82,10 +81,6 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--use-kernels", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="full-sequence attention through the port's kernel "
-                         "(its plain version on the CPU)")
     return serve(ap.parse_args(argv))
 
 

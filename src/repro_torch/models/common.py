@@ -7,11 +7,12 @@ are functions over nested-dict parameter trees of tensors, with the
 reference's parameter names.  The reference's speed switches
 (``GQA_IMPL``, ``ATTN_IMPL``, ``CACHE_UPDATE``) are not ported: they
 compute the same function (``tests/test_perf_toggles.py``), and the port
-keeps their defaults ("repeat", "naive", "onehot").  Instead, the causal
-self-attention of a full-sequence forward goes through the hand-written
-sliding-window attention kernel when ``use_kernels`` is set
-(``kernels/ops.py::sliding_window_attention``).  M-RoPE (the VLM family)
-waits for ROADMAP A4.
+keeps the values of their defaults ("repeat", "naive", "onehot"; the cache
+write is made in place).  Instead, the causal self-attention of a
+full-sequence forward goes through ``kernels/ops.py::
+sliding_window_attention``: the hand-written kernel when ``use_kernels``
+is set, its plain version otherwise.  M-RoPE (the VLM family) waits for
+ROADMAP A4.
 """
 from __future__ import annotations
 
@@ -174,12 +175,13 @@ def apply_mrope(x, positions_thw, theta: float, sections: Tuple[int, ...]):
 
 
 def write_cache(cache, new, idx):
-    """cache: (B, C, ...); new: (B, 1, ...); idx: (B,) target slot.  The
-    reference's default "onehot" update, cache·(1 − oh) + oh·new,
-    out of place."""
-    oh = F.one_hot(idx.long(), cache.shape[1]).to(cache.dtype)  # (B, C)
-    oh = oh.reshape(oh.shape + (1,) * (cache.dim() - 2))
-    return cache * (1.0 - oh) + oh * new
+    """cache: (B, C, ...); new: (B, 1, ...); idx: (B,) target slot.  Writes
+    ``new`` into slot ``idx`` of each row of ``cache`` in place and returns
+    ``cache``: the values of the reference's default "onehot" update,
+    cache·(1 − oh) + oh·new, without rewriting the whole cache."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, idx.long()] = new[:, 0]
+    return cache
 
 
 def attn_params(generator: torch.Generator, d_model: int, num_heads: int,
@@ -294,19 +296,20 @@ def attn_forward(p, x, *, num_heads: int, num_kv: int, head_dim: int,
     (k, v)) so the prefill path can emit the cache.  ``kv_override``: (k, v)
     from an encoder for cross-attention.
 
-    Causal self-attention with ``use_kernels`` runs the sliding-window
-    attention kernel, with the window S where ``window`` is 0 (full
-    causal): the op takes its window literally.  Otherwise ``sdpa``."""
+    Causal self-attention runs ``ops.sliding_window_attention`` (the
+    kernel with ``use_kernels``, else its plain version), with the window
+    S where ``window`` is 0 (full causal): the op takes its window
+    literally.  Cross- and non-causal attention run ``sdpa``."""
     B, S, _ = x.shape
     q, k, v = attn_qkv(p, x, num_heads=num_heads, num_kv=num_kv,
                        head_dim=head_dim, positions=positions,
                        rope_theta=rope_theta, kv_override=kv_override)
-    if use_kernels and causal and kv_override is None:
-        out = ops.sliding_window_attention(q, k, v,
-                                           window=window if window > 0 else S)
+    if causal and kv_override is None:
+        out = ops.sliding_window_attention(
+            q, k, v, window=window if window > 0 else S,
+            use_kernels=use_kernels)
     else:
-        out = sdpa(q, k, v, causal=causal and kv_override is None,
-                   window=window)
+        out = sdpa(q, k, v, causal=False, window=window)
     out = out.reshape(B, S, num_heads * head_dim) @ p["wo"]
     return out, (k, v)
 
@@ -314,8 +317,9 @@ def attn_forward(p, x, *, num_heads: int, num_kv: int, head_dim: int,
 def attn_decode(p, x, cache_k, cache_v, cache_pos, *, num_heads: int,
                 num_kv: int, head_dim: int, rope_theta: float,
                 ring: bool = False):
-    """One-token cached decode.  x: (B, 1, d); cache_k/v: (B, C, KV, D);
-    cache_pos: (B,) absolute position of the new token.
+    """One-token cached decode.  x: (B, 1, d); cache_k/v: (B, C, KV, D),
+    written in place (``write_cache``) and returned; cache_pos: (B,)
+    absolute position of the new token.
 
     ``ring``: cache is a ring buffer of size C: the write index is
     ``cache_pos % C`` and all C slots attend once full (the window is the

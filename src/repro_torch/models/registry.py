@@ -87,6 +87,9 @@ class Model:
 
     def decode_step(self, params, token, caches, cache_pos, *,
                     window: int = 0, ring: bool = False):
+        """One token through the model: (logits, caches).  The new key and
+        value are written into ``caches`` in place, and ``caches`` is
+        returned (the reference returns a new tree)."""
         hidden, new_caches, _ = transformer.forward_hidden(
             params, self.cfg, self._tokens(token), mode="decode",
             caches=caches,

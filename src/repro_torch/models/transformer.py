@@ -83,11 +83,13 @@ def _layer(tree, i: int):
 
 def _run_layers(kind, stacked_p, x, cfg, *, n, mode, positions, caches,
                 cache_pos, window, ring, emit_cache, use_kernels):
-    """Apply one run of ``n`` layers in order; new caches are written into
-    one stacked buffer a leaf (allocated at the first layer), not stacked
+    """Apply one run of ``n`` layers in order.  Decode writes each layer's
+    new key and value into the stacked ``caches`` in place (through the
+    layer's views) and returns them.  Prefill writes its caches into one
+    stacked buffer a leaf (allocated at the first layer), not stacked
     afterwards, so a long prefill holds its caches once."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    out_caches = None
+    out_caches = caches if mode == "decode" else None
     for i in range(n):
         x, new_c, a = B.block_forward(
             kind, _layer(stacked_p, i), x, cfg, mode=mode, positions=positions,
@@ -95,7 +97,7 @@ def _run_layers(kind, stacked_p, x, cfg, *, n, mode, positions, caches,
             cache_pos=cache_pos, window=window, ring=ring,
             emit_cache=emit_cache, use_kernels=use_kernels)
         aux = aux + a
-        if new_c is not None:
+        if new_c is not None and mode != "decode":
             if out_caches is None:
                 out_caches = {k: c.new_empty((n,) + tuple(c.shape))
                               for k, c in new_c.items()}
@@ -109,7 +111,8 @@ def forward_hidden(params, cfg: ArchConfig, tokens, *, patches=None,
                    ring: bool = False, emit_cache: bool = False,
                    use_kernels: bool = True):
     """Core stack application.  Returns (hidden, new_caches, aux_loss).
-    ``use_kernels``: the full-sequence attention through the kernel."""
+    ``use_kernels``: the full-sequence attention through the kernel.
+    Decode updates ``caches`` in place and returns them."""
     batch, seq = tokens.shape
     if mode == "decode":
         if cfg.family == "vlm":
@@ -126,7 +129,7 @@ def forward_hidden(params, cfg: ArchConfig, tokens, *, patches=None,
             positions=positions,
             caches=caches[i] if caches is not None else None,
             cache_pos=cache_pos, window=window, ring=ring,
-            emit_cache=emit_cache or mode == "decode",
+            emit_cache=emit_cache,
             use_kernels=use_kernels)
         new_caches.append(nc)
         aux_total = aux_total + aux

@@ -183,6 +183,20 @@ def test_decode_from_empty_cache_equals_forward(pair):
     close(torch.stack(outs, 1), full.numpy(), CHAIN_TOL)
 
 
+def test_decode_step_writes_the_caches_in_place(pair):
+    """decode_step writes each layer's new key and value into the stacked
+    caches it is given, at the slot of cache_pos, and returns them."""
+    B, C, t = 2, 6, 3
+    _, tin = pair.tokens(B, 1, seed=9)
+    caches = pair.m.init_cache(B, C)
+    _, out = pair.m.decode_step(pair.p, tin["tokens"], caches,
+                                np.full((B,), t))
+    for name in ("k", "v"):
+        assert out[0][name] is caches[0][name]
+        written = caches[0][name].abs().sum(dim=(0, 1, 3, 4)) > 0
+        assert written.tolist() == [s == t for s in range(C)]
+
+
 def test_ring_buffer_decode_matches_jax(pair):
     """A ring cache of W = 8 slots over 20 tokens (it wraps twice) against
     JAX's, and against the windowed forward."""
@@ -255,11 +269,13 @@ def test_write_cache_matches_jax():
     cache = rng.normal(size=(3, 6, 2, 4)).astype(np.float32)
     new = rng.normal(size=(3, 1, 2, 4)).astype(np.float32)
     idx = np.array([0, 5, 2])
-    got = common.write_cache(torch.from_numpy(cache), torch.from_numpy(new),
+    target = torch.from_numpy(cache.copy())
+    got = common.write_cache(target, torch.from_numpy(new),
                              torch.from_numpy(idx))
     want = jcommon.write_cache(jnp.asarray(cache), jnp.asarray(new),
                                jnp.asarray(idx))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got is target  # written in place
 
 
 @pytest.mark.parametrize("arch", ["arctic-480b", "zamba2-1.2b", "rwkv6-7b",
@@ -314,8 +330,7 @@ def _jax_serve_logits(model, params, args):
 def test_serve_gives_the_reference_logits_at_each_step(arch, monkeypatch,
                                                        capsys):
     args = types.SimpleNamespace(arch=arch, reduced=True, batch=2,
-                                 prompt_len=6, gen=6, seed=0, device="cpu",
-                                 use_kernels=True)
+                                 prompt_len=6, gen=6, seed=0, device="cpu")
     jcfg = jconfigs.reduced(jconfigs.get_config(arch))
     jm = jbuild_model(jcfg)
     jp = jm.init(jax.random.key(args.seed))
@@ -346,6 +361,6 @@ def test_serve_gives_the_reference_logits_at_each_step(arch, monkeypatch,
 
 def test_serve_cli_runs_on_the_cpu(capsys):
     gen = serve.main(["--device", "cpu", "--arch", "internlm2-1.8b",
-                      "--reduced", "--gen", "3", "--no-use-kernels"])
+                      "--reduced", "--gen", "3"])
     assert gen.shape == (2, 3)
     assert "[internlm2-1.8b] generated (2, 3)" in capsys.readouterr().out

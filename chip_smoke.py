@@ -15,7 +15,8 @@ fails the run (none catches its own):
   1. card       the device name and nvidia-smi's name and power limit
   2. build      nvcc builds every kernel source from the checkout, all at
                 once (one nvcc each, in parallel); registers, spills and
-                shared memory from -Xptxas -v
+                shared memory from -Xptxas -v; swa_attention's registers,
+                spills and dynamic shared memory a template instance
   3. kernel     each kernel vs its plain version, two launches bitwise
                 equal, times (CUDA events) beside the bound from bytes and
                 flops and one PyTorch library call as the yardstick:
@@ -31,9 +32,11 @@ fails the run (none catches its own):
                 N not a multiple of 32, zero rows, ±0, nearest-even ties);
                 swa_attention (1e-5) at (B, S, H, KV, D, W) (2, 256, 4, 2,
                 64, 128), (1, 2048, 16, 8, 128, full), (1, 4096, ..., 1024),
-                (2, 1000, ..., 300), (1, 1, ..., full) against the (B, H, S,
-                S) oracle, and (1, 32768, ..., full) against the plain
-                chunked attention, beside scaled_dot_product_attention
+                (2, 1000, ..., 300), (1, 1, ..., full), (1, 777, 6, 1, 128,
+                1), (2, 513, 8, 8, 64, 33) against the (B, H, S, S) oracle,
+                and (1, 32768, 16, 8, 128, full) against the plain chunked
+                attention, beside scaled_dot_product_attention, with its
+                3xTF32 tensor-core bound and its f32 FMA bound
   4. serving    the default TrafficConfig replay through ServeEngine on cuda
                 for sage and gcn: kernel launches = encode batches x n_mp,
                 every encoded bucket batch = the plain encoder on the card,
@@ -99,10 +102,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, and f32 outside the tensor cores
-# (the kernel's FMAs are plain f32).  The rates assume the 700 W limit.
+# NVIDIA H100 SXM data sheet: HBM3 rate, f32 outside the tensor cores (the
+# graph-track and codec kernels' plain f32 arithmetic) and dense TF32 on the
+# tensor cores (swa_attention's products, three TF32 products for each f32
+# one: 3xTF32).  The rates assume the 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 TOL = 1e-5   # f32, from the reference's own kernel tests (test_fused_path.py:48)
 
 GRAD_TOL = 1e-4   # gradients and step parity (test_fused_path.py:73,185)
@@ -144,10 +150,13 @@ QUANT_EDGES = [(1, 4), (3, 33), (2, 1000)]
 SEQ_ARCH = "internlm2-1.8b"
 # (B, S, H, KV, D, W; None = full causal): the reduced model's width, the
 # full model at 2048 tokens, a windowed 4096, S and W not multiples of a
-# tile, one token; then prefill_32k's length at batch 1
+# tile, one token, a GQA ratio of 6 on one KV head with only the diagonal
+# visible (S ragged), no GQA at D 64 with a window across a tile edge;
+# then prefill_32k's length at batch 1
 SWA_SHAPES = [(2, 256, 4, 2, 64, 128), (1, 2048, 16, 8, 128, None),
               (1, 4096, 16, 8, 128, 1024), (2, 1000, 16, 8, 128, 300),
-              (1, 1, 16, 8, 128, None)]
+              (1, 1, 16, 8, 128, None), (1, 777, 6, 1, 128, 1),
+              (2, 513, 8, 8, 64, 33)]
 SWA_LONG = (1, 32768, 16, 8, 128, None)
 SWA_HEADLINE = 1
 SEQ_TOL = 5e-4   # forward vs decode, kernel vs plain model (test_models.py:40)
@@ -260,6 +269,39 @@ def phase_build():
             if "registers" in line or "spill" in line or "smem" in line \
                     or "Compiling entry" in line:
                 log(f"[build]   {line.strip()}")
+    swa_build = swa_build_report(swa, paths[names.index("swa_attention")])
+    for inst, r in swa_build.items():
+        log(f"[build] swa_attention {inst}: {r['registers']} registers, "
+            f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill "
+            f"loads, {r['smem_bytes']} B dynamic shared memory a block")
+    return swa_build
+
+
+def swa_build_report(swa, path):
+    """swa_attention's registers and spills a template instance (D, HB:
+    query heads a block), from -Xptxas -v, and its dynamic shared memory,
+    from the library."""
+    import re
+
+    out, inst = {}, None
+    for line in path.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"swa_attention_kernelILi(\d+)ELi(\d+)E", line)
+            inst = f"D={m[1]} HB={m[2]}" if m else None
+            if inst:
+                out[inst] = {"smem_bytes":
+                             swa._lib().swa_attention_smem_bytes(int(m[1]))}
+        elif inst and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            out[inst]["spill_stores"] = int(m[1])
+            out[inst]["spill_loads"] = int(m[2])
+        elif inst and "Used" in line and "registers" in line:
+            out[inst]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line)[1])
+    if not out:
+        raise AssertionError(f"no swa_attention_kernel in {path}.log")
+    return out
 
 
 def sparse_adjacency(torch, src, dst, w, m):
@@ -1142,6 +1184,19 @@ def swa_sdpa(torch, q, k, v, W, repeat_kv=False):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
 
+def swa_bound(n_bytes, flops):
+    """swa_attention's least time: its bytes, or its flops at f32 accuracy
+    on the tensor cores (3xTF32: three TF32 products a product), whichever
+    is longer; beside it the f32 FMA bound of ``bound``."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_tc = 3 * flops / TF32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_tc),
+            "bound_by": "bytes" if t_bytes >= t_tc else "operations",
+            "tc_bound_ms": t_tc,
+            "fma_bound_ms": bound(n_bytes, flops)["bound_ms"],
+            "bytes": n_bytes, "flops": flops}
+
+
 def phase_kernel_swa(torch, dev):
     """swa_attention against the plain version (ref.swa_attention_ref, the
     (B, H, S, S) oracle; at 32k the plain chunked_causal_attention), two
@@ -1197,16 +1252,20 @@ def phase_kernel_swa(torch, dev):
                "library": "sdpa, K/V repeated" if long
                else "sdpa(enable_gqa=True)",
                "sdpa_repeated_kv_ms": repeated_ms, "pairs": P,
-               **bound(4 * (2 * B * S * H * D + 2 * B * S * KV * D),
-                       4 * B * H * D * P)}
+               **swa_bound(4 * (2 * B * S * H * D + 2 * B * S * KV * D),
+                           4 * B * H * D * P)}
         rows.append(row)
         log(f"[kernel] swa_attention B={B} S={S} H={H} KV={KV} D={D} W={W}: "
             f"max|kernel-plain| {err:.3e}, bitwise equal twice; kernel "
             f"{ms:.6f} ms ({row['flops'] / ms / 1e9:.3f} TFLOP/s), plain "
             f"{plain_ms:.6f} ms ({row['plain']}), {row['library']} "
-            f"{library_ms:.6f} ms, sdpa on repeated K/V {repeated_ms:.6f} ms, "
-            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}, "
-            f"{row['bytes']} B, {row['flops']} flop)")
+            f"{library_ms:.6f} ms, sdpa on repeated K/V {repeated_ms:.6f} ms "
+            f"(kernel / that {ms / repeated_ms:.3f}); bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']}, {row['bytes']} B, "
+            f"{row['flops']} flop): 3xTF32 tensor-core bound "
+            f"{row['tc_bound_ms']:.6f} ms ({row['tc_bound_ms'] / ms:.1%} of "
+            f"it reached), f32 FMA bound {row['fma_bound_ms']:.6f} ms "
+            f"({row['fma_bound_ms'] / ms:.1%})")
         del q, k, v, a, b
         torch.cuda.empty_cache()
     return rows
@@ -1514,7 +1573,7 @@ def main() -> int:
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
     name, smi = phase_card(torch)
-    phase_build()
+    swa_build = phase_build()
     rows = phase_kernel(torch, dev)
     bwd_rows = phase_kernel_bwd(torch, dev)
     sed_rows = phase_kernel_sed(torch, dev, aged=False)
@@ -1583,6 +1642,9 @@ def main() -> int:
         "swa_attention", csrc + "swa_attention.cu",
         "src/repro/kernels/swa_attention.py:27",
         main_launches["swa_attention"], swa_rows, SWA_HEADLINE))
+    kernels[-1].update(tc_bound_ms=swa_rows[SWA_HEADLINE]["tc_bound_ms"],
+                       fma_bound_ms=swa_rows[SWA_HEADLINE]["fma_bound_ms"],
+                       build=swa_build)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")

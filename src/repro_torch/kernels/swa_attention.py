@@ -8,7 +8,9 @@ over the keys with i − W < j ≤ i (W ≥ S: full causal), g = h // (H / KV).
 The wrapper of the hand-written CUDA kernel in ``csrc/swa_attention.cu``,
 which replaces the TPU kernel
 ``src/repro/kernels/swa_attention.py::_swa_kernel`` (:27, launched at
-:86); see the source's note for the design and its bound.
+:86); see the source's note for the design and its bound.  Both of its
+products run on the tensor cores at f32 accuracy (3xTF32: each operand
+split into two TF32 parts, three products a product).
 
 Device rule: a CPU tensor goes to the plain version
 (``ref.swa_attention_ref``); a CUDA tensor launches the kernel or raises.
@@ -41,6 +43,8 @@ def _lib() -> ctypes.CDLL:
         lib.swa_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p, i,
                                           ctypes.c_float, p]
         lib.swa_attention_fwd.restype = i
+        lib.swa_attention_smem_bytes.argtypes = [i]
+        lib.swa_attention_smem_bytes.restype = i
         lib.swa_attention_error_string.argtypes = [i]
         lib.swa_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True

@@ -411,7 +411,8 @@ def test_dist_steps_kernel_path_matches_plain(cuda):
 # (B, S, H, KV, D, W; None = full causal): chip_smoke.py's phase-3 shapes
 SWA_CASES = [(2, 256, 4, 2, 64, 128), (1, 2048, 16, 8, 128, None),
              (1, 4096, 16, 8, 128, 1024), (2, 1000, 16, 8, 128, 300),
-             (1, 1, 16, 8, 128, None)]
+             (1, 1, 16, 8, 128, None), (1, 777, 6, 1, 128, 1),
+             (2, 513, 8, 8, 64, 33)]
 
 
 def _swa_inputs(B, S, H, KV, D, seed, cuda):
@@ -437,6 +438,22 @@ def test_swa_kernel_matches_plain_and_is_deterministic(cuda, B, S, H, KV, D,
     assert ops.kernel_launches()["swa_attention"] == 2
     assert torch.equal(a, b)
     torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D,W", [(2, 300, 3, 1, 128, 100),
+                                          (1, 200, 6, 2, 64, 200)])
+def test_swa_kernel_odd_group_ratio(cuda, B, S, H, KV, D, W):
+    """An odd GQA ratio (3): one query head a block, 128 positions, at
+    both head dims."""
+    from repro_torch.kernels import swa_attention as swa
+
+    q, k, v = _swa_inputs(B, S, H, KV, D, seed=S + H, cuda=cuda)
+    a = swa.swa_attention(q, k, v, window=W)
+    torch.cuda.synchronize()
+    assert torch.equal(a, swa.swa_attention(q, k, v, window=W))
+    torch.testing.assert_close(a, ref.swa_attention_ref(q, k, v, W),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -170,3 +170,118 @@ def test_kernel_checks_refuse_what_it_cannot_do(what):
     err = {"float16": TypeError, "grad": RuntimeError}.get(what, ValueError)
     with pytest.raises(err):
         swa._check(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's arithmetic on the card (csrc/swa_attention.cu), emulated in
+# plain torch: 3xTF32 products, online softmax over 64-key tiles in the
+# log2 domain
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KV, D, W; None = full causal): the card's cases
+# (tests/test_torch_kernels_gpu.py::SWA_CASES, chip_smoke.py's SWA_SHAPES)
+# but the 32k one
+CARD_CASES = [(2, 256, 4, 2, 64, 128), (1, 2048, 16, 8, 128, None),
+              (1, 4096, 16, 8, 128, 1024), (2, 1000, 16, 8, 128, 300),
+              (1, 1, 16, 8, 128, None), (1, 777, 6, 1, 128, 1),
+              (2, 513, 8, 8, 64, 33)]
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)   # chip_smoke.py's TOL
+
+
+def _tf32(x):
+    """f32 -> TF32 (10 mantissa bits), round to nearest, ties away from
+    zero, as cvt.rna.tf32.f32 with the low 13 bits cleared."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(a, b, passes):
+    """a @ b in f32 from TF32 parts: 3 passes = the kernel's 3xTF32
+    (small products first, big x big last), 1 pass = plain TF32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _emulated_kernel(q, k, v, W, passes):
+    """The kernel's arithmetic: per 64-key tile, S = Q K^T, masked scores
+    times scale * log2(e) (f32), the running max (a row with none yet
+    exponentiates against 0), P = exp2(S - m), O = O * alpha + P V.  Each
+    tile updates only the rows that can see it."""
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    q = q.transpose(1, 2)
+    k = k.repeat_interleave(rep, 2).transpose(1, 2)
+    v = v.repeat_interleave(rep, 2).transpose(1, 2)
+    c = torch.tensor(1.0 / np.sqrt(D), dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    m = torch.full((B, H, S, 1), -np.inf)
+    l = torch.zeros(B, H, S, 1)
+    o = torch.zeros(B, H, S, D)
+    for k0 in range(0, S, 64):
+        k1 = min(k0 + 64, S)
+        r0, r1 = k0, min(S, k1 - 1 + W)          # the rows that see the tile
+        i = torch.arange(r0, r1)[:, None]
+        j = torch.arange(k0, k1)[None, :]
+        s = _product(q[:, :, r0:r1], k[:, :, k0:k1].transpose(-1, -2),
+                     passes) * c
+        s = s.masked_fill((j > i) | (j <= i - W), -np.inf)
+        m_new = torch.maximum(m[:, :, r0:r1], s.amax(-1, keepdim=True))
+        use = torch.where(m_new == -np.inf, 0.0, m_new)
+        alpha = torch.exp2(m[:, :, r0:r1] - use)
+        p = torch.exp2(s - use)
+        l[:, :, r0:r1] = l[:, :, r0:r1] * alpha + p.sum(-1, keepdim=True)
+        o[:, :, r0:r1] = o[:, :, r0:r1] * alpha + _product(
+            p, v[:, :, k0:k1], passes)
+        m[:, :, r0:r1] = m_new
+    return (o / l).transpose(1, 2)
+
+
+def _oracle_f64(q, k, v, W, rows=256):
+    """Attention in f64, a block of query rows at a time over the keys the
+    block can see."""
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    q, k, v = (t.double().transpose(1, 2) for t in (q, k, v))
+    k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    out = torch.empty_like(q)
+    for a in range(0, S, rows):
+        b = min(a + rows, S)
+        lo = max(0, a - W + 1)
+        i = torch.arange(a, b)[:, None]
+        j = torch.arange(lo, b)[None, :]
+        s = q[:, :, a:b] @ k[:, :, lo:b].transpose(-1, -2) / np.sqrt(D)
+        s = s.masked_fill((j > i) | (j <= i - W), -np.inf)
+        out[:, :, a:b] = torch.softmax(s, -1) @ v[:, :, lo:b]
+    return out.transpose(1, 2)
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = 1.0 + 2.0 ** -11        # halfway between 1 and 1 + 2^-10
+    x = torch.tensor([one, -one, 1.0 + 2.0 ** -11 - 2.0 ** -23, 3.0,
+                      1.0 + 3 * 2.0 ** -11, 0.0], dtype=torch.float32)
+    want = [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0,
+            1.0 + 2.0 ** -9, 0.0]
+    assert _tf32(x).tolist() == want
+    r = torch.from_numpy(np.random.default_rng(0).normal(size=4096)
+                         .astype(np.float32))
+    big = _tf32(r)
+    assert not bool((big.view(torch.int32) & 0x1fff).any())
+    assert bool(((r - big).abs() <= r.abs() * 2.0 ** -11).all())
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,W", CARD_CASES)
+def test_emulated_3xtf32_kernel_holds_1e5_and_1xtf32_does_not(B, S, H, KV,
+                                                              D, W):
+    """The kernel's 3xTF32 arithmetic stays within the card's 1e-5 of the
+    f64 oracle at the card's shapes; one TF32 product a product does not."""
+    W = S if W is None else W
+    q, k, v = _t(*_qkv(B, S, H, KV, D, seed=S + W))
+    want = _oracle_f64(q, k, v, W)
+    got = _emulated_kernel(q, k, v, W, passes=3)
+    torch.testing.assert_close(got.double(), want, **KERNEL_TOL)
+    one = _emulated_kernel(q, k, v, W, passes=1).double()
+    excess = (one - want).abs() - (KERNEL_TOL["atol"]
+                                   + KERNEL_TOL["rtol"] * want.abs())
+    assert float(excess.max()) > 0

@@ -25,7 +25,9 @@ fails the run (none catches its own):
                 (dh by the same kernel with src and dst swapped, dw in
                 torch) against plain autograd (1e-4); sed_pool and
                 sed_pool_aged at the two training shapes and a 64 MiB
-                stress shape (1e-5); the six pack / unpack kernels of the
+                stress shape (1e-5), beside torch.bmm and a launch floor
+                (one torch.cuda._sleep(0) in the same timer); the six
+                pack / unpack kernels of the
                 compressed exchange BITWISE at the distributed run's own
                 (R, N) (ring and alltoall lookups, bucketed buckets,
                 write-backs), a 40 MiB stress shape and edge cases (R = 1,
@@ -479,20 +481,23 @@ def phase_kernel_sed(torch, dev, aged):
         plain_ms = time_ms(torch, lambda: ref.sed_pool_ref(
             h, valid, fresh, drop, 0.5, 1, "mean", ages, decay), iters)
         library_ms = time_ms(torch, lambda: torch.bmm(eta3, h), iters)
+        # one near-empty kernel in the same timer: what a launch costs
+        floor_ms = time_ms(torch, lambda: torch.cuda._sleep(0), iters)
         planes = 4 if aged else 3
         # per (b, j): J_b's add, 6 operations of η (3 more for the age);
         # per output: J multiply-adds and the mean's division
         flops = (7 + 3 * aged) * B * J + 2 * B * J * d + B * d
         row = {"shape": {"B": B, "J": J, "d": d, "dtype": "float32"},
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
+               "library_ms": library_ms, "launch_floor_ms": floor_ms,
                **bound((B * J * d + planes * B * J + B * d) * 4, flops)}
         rows.append(row)
         log(f"[kernel] {'sed_pool_aged' if aged else 'sed_pool'} B={B} J={J} "
             f"d={d}: max|kernel-plain| {err:.3e}, bitwise equal twice; "
             f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bmm "
-            f"{library_ms:.6f} ms, bound {row['bound_ms']:.6f} ms "
-            f"({row['bound_by']}, {row['bytes']} B, {row['flops']} flop)")
+            f"{library_ms:.6f} ms, launch floor (_sleep(0)) {floor_ms:.6f} "
+            f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}, "
+            f"{row['bytes']} B, {row['flops']} flop)")
     return rows
 
 
@@ -698,23 +703,28 @@ def phase_profile(torch, dev, n_steps=5):
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
-    ours = [e for e in dev_events if "segment_spmm_fwd_kernel" in e.name
-            or "sed_pool_fwd_kernel" in e.name]
+    sed = [e for e in dev_events if "sed_pool_kernel" in e.name]
+    ours = sed + [e for e in dev_events if "segment_spmm_fwd_kernel" in e.name]
     ours_us = sum(e.time_range.elapsed_us() for e in ours)
+    sed_us = sum(e.time_range.elapsed_us() for e in sed)
     n = len(batches)
     prof = {"steps": n, "device_events_per_step": len(dev_events) / n,
             "device_busy_ms_per_step": busy_us / n / 1e3,
             "wall_ms_per_step": wall_us / n / 1e3,
             "busy_share": busy_us / wall_us,
             "handwritten_launches_per_step": len(ours) / n,
-            "handwritten_ms_per_step": ours_us / n / 1e3}
+            "handwritten_ms_per_step": ours_us / n / 1e3,
+            "sed_pool_launches_per_step": len(sed) / n,
+            "sed_pool_ms_per_step": sed_us / n / 1e3}
     log(f"[profile] {n} kernel-path train steps (sage, MalNet-like): "
         f"{prof['device_events_per_step']:.1f} device events a step, device "
         f"busy {prof['device_busy_ms_per_step']:.6f} ms of "
         f"{prof['wall_ms_per_step']:.6f} ms wall (busy share "
         f"{prof['busy_share']:.4f}; the profiler's overhead is in the wall), "
         f"hand-written kernels {prof['handwritten_launches_per_step']:.1f} "
-        f"launches {prof['handwritten_ms_per_step']:.6f} ms a step")
+        f"launches {prof['handwritten_ms_per_step']:.6f} ms a step, of them "
+        f"sed_pool {prof['sed_pool_launches_per_step']:.1f} launches "
+        f"{prof['sed_pool_ms_per_step']:.6f} ms")
     return prof
 
 
@@ -1082,7 +1092,7 @@ def phase_dist_profile(torch, n_steps=5):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
     ours = [e for e in dev_events if "segment_spmm_fwd_kernel" in e.name
-            or "sed_pool_fwd_kernel" in e.name or "pack_" in e.name
+            or "sed_pool_kernel" in e.name or "pack_" in e.name
             or "unpack_" in e.name]
     ours_us = sum(e.time_range.elapsed_us() for e in ours)
     out = {"steps": n_steps, "shards": DIST_SHARDS,

@@ -48,8 +48,9 @@ def sed_eta(seg_valid: torch.Tensor, fresh_mask: torch.Tensor,
             ages: torch.Tensor = None, decay: float = 0.0):
     """The Eq.-1 η weights from the three masks: (eta (B, J), J_i (B, 1)).
 
-    Shared by ``sed_pool_ref`` and the backward of ``sed_pool``, and
-    mirrored operation for operation by ``csrc/sed_pool.cu``.  With
+    Shared by ``sed_pool_ref`` and the CPU backward of ``sed_pool``, and
+    mirrored operation for operation by ``csrc/sed_pool.cu``, which
+    writes it out for the backward on the card.  With
     ``ages`` (B, J) and λ = ``decay`` > 0 the STALE branch is further
     weighted by exp(-λ·age); λ = 0 (or no ages) is the unaged formula.
     """

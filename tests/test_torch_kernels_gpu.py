@@ -190,8 +190,13 @@ def _sed_inputs(B, J, d, seed, cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("decay", [0.0, 0.05])
 @pytest.mark.parametrize("agg", ["mean", "sum"])
-@pytest.mark.parametrize("B,J,d", [(8, 20, 64), (8, 16, 1), (5, 7, 130),
-                                   (1024, 64, 256)])
+@pytest.mark.parametrize("B,J,d", [
+    (8, 20, 64), (8, 16, 1), (5, 7, 130), (1024, 64, 256),
+    (1, 1, 1),            # one segment, one column
+    (3, 300, 64),         # J longer than one chunk a thread
+    (8, 20, 2),           # a row narrower than one 16-byte vector
+    (2, 5000, 3),         # J longer than one shared-memory eta tile
+])
 def test_sed_pool_matches_plain(cuda, B, J, d, agg, decay):
     h, valid, fresh, drop, ages = _sed_inputs(B, J, d, seed=B + J + d,
                                               cuda=cuda)
@@ -213,13 +218,59 @@ def test_sed_pool_matches_plain(cuda, B, J, d, agg, decay):
 
 
 @pytest.mark.gpu
-def test_sed_pool_bf16(cuda):
-    h, valid, fresh, drop, _ = _sed_inputs(8, 20, 64, seed=1, cuda=cuda)
+@pytest.mark.parametrize("B,J,d", [(8, 20, 64),
+                                   (4, 20, 130)])   # d not a multiple of 8
+def test_sed_pool_bf16(cuda, B, J, d):
+    h, valid, fresh, drop, _ = _sed_inputs(B, J, d, seed=1, cuda=cuda)
     got = sp.sed_pool(h.bfloat16(), valid, fresh, drop, keep_prob=0.5,
                       num_sampled=1)
+    again = sp.sed_pool(h.bfloat16(), valid, fresh, drop, keep_prob=0.5,
+                        num_sampled=1)
     assert got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
     want = ref.sed_pool_ref(h, valid, fresh, drop, 0.5, 1)
     torch.testing.assert_close(got.float(), want, rtol=6e-2, atol=6e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", [0.0, 0.05])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sed_pool_misaligned_h(cuda, dtype, decay):
+    """h contiguous but starting one element past a 16-byte boundary: the
+    kernel takes narrower loads, and agrees all the same."""
+    B, J, d = 8, 20, 64
+    h, valid, fresh, drop, ages = _sed_inputs(B, J, d, seed=5, cuda=cuda)
+    store = torch.empty(B * J * d + 1, dtype=dtype, device=cuda)
+    hm = store[1:].view(B, J, d)
+    hm.copy_(h)
+    assert hm.is_contiguous() and hm.data_ptr() % 16 != 0
+    kw = dict(keep_prob=0.5, num_sampled=1, ages=ages, decay=decay)
+    a = sp.sed_pool(hm, valid, fresh, drop, **kw)
+    b = sp.sed_pool(hm, valid, fresh, drop, **kw)
+    assert torch.equal(a, b)
+    want = ref.sed_pool_ref(hm.float(), valid, fresh, drop, 0.5, 1, "mean",
+                            ages, decay)
+    tol = 1e-5 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(a.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", [0.0, 0.05])
+@pytest.mark.parametrize("B,J,d", [(8, 20, 64), (8, 16, 1), (3, 300, 64),
+                                   (5, 7, 130)])
+def test_sed_pool_writes_eta_for_the_backward(cuda, B, J, d, decay):
+    """With residuals the launch writes η (B, J) and J_b (B, 1) as
+    ref.sed_eta builds them: J_b exactly, η within 1e-6."""
+    h, valid, fresh, drop, ages = _sed_inputs(B, J, d, seed=B * J + d,
+                                              cuda=cuda)
+    ages = ages if decay > 0 else None
+    out, eta, J_b = sp._launch(h, valid, fresh, drop, ages, 0.5, 1, "mean",
+                               decay, residuals=True)
+    want_eta, want_J = ref.sed_eta(valid, fresh, drop, 0.5, 1, ages, decay)
+    assert torch.equal(J_b, want_J)
+    torch.testing.assert_close(eta, want_eta, rtol=1e-6, atol=1e-6)
+    assert torch.equal(out, sp._launch(h, valid, fresh, drop, ages, 0.5, 1,
+                                       "mean", decay))
 
 
 # ---------------------------------------------------------------------------

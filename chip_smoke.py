@@ -21,7 +21,10 @@ fails the run (none catches its own):
                 equal, times (CUDA events) beside the bound from bytes and
                 flops and one PyTorch library call as the yardstick:
                 segment_spmm_batched at the three serving buckets, the two
-                training shapes and a stress shape (1e-5); its backward
+                training shapes and a stress shape (1e-5), and untimed at
+                the cases of tests/_spmm_cases.py (a hub, weight-0
+                repeats, a padding-only segment, out-of-range edges, d 1
+                to 128, bf16, inf under a weight-0 edge); its backward
                 (dh by the same kernel with src and dst swapped, dw in
                 torch) against plain autograd (1e-4); sed_pool and
                 sed_pool_aged at the two training shapes and a 64 MiB
@@ -31,7 +34,8 @@ fails the run (none catches its own):
                 compressed exchange BITWISE at the distributed run's own
                 (R, N) (ring and alltoall lookups, bucketed buckets,
                 write-backs), a 40 MiB stress shape and edge cases (R = 1,
-                N not a multiple of 32, zero rows, ±0, nearest-even ties);
+                N not a multiple of 32, zero rows, ±0, nearest-even ties,
+                NaN of both signs, ±inf, a row of NaN);
                 swa_attention (1e-5) at (B, S, H, KV, D, W) (2, 256, 4, 2,
                 64, 128), (1, 2048, 16, 8, 128, full), (1, 4096, ..., 1024),
                 (2, 1000, ..., 300), (1, 1, ..., full), (1, 777, 6, 1, 128,
@@ -84,6 +88,14 @@ fails the run (none catches its own):
   9. kernels    one JSON line: per kernel, launches on the main path
                 (serving, training, distributed training and seq_serve),
                 error, times and bound
+
+    python3 chip_smoke.py --turns PARENT_DIR
+
+times phase 3's SpMM and pack / unpack kernels, the sage serving
+replay's latency, the first training run's ms per iteration and the
+profiled train step's device time of the checkout at PARENT_DIR and of
+this one in turns (parent, this, this, parent), each in a process of its
+own, and runs nothing else.
 
 It exits nonzero without a result where torch.cuda.is_available() is False
 or where the port's sources are not beside it.  The last line of standard
@@ -145,8 +157,9 @@ DIST_ARGS = ["--device", "cuda", "--devices", str(DIST_SHARDS),
 DIST_RUNS = [("ring", "int8", 0.0), ("alltoall", "bf16", 0.0),
              ("bucketed", "int8", 0.05)]
 QUANT_STRESS = (8192, 1280)             # 40 MiB of f32 rows
-# (R, N) edge cases: one row, N not a multiple of 32, a wide ragged row
-QUANT_EDGES = [(1, 4), (3, 33), (2, 1000)]
+# (R, N) edge cases: one row, N not a multiple of 32, a wide ragged row,
+# and rows with NaN of both signs, ±inf and all NaN (quant_inputs, R > 4)
+QUANT_EDGES = [(1, 4), (3, 33), (2, 1000), (6, 37)]
 # the sequence track: internlm2-1.8b at full width and depth (24 layers,
 # d_model 2048, 16 query and 8 KV heads of 128, d_ff 8192, vocab 92,544)
 SEQ_ARCH = "internlm2-1.8b"
@@ -213,6 +226,11 @@ def time_ms(torch, fn, iters: int) -> float:
             raise RuntimeError("the host could not enqueue the timed calls "
                                "ahead of the card")
     return statistics.median(times)
+
+
+def spmm_edges(e):
+    """The real and padding edges of each segment of spmm_inputs."""
+    return {"real": e - e // 4, "padding": e // 4}
 
 
 def spmm_inputs(torch, N, m, e, d, seed, device):
@@ -330,10 +348,62 @@ def bound(n_bytes, flops):
             "bytes": n_bytes, "flops": flops}
 
 
+def spmm_stress_cases(torch, dev):
+    """The SpMM cases of tests/_spmm_cases.py (a hub, weight-0 repeats, a
+    padding-only segment, out-of-range edges, m 45, d 1 to 128, inf under
+    a weight-0 edge; bf16 on five), untimed: forward and transpose within
+    1e-5 of the plain version (6e-2 in bf16), NaN where it is, two launches
+    bitwise equal; then dh and dw against the plain path (1e-4)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _spmm_cases import BF16_CASES, CASES, case
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_spmm as spmm
+
+    for name in CASES:
+        base = [torch.from_numpy(a).to(dev) for a in case(name)]
+        for dtype in [torch.float32] + [torch.bfloat16] * (name in BF16_CASES):
+            h, src, dst, w = [base[0].to(dtype)] + base[1:]
+            tol = TOL if dtype == torch.float32 else 6e-2
+            for fn, s_, d_ in ((spmm.segment_spmm_batched, src, dst),
+                               (spmm.segment_spmm_batched_transpose, dst, src)):
+                a, b = fn(h, src, dst, w), fn(h, src, dst, w)
+                want = ref.segment_spmm_batched_ref(h, s_, d_, w)
+                torch.cuda.synchronize()
+                if not (bitwise_equal(torch, a, b)
+                        and torch.equal(a.isnan(), want.isnan())):
+                    raise AssertionError(f"spmm case {name}: two launches "
+                                         "differ or NaN misplaced")
+                torch.testing.assert_close(a.float(), want.float(), rtol=tol,
+                                           atol=tol, equal_nan=True)
+        # the gradients against the same autograd Function on the CPU,
+        # where it runs the plain version (dw of an out-of-range edge reads
+        # NaN or a wrapped row there, as the reference's dw does)
+        grads = []
+        for where in (dev, torch.device("cpu")):
+            h, src, dst, w = (torch.from_numpy(a).to(where)
+                              for a in case(name, 1))
+            g = torch.randn(h.shape, generator=torch.Generator().manual_seed(
+                3)).to(where)
+            hh, ww = h.requires_grad_(), w.requires_grad_()
+            torch.sum(spmm.segment_spmm_batched(hh, src, dst, ww) * g
+                      ).backward()
+            grads += [hh.grad.cpu(), ww.grad.cpu()]
+        for got, want in ((grads[0], grads[2]), (grads[1], grads[3])):
+            if not torch.equal(got.isnan(), want.isnan()):
+                raise AssertionError(f"spmm case {name}: gradient NaN "
+                                     "misplaced")
+            torch.testing.assert_close(got, want, rtol=GRAD_TOL,
+                                       atol=GRAD_TOL, equal_nan=True)
+    log(f"[kernel] spmm stress cases ({', '.join(CASES)}; bf16 on "
+        f"{', '.join(BF16_CASES)}): forward and transpose = plain, NaN in "
+        "place, bitwise twice; dh and dw = the plain path")
+
+
 def phase_kernel(torch, dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_spmm as spmm
 
+    spmm_stress_cases(torch, dev)
     rows = []
     for shape in SERVING_SHAPES + TRAIN_SHAPES + [STRESS_SHAPE]:
         N, m, e, d = shape
@@ -360,12 +430,14 @@ def phase_kernel(torch, dev):
             h, src, dst, w), iters)
         library_ms = time_ms(torch, lambda: torch.sparse.mm(adj, flat), iters)
         row = {"shape": {"N": N, "m": m, "e": e, "d": d, "dtype": "float32"},
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
+               "edges": spmm_edges(e), "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
                **bound(2 * N * m * d * h.element_size() + 3 * N * e * 4,
                        2 * N * e * d)}
         rows.append(row)
-        log(f"[kernel] spmm N={N} m={m} e={e} d={d}: max|kernel-plain| "
+        log(f"[kernel] spmm N={N} m={m} e={e} d={d} ({row['edges']['real']} "
+            f"real, {row['edges']['padding']} padding edges a segment): "
+            f"max|kernel-plain| "
             f"{err:.3e}, bitwise equal twice; kernel {ms:.6f} ms, plain "
             f"{plain_ms:.6f} ms, sparse.mm {library_ms:.6f} ms, bound "
             f"{row['bound_ms']:.6f} ms ({row['bound_by']}, {row['bytes']} B, "
@@ -414,11 +486,14 @@ def phase_kernel_bwd(torch, dev):
         library_ms = time_ms(torch, lambda: torch.sparse.mm(adj_t, flat),
                              iters)
         row = {"shape": {"N": N, "m": m, "e": e, "d": d, "dtype": "float32"},
-               "max_abs_err": err, "dw_max_abs_err": err_w, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
+               "edges": spmm_edges(e), "max_abs_err": err,
+               "dw_max_abs_err": err_w, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
                **bound(2 * N * m * d * 4 + 3 * N * e * 4, 2 * N * e * d)}
         rows.append(row)
-        log(f"[kernel] spmm backward N={N} m={m} e={e} d={d}: max|dh-plain| "
+        log(f"[kernel] spmm backward N={N} m={m} e={e} d={d} "
+            f"({row['edges']['real']} real, {row['edges']['padding']} padding "
+            f"edges a segment): max|dh-plain| "
             f"{err:.3e}, max|dw-plain| {err_w:.3e}, bitwise equal twice; dh "
             f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, sparse.mm (A^T) "
             f"{library_ms:.6f} ms, bound {row['bound_ms']:.6f} ms "
@@ -810,7 +885,8 @@ def quant_bytes(name, R, N):
 
 def quant_inputs(torch, R, N, seed, dev):
     """Random rows; row 0 zero, row 1 with ±0, nearest-even ties of both
-    grids and amax 127 (an int8 scale of exactly 1)."""
+    grids and amax 127 (an int8 scale of exactly 1); where R > 4 and N > 3,
+    row 2 with NaN of both signs, row 3 with ±inf, row 4 all NaN."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -821,6 +897,10 @@ def quant_inputs(torch, R, N, seed, dev):
                           np.float32)
         x[1, :min(N, 6)] = ties[:min(N, 6)]
         x[1, -1] = 127.0
+    if R > 4 and N > 3:
+        x[2, 1], x[2, -2] = np.nan, -np.nan
+        x[3, 0], x[3, -1] = np.inf, -np.inf
+        x[4] = np.nan
     bits = rng.integers(0, 2 ** 32, (R, N), dtype=np.uint64).astype(
         np.uint32).view(np.int32)
     return torch.from_numpy(x).to(dev), torch.from_numpy(bits).to(dev)
@@ -1565,6 +1645,47 @@ def kernel_entry(name, source, replaces, launches, rows, headline):
             "shapes": rows}
 
 
+TURN_CODE = (
+    "import json, sys; root = sys.argv[1]; "
+    "sys.path[:0] = [root + '/src', root]; "
+    "import torch, chip_smoke as c, repro_torch; "
+    "dev = torch.device('cuda', 0); torch.cuda.set_device(dev); "
+    "print('TURN ' + json.dumps({'spmm': c.phase_kernel(torch, dev), "
+    "'spmm_bwd': c.phase_kernel_bwd(torch, dev), "
+    "'quant': c.phase_kernel_quant(torch, dev), "
+    "'serve': c.phase_serving(torch, dev, 'sage')[1], "
+    "'train': c.phase_training(torch, dev, *c.TRAIN_RUNS[0])[1], "
+    "'profile': c.phase_profile(torch, dev)}))")
+
+
+def turns(parent: Path) -> None:
+    """The kernel phases (SpMM forward and backward, the pack and unpack
+    kernels), the sage serving replay, the first training run and the
+    profiled train step of the tree at ``parent`` and of this one in
+    turns: parent, this, this, parent, each in its own process on card 0
+    with the kernels its tree builds.  One line of times a turn."""
+    for label, root in (("parent", parent), ("this", ROOT), ("this", ROOT),
+                        ("parent", parent)):
+        out = subprocess.run([sys.executable, "-c", TURN_CODE, str(root)],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=900, check=True).stdout
+        rows = json.loads(next(line[5:] for line in out.splitlines()
+                               if line.startswith("TURN ")))
+        times = [f"spmm{'' if k == 'spmm' else ' bwd'} "
+                 + ",".join(str(v) for v in r["shape"].values() if v != "float32")
+                 + f" {r['ms']:.6f}" for k in ("spmm", "spmm_bwd") for r in rows[k]]
+        times += [f"{name} {r['shape']['R']}x{r['shape']['N']} {r['ms']:.6f}"
+                  for name, rs in rows["quant"].items() for r in rs
+                  if r["ms"] is not None]
+        times += [f"serving p50 {rows['serve']['latency_p50_ms']:.3f} p99 "
+                  f"{rows['serve']['latency_p99_ms']:.3f} ms",
+                  f"ms_per_iter {rows['train']['ms_per_iter']:.3f}",
+                  "device ms a step "
+                  f"{rows['profile']['device_busy_ms_per_step']:.4f} "
+                  f"({rows['profile']['device_events_per_step']:.0f} events)"]
+        log(f"[turns] {label} ({root}): " + "; ".join(times))
+
+
 def main() -> int:
     import torch
 
@@ -1581,6 +1702,10 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if sys.argv[1:2] == ["--turns"]:
+        phase_card(torch)
+        turns(Path(sys.argv[2]).resolve())
+        return 0
     t0 = time.perf_counter()
     name, smi = phase_card(torch)
     swa_build = phase_build()

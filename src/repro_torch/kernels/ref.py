@@ -30,17 +30,36 @@ def segment_spmm_batched_ref(h: torch.Tensor, src: torch.Tensor,
 
     h: (N, m, d); src/dst: (N, e) int32 or int64; w: (N, e) float.
     Gather, multiply, ``index_add_`` over the flattened (N·m) node axis, in
-    f32; the result is cast to h's dtype.
+    f32; the result is cast to h's dtype.  An edge whose src or dst lies
+    outside the segment adds nothing, as the reference's Pallas kernel
+    (its one-hot rows are zero there) and the CUDA kernel skip it: it is
+    sent to a spare row that is dropped, so nothing waits on the device.
     """
     N, m, d = h.shape
     num_nodes = m if num_nodes is None else num_nodes
+    src, dst = src.long(), dst.long()
+    ok = (src >= 0) & (src < m) & (dst >= 0) & (dst < num_nodes)
     offs = torch.arange(N, device=h.device, dtype=torch.int64)[:, None]
-    src_g = (src.long() + offs * m).reshape(-1)
-    dst_g = (dst.long() + offs * num_nodes).reshape(-1)
+    src_g = (torch.where(ok, src, 0) + offs * m).reshape(-1)
+    dst_g = torch.where(ok, dst + offs * num_nodes, N * num_nodes).reshape(-1)
     msg = h.float().reshape(N * m, d)[src_g] * w.float().reshape(-1, 1)
-    out = torch.zeros(N * num_nodes, d, dtype=torch.float32, device=h.device)
+    out = torch.zeros(N * num_nodes + 1, d, dtype=torch.float32,
+                      device=h.device)
     out.index_add_(0, dst_g, msg)
-    return out.reshape(N, num_nodes, d).to(h.dtype)
+    return out[:-1].reshape(N, num_nodes, d).to(h.dtype)
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[n, idx[n, e]] for x (N, m, d), idx (N, e), as the reference's
+    ``jnp.take_along_axis`` gives it: a negative index counts once from
+    the end, and an index still outside [0, m) reads NaN."""
+    m = x.shape[1]
+    i = idx.long()
+    i = torch.where(i < 0, i + m, i)
+    ok = (i >= 0) & (i < m)
+    rows = torch.gather(x, 1, torch.where(ok, i, 0)[..., None].expand(
+        -1, -1, x.shape[-1]))
+    return torch.where(ok[..., None], rows, float("nan"))
 
 
 def sed_eta(seg_valid: torch.Tensor, fresh_mask: torch.Tensor,
@@ -102,6 +121,10 @@ _U32 = 0xFFFFFFFF
 # a copy to the card, which waits for it, at every call.
 _INV127 = 1.0 / 127.0
 _TWO_M24 = 2.0 ** -24
+# the quiet NaNs of the wire format: bf16 (sign | 0x7FC0) and the int8
+# scale's f32 0x7FC00000 (a Python NaN is that pattern as an f32)
+_BF16_QNAN = 0x7FC0
+_F32_QNAN = float("nan")
 
 
 def _u32(bits: torch.Tensor) -> torch.Tensor:
@@ -109,14 +132,39 @@ def _u32(bits: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.int64) & _U32
 
 
+def _as_bf16(hi: torch.Tensor) -> torch.Tensor:
+    """bf16 bit patterns held as int64 in [0, 65535] -> a bf16 tensor."""
+    hi = torch.where(hi >= 0x8000, hi - 0x10000, hi).to(torch.int16)
+    return hi.view(torch.bfloat16)
+
+
+def _bf16_quiet_nan(hi: torch.Tensor, is_nan: torch.Tensor) -> torch.Tensor:
+    """Where ``is_nan``, the bf16 pattern becomes the quiet NaN 0x7FC0 with
+    the sign of ``hi`` kept: what XLA's f32 -> bf16 conversion gives for
+    any NaN, so the JAX package's wire format carries no other NaN."""
+    return torch.where(is_nan, (hi & 0x8000) | _BF16_QNAN, hi)
+
+
+def _bf16_nearest(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> bf16 rounded to nearest even.  A NaN is made explicit on the
+    bit pattern: ``Tensor.to`` gives 0xFFFF for one on the CPU and another
+    pattern on CUDA, JAX gives 0x7FC0 with x's sign."""
+    u = _u32(x.contiguous().view(torch.int32))
+    rne = x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    nan = torch.isnan(x)
+    return _as_bf16(_bf16_quiet_nan(torch.where(nan, u >> 16, rne), nan))
+
+
 def _bf16_stochastic(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
     """f32 -> bf16 by adding the low 16 random bits below the bf16 mantissa
     boundary and truncating: ``(u + (bits & 0xFFFF)) & 0xFFFF0000`` on the
-    f32 bit pattern u, mod 2^32.  The kept high half IS the bf16 value."""
+    f32 bit pattern u, mod 2^32.  The kept high half is the bf16 value,
+    but for a NaN: the reference converts the truncated f32 to bf16, which
+    makes any NaN 0x7FC0 with its sign."""
     u = _u32(x.contiguous().view(torch.int32))
     hi = (((u + (_u32(bits) & 0xFFFF)) & _U32) >> 16)          # [0, 65535]
-    hi = torch.where(hi >= 0x8000, hi - 0x10000, hi).to(torch.int16)
-    return hi.view(torch.bfloat16)
+    is_nan = ((hi & 0x7F80) == 0x7F80) & ((hi & 0x7F) != 0)
+    return _as_bf16(_bf16_quiet_nan(hi, is_nan))
 
 
 def _uniform01(bits: torch.Tensor) -> torch.Tensor:
@@ -126,16 +174,25 @@ def _uniform01(bits: torch.Tensor) -> torch.Tensor:
 
 def _int8_quantize(x: torch.Tensor, bits=None):
     """x (r, n) f32 -> (values (r, n) int8, scale (r, 1) f32).  ``bits``
-    None rounds to nearest even (read path), else stochastically."""
+    None rounds to nearest even (read path), else stochastically.
+
+    NaN and inf as the reference gives them: a row holding a NaN has a NaN
+    scale (the quiet NaN 0x7FC00000, as JAX's is for rows of quiet NaNs;
+    the device's arithmetic would give another pattern on CUDA), is
+    divided by 1 and packs 0 where x is NaN; a row holding ±inf has scale
+    inf and packs 0 everywhere (x / inf is ±0, inf / inf NaN).  The NaN to
+    0 of the cast is explicit, not left to ``Tensor.to``."""
     amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
     scale = amax * _INV127
+    scale = torch.where(torch.isnan(scale), _F32_QNAN, scale)
     v = x / torch.where(scale > 0, scale, torch.ones_like(scale))
     if bits is None:
         q = torch.round(v)                       # half to even, as jnp.round
     else:
         lo = torch.floor(v)
         q = lo + (_uniform01(bits) < (v - lo)).to(torch.float32)
-    return torch.clamp(q, -127.0, 127.0).to(torch.int8), scale
+    q = torch.clamp(q, -127.0, 127.0)
+    return torch.where(torch.isnan(q), 0.0, q).to(torch.int8), scale
 
 
 def quantize_rows_ref(x: torch.Tensor, dtype: str, rand_bits=None):
@@ -148,7 +205,7 @@ def quantize_rows_ref(x: torch.Tensor, dtype: str, rand_bits=None):
     bits = None if rand_bits is None else rand_bits.reshape(x2.shape)
     if dtype == "bf16":
         if bits is None:
-            return (x2.to(torch.bfloat16).reshape(shape),)
+            return (_bf16_nearest(x2).reshape(shape),)
         return (_bf16_stochastic(x2, bits).reshape(shape),)
     if dtype == "int8":
         q, scale = _int8_quantize(x2, bits)

@@ -4,7 +4,10 @@
 
 The wrapper of the hand-written CUDA kernel ``csrc/segment_spmm.cu``, which
 replaces the TPU kernel ``src/repro/kernels/segment_spmm.py::
-_spmm_batched_kernel`` (see the source's note for the design and its bound).
+_spmm_batched_kernel`` (see the source's note for the design and its bound);
+``plan`` picks each launch's geometry.  An edge whose src or dst lies
+outside [0, m) adds nothing, on both devices, as in the reference's Pallas
+kernel.
 
 Device rule: a CPU tensor goes to the plain version (``ref.py``); a CUDA
 tensor launches the kernel or raises.  Nothing falls back.  ``LAUNCHES``
@@ -20,12 +23,15 @@ weighted scatter-add is the same SpMM with src and dst swapped,
 so dh is one more launch of the same kernel with the roles exchanged
 (counted under ``segment_spmm_batched_bwd``), and dw[n, e] =
 ⟨g[n, dst_e], h[n, src_e]⟩ is a gather and a product in plain torch, as
-the reference computes it in jnp outside Pallas.  The Function runs on
+the reference computes it in jnp outside Pallas (``ref.take_rows``: its
+``take_along_axis`` reads NaN for an index past m).  The Function runs on
 both devices; on the CPU its two SpMMs are the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -38,13 +44,19 @@ LAUNCHES = LaunchCounts((KERNEL, KERNEL_BWD))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+THREADS = 256                 # a block: 8 warps
+WARPS = THREADS // 32
+MAX_TILE_ROWS = THREADS       # the block's scan gives one row to a thread
+
+
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels._build import load
 
     lib = load("segment_spmm")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.segment_spmm_batched_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.segment_spmm_batched_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                                 i, i, i, p]
         lib.segment_spmm_batched_fwd.restype = i
         lib.segment_spmm_smem_limit.argtypes = [i]
         lib.segment_spmm_smem_limit.restype = i
@@ -54,10 +66,57 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def smem_bytes(m: int, e: int) -> int:
-    """Shared memory one block needs: CSR starts, cursors, the staged dst
-    and the edge order."""
-    return (2 * m + 1 + 2 * e) * 4
+def smem_bytes(m: int, e: int, tile_rows: int = None) -> int:
+    """Shared memory one block needs (``csrc/segment_spmm.cu::smem_bytes``):
+    the e sorted (src, w) records of 8 bytes, the (warp chunk, row) counts
+    and the rows' starts, for a tile of ``tile_rows`` destination rows (the
+    most a block of this m takes by default)."""
+    t = min(m, MAX_TILE_ROWS) if tile_rows is None else tile_rows
+    return e * 8 + (WARPS * t + t + 1) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch's geometry: ``vec`` h elements a thread (one load),
+    ``tpr`` threads a destination row, ``tile_rows`` rows a block; the grid
+    is (N, row tiles, column tiles)."""
+    vec: int
+    tpr: int
+    tile_rows: int
+    row_tiles: int
+    col_tiles: int
+
+
+def plan(N: int, m: int, e: int, d: int, itemsize: int, h_addr: int,
+         sms: int = 132, smem_per_sm: int = 232448) -> Plan:
+    """The widest load (16, 8, 4 or 2 bytes) that divides a row of h and
+    h's address; threads a row the next power of two of d / vec, at most
+    32; then as many row tiles as fill the card's blocks once (``sms``
+    SMs, as many blocks an SM as threads and ``smem_per_sm`` bytes of
+    shared memory allow), at least one row per thread group and at most
+    256 rows a tile.  Every row tile scans the segment's whole edge list,
+    so the tiles stop where the card is full."""
+    vec = 1
+    for nbytes in (16, 8, 4, 2):
+        if nbytes >= itemsize and (d * itemsize) % nbytes == 0 \
+                and h_addr % nbytes == 0:
+            vec = nbytes // itemsize
+            break
+    per_row = max(1, -(-d // vec))
+    tpr = min(32, 1 << (per_row - 1).bit_length())
+    col_tiles = max(1, -(-d // (tpr * vec)))
+    groups = WARPS * (32 // tpr)
+    per_sm = max(1, min(2048 // THREADS,
+                        smem_per_sm // (smem_bytes(m, e) + 1024)))
+    want = max(1, (sms * per_sm) // max(1, N * col_tiles))
+    tiles = max(-(-m // MAX_TILE_ROWS), min(want, -(-m // groups)), 1)
+    tile_rows = max(1, -(-m // tiles))
+    return Plan(vec, tpr, tile_rows, -(-m // tile_rows), col_tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(h, src, dst, w):
@@ -91,15 +150,19 @@ def _launch(h, src, dst, w, key: str) -> torch.Tensor:
     dev = h.device.index if h.device.index is not None \
         else torch.cuda.current_device()
     limit = lib.segment_spmm_smem_limit(dev)
-    if smem_bytes(m, e) > limit:
+    geo = plan(N, m, e, d, h.element_size(), h.data_ptr(), _sms(dev), limit)
+    need = smem_bytes(m, e, geo.tile_rows)
+    if need > limit:
         raise ValueError(
-            f"segment_spmm_batched: m={m}, e={e} needs {smem_bytes(m, e)} bytes "
-            f"of shared memory per block, more than this card's {limit}")
+            f"segment_spmm_batched: e={e} ({geo.tile_rows} rows a block) needs "
+            f"{need} bytes of shared memory per block, more than this card's "
+            f"{limit}")
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.segment_spmm_batched_fwd(
             h.data_ptr(), src.data_ptr(), dst.data_ptr(), w.data_ptr(),
-            out.data_ptr(), N, m, e, d, _DTYPES[h.dtype], stream)
+            out.data_ptr(), N, m, e, d, _DTYPES[h.dtype], geo.vec,
+            geo.tpr.bit_length() - 1, geo.tile_rows, stream)
     if err != 0:
         raise RuntimeError("segment_spmm_batched launch failed: "
                            + lib.segment_spmm_error_string(err).decode())
@@ -139,9 +202,7 @@ class _SpmmBatched(torch.autograd.Function):
         dh = segment_spmm_batched_transpose(g, src, dst, w).to(h.dtype)
         dw = None
         if ctx.needs_input_grad[3]:
-            d = g.shape[-1]
-            g_dst = torch.gather(g, 1, dst.long()[..., None].expand(-1, -1, d))
-            h_src = torch.gather(h, 1, src.long()[..., None].expand(-1, -1, d))
+            g_dst, h_src = ref.take_rows(g, dst), ref.take_rows(h, src)
             dw = torch.sum(g_dst.float() * h_src.float(), dim=-1).to(w.dtype)
         return dh, None, None, dw
 

@@ -194,6 +194,29 @@ def test_spmm_wrapper_checks(bad):
         spmm._check(h, src, dst, w)
 
 
+@pytest.mark.parametrize("N,m,e,d,itemsize,addr", [
+    (8, 64, 512, 64, 4, 256), (160, 64, 382, 64, 4, 256),
+    (64, 1024, 8192, 128, 4, 256), (64, 1024, 8192, 128, 2, 256),
+    (3, 37, 300, 130, 4, 256), (2, 8, 6, 1, 4, 256), (5, 48, 130, 40, 2, 256),
+    (4, 32, 257, 64, 4, 260), (1, 1, 0, 3, 2, 2), (10_000, 1024, 8192, 64, 4, 0)])
+def test_spmm_plan_geometry(N, m, e, d, itemsize, addr):
+    """The launch geometry the CUDA kernel is given: the load divides a
+    row of h and its address, a row's threads are a power of two <= 32
+    that cover the columns with their tiles, the row tiles cover m with at
+    most 256 rows each, and the block's shared memory fits an H100's."""
+    g = spmm.plan(N, m, e, d, itemsize, addr)
+    nbytes = g.vec * itemsize
+    assert (d * itemsize) % nbytes == 0 and addr % nbytes == 0
+    assert g.vec == 1 or nbytes in (16, 8, 4)
+    assert g.tpr in (1, 2, 4, 8, 16, 32)
+    assert g.col_tiles * g.tpr * g.vec >= d > (g.col_tiles - 1) * g.tpr * g.vec
+    assert 1 <= g.tile_rows <= spmm.MAX_TILE_ROWS
+    assert g.row_tiles * g.tile_rows >= m > (g.row_tiles - 1) * g.tile_rows
+    assert spmm.smem_bytes(m, e, g.tile_rows) <= 232448
+    if N * g.col_tiles >= 132 * 8:            # the card is full with one tile
+        assert g.row_tiles == -(-m // spmm.MAX_TILE_ROWS)
+
+
 def test_smem_bytes_covers_stated_kernel_range():
     # m <= 1024 and e <= 8192 (the JAX kernel's VMEM claim) fit one block
     # of an H100 after the opt-in (232,448 bytes)

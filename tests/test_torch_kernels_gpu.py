@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from _spmm_cases import BF16_CASES, CASES as STRESS_CASES, case  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import sed_pool as sp  # noqa: E402
 from repro_torch.kernels import segment_spmm as spmm  # noqa: E402
@@ -167,6 +168,55 @@ def test_backward_matches_plain_autograd(cuda, N, m, d, e, n_pad, empty_seg):
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(a, dh)
     assert ops.kernel_launches()["segment_spmm_batched_bwd"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dtype", [(n, "float32") for n in STRESS_CASES]
+                         + [(n, "bfloat16") for n in BF16_CASES])
+def test_kernel_stress_cases_match_plain(cuda, name, dtype):
+    """The cases that stress the kernel's design (tests/_spmm_cases.py):
+    forward and transpose within 1e-5 of the plain version (6e-2 in
+    bf16), NaN in the same places, two launches bitwise equal."""
+    h, src, dst, w = (torch.from_numpy(a).to(cuda) for a in case(name))
+    h = h.to(getattr(torch, dtype))
+    tol = 1e-5 if dtype == "float32" else 6e-2
+    for fn, plain in (
+            (spmm.segment_spmm_batched,
+             lambda: ref.segment_spmm_batched_ref(h, src, dst, w)),
+            (spmm.segment_spmm_batched_transpose,
+             lambda: ref.segment_spmm_batched_ref(h, dst, src, w))):
+        a, b = fn(h, src, dst, w), fn(h, src, dst, w)
+        want = plain()
+        torch.cuda.synchronize()
+        assert a.dtype == h.dtype and torch.equal(a.isnan(), want.isnan())
+        assert _same_bits(a, b)
+        torch.testing.assert_close(a.float(), want.float(), rtol=tol, atol=tol,
+                                   equal_nan=True)
+    if name == "inf_under_zero_weight":
+        assert bool(a.isnan().any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(STRESS_CASES))
+def test_backward_stress_cases_match_plain_path(cuda, name):
+    """dh and dw through the autograd Function on the card against the
+    same Function on the CPU, where it runs the plain version (dw of an
+    out-of-range edge reads NaN or a wrapped row, as the reference's)."""
+    grads = []
+    for where in (cuda, torch.device("cpu")):
+        h, src, dst, w = (torch.from_numpy(a).to(where) for a in case(name, 1))
+        g = torch.randn(h.shape, generator=torch.Generator().manual_seed(3)
+                        ).to(where)
+        hh, ww = h.requires_grad_(), w.requires_grad_()
+        torch.sum(spmm.segment_spmm_batched(hh, src, dst, ww) * g).backward()
+        grads.append((hh.grad.cpu(), ww.grad.cpu()))
+    (dh, dw), (dh_ref, dw_ref) = grads
+    torch.testing.assert_close(dh, dh_ref, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
+    torch.testing.assert_close(dw, dw_ref, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
+    assert torch.equal(dh.isnan(), dh_ref.isnan())
+    assert torch.equal(dw.isnan(), dw_ref.isnan())
 
 
 # ---------------------------------------------------------------------------
@@ -349,7 +399,9 @@ def test_train_steps_kernel_path_matches_plain(cuda, backbone, dataset,
 
 def _quant_inputs(R, N, seed, cuda):
     """Random rows with a zero row, ±0, values on the nearest-even ties of
-    both grids, and a row whose amax is 127 (scale exactly 1)."""
+    both grids, and a row whose amax is 127 (scale exactly 1); where R > 4
+    and N > 3, a row with NaN of both signs, a row with ±inf and a row of
+    NaN."""
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=(R, N)) * 3.0).astype(np.float32)
     x[0] = 0.0
@@ -358,6 +410,10 @@ def _quant_inputs(R, N, seed, cuda):
                           np.float32)
         x[1, :min(N, 6)] = ties[:min(N, 6)]
         x[1, -1] = 127.0
+    if R > 4 and N > 3:
+        x[2, 1], x[2, -2] = np.nan, -np.nan
+        x[3, 0], x[3, -1] = np.inf, -np.inf
+        x[4] = np.nan
     bits = rng.integers(0, 2 ** 32, (R, N), dtype=np.uint64).astype(
         np.uint32).view(np.int32)
     return torch.from_numpy(x).to(cuda), torch.from_numpy(bits).to(cuda)
@@ -399,6 +455,17 @@ def test_quant_kernels_bitwise_plain(cuda, R, N, dtype, stochastic):
         assert _same_bits(pa, pw)
     assert _same_bits(back_a, back_b)
     assert _same_bits(back_a, ref.dequantize_rows_ref(want, dtype))
+    if R > 4 and N > 3:       # the NaN rows carry the JAX package's bits
+        nan = x.isnan()
+        if dtype == "bf16":
+            bits = a[0].view(torch.int16).int() & 0xFFFF
+            sign = (x.view(torch.int32) < 0).int() * 0x8000
+            assert torch.equal(bits[nan], (sign | 0x7FC0)[nan])
+        else:
+            assert torch.equal(a[1][2:5:2].view(torch.int32).cpu(),
+                               torch.tensor([0x7FC00000] * 2, dtype=torch.int32))
+            assert not a[0][nan].any() and not a[0][3].any()
+            assert bool(torch.isinf(a[1][3]))
 
 
 @pytest.mark.gpu

@@ -85,6 +85,53 @@ def test_pack_unpack_bitwise_vs_jax(r, n, pallas, dtype, stochastic):
             wants[1], dtype, use_pallas=True, interpret=True)).view(np.int32))
 
 
+def _nan_rows(n, seed, payloads):
+    """Random rows, then NaN of both signs, ±inf, a row of NaN, and with
+    ``payloads`` a row of NaNs with payloads (signalling, all ones,
+    0x7FA12345)."""
+    x = _inputs(6, n, seed)
+    x[2, 1], x[2, -2] = np.nan, -np.nan
+    x[3, 0], x[3, -1] = np.inf, -np.inf
+    x[4] = np.nan
+    if payloads:
+        p = np.asarray([0x7F800001, 0xFF800001, 0x7FFFFFFF, 0xFFFFFFFF,
+                        0x7FA12345], np.uint32).view(np.float32)
+        x[5, :len(p)] = p
+    return x
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("dtype", COMPRESSED)
+def test_nan_and_inf_rows_bitwise_vs_jax(dtype, stochastic):
+    """NaN of both signs, ±inf, a row of NaN: values and scales bitwise
+    against JAX's jnp reference and its Pallas kernels in interpret mode,
+    and the unpacks of both round trip to JAX's bits.  bf16 also packs
+    NaNs with payloads as JAX does; an int8 scale's NaN is always
+    0x7FC00000 (JAX on the CPU keeps the payload of whichever NaN its
+    max returns, which the card's arithmetic does not keep)."""
+    x = _nan_rows(40, seed=3, payloads=dtype == "bf16")
+    bits = _bits(x.shape, seed=9) if stochastic else None
+    jbits = None if bits is None else jnp.asarray(bits)
+    got = tq.quantize_rows(torch.from_numpy(x), dtype, _t_bits(bits))
+    back = tq.dequantize_rows(got, dtype).numpy().view(np.int32)
+    for want in (jq.quantize_rows_ref(jnp.asarray(x), dtype, jbits),
+                 jq.quantize_rows(jnp.asarray(x), dtype, jbits,
+                                  use_pallas=True, interpret=True)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_raw(g), _raw(w))
+        np.testing.assert_array_equal(
+            back, np.asarray(jq.dequantize_rows_ref(want, dtype)).view(
+                np.int32))
+    if dtype == "bf16" and not stochastic:
+        nan = np.isnan(x)
+        sign = (x.view(np.int32) < 0) * np.int16(-0x8000)
+        assert (_raw(got[0])[nan] == (sign | 0x7FC0)[nan]).all()
+    if dtype == "int8":
+        assert not _raw(got[0])[np.isnan(x)].any() and not _raw(got[0])[3].any()
+        assert (_raw(got[1])[[2, 4]].view(np.uint32) == 0x7FC00000).all()
+        assert np.isinf(got[1][3].item())
+
+
 @pytest.mark.parametrize("dtype", COMPRESSED)
 def test_payload_wrappers_keep_leading_rows(dtype):
     """(B, J, d) payloads pack one scale per leading row, as the JAX

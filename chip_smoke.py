@@ -35,7 +35,11 @@ fails the run (none catches its own):
                 (R, N) (ring and alltoall lookups, bucketed buckets,
                 write-backs), a 40 MiB stress shape and edge cases (R = 1,
                 N not a multiple of 32, zero rows, ±0, nearest-even ties,
-                NaN of both signs, ±inf, a row of NaN);
+                NaN of both signs, ±inf, a row of NaN, rows wider than the
+                int8 pack keeps in registers, x and v views off a 16-byte
+                boundary), beside x.to(bfloat16), .float() and
+                torch.mul(v, scale[:, None]) (each bitwise the plain
+                version) and, for the unpacks, a fill of their output;
                 swa_attention (1e-5) at (B, S, H, KV, D, W) (2, 256, 4, 2,
                 64, 128), (1, 2048, 16, 8, 128, full), (1, 4096, ..., 1024),
                 (2, 1000, ..., 300), (1, 1, ..., full), (1, 777, 6, 1, 128,
@@ -157,9 +161,13 @@ DIST_ARGS = ["--device", "cuda", "--devices", str(DIST_SHARDS),
 DIST_RUNS = [("ring", "int8", 0.0), ("alltoall", "bf16", 0.0),
              ("bucketed", "int8", 0.05)]
 QUANT_STRESS = (8192, 1280)             # 40 MiB of f32 rows
-# (R, N) edge cases: one row, N not a multiple of 32, a wide ragged row,
-# and rows with NaN of both signs, ±inf and all NaN (quant_inputs, R > 4)
-QUANT_EDGES = [(1, 4), (3, 33), (2, 1000), (6, 37)]
+# (R, N, element offset of x and v in their buffers) edge cases: one row,
+# N not a multiple of 32, a wide ragged row, rows with NaN of both signs,
+# ±inf and all NaN (quant_inputs, R > 4), one row at the lookup's N, rows
+# wider than the int8 pack keeps in registers (quant.REGISTER_N), and
+# views that start off a 16-byte boundary
+QUANT_EDGES = [(1, 4, 0), (3, 33, 0), (2, 1000, 0), (6, 37, 0), (1, 1280, 0),
+               (6, 20001, 0), (6, 1281, 1), (2, 1280, 3)]
 # the sequence track: internlm2-1.8b at full width and depth (24 layers,
 # d_model 2048, 16 query and 8 KV heads of 128, d_ff 8192, vocab 92,544)
 SEQ_ARCH = "internlm2-1.8b"
@@ -883,10 +891,11 @@ def quant_bytes(name, R, N):
     return n + R * 4 + n * 4                     # quant_unpack_int8
 
 
-def quant_inputs(torch, R, N, seed, dev):
+def quant_inputs(torch, R, N, seed, dev, offset=0):
     """Random rows; row 0 zero, row 1 with ±0, nearest-even ties of both
     grids and amax 127 (an int8 scale of exactly 1); where R > 4 and N > 3,
-    row 2 with NaN of both signs, row 3 with ±inf, row 4 all NaN."""
+    row 2 with NaN of both signs, row 3 with ±inf, row 4 all NaN.  x is a
+    view ``offset`` elements into its buffer."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -903,7 +912,19 @@ def quant_inputs(torch, R, N, seed, dev):
         x[4] = np.nan
     bits = rng.integers(0, 2 ** 32, (R, N), dtype=np.uint64).astype(
         np.uint32).view(np.int32)
-    return torch.from_numpy(x).to(dev), torch.from_numpy(bits).to(dev)
+    return (offset_view(torch, torch.from_numpy(x).to(dev), offset),
+            torch.from_numpy(bits).to(dev))
+
+
+def offset_view(torch, t, offset):
+    """A contiguous copy of t that starts ``offset`` elements into a
+    larger buffer (so off the buffer's alignment where offset > 0)."""
+    if not offset:
+        return t
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def bitwise_equal(torch, a, b):
@@ -927,27 +948,31 @@ def phase_kernel_quant(torch, dev):
     """The six pack / unpack kernels against their plain versions, BITWISE,
     two launches bitwise equal, at the distributed run's own (R, N), the
     stress shape and the edge cases; timed at the ring's lookup and
-    write-back shapes and the stress shape, beside x.to(bfloat16) and
-    .float() where one call computes the same function (none for int8
-    and for stochastic rounding)."""
+    write-back shapes and the stress shape, beside the one call that
+    computes the same function where there is one (x.to(bfloat16),
+    .float(), torch.mul(v, scale[:, None]), each first checked bitwise
+    against the plain version; none for the int8 pack and for stochastic
+    rounding), and the unpacks beside a fill of their f32 output alone."""
     from repro_torch.kernels import quant as qt
     from repro_torch.kernels import ref
 
     j_max, d, cap = dist_geometry()
     b_local, D = 8 // DIST_SHARDS, DIST_SHARDS
-    shapes = {"lookup (ring)": (b_local, j_max * d),
-              "lookup (alltoall)": (D * b_local, j_max * d),
-              "lookup (bucketed)": (D * cap, j_max * d),
-              "write-back": (b_local, d),
-              "write-back (gathered)": (D * b_local, d),
-              "stress": QUANT_STRESS}
-    shapes.update({f"edge {r}x{n}": (r, n) for r, n in QUANT_EDGES})
+    shapes = {"lookup (ring)": (b_local, j_max * d, 0),
+              "lookup (alltoall)": (D * b_local, j_max * d, 0),
+              "lookup (bucketed)": (D * cap, j_max * d, 0),
+              "write-back": (b_local, d, 0),
+              "write-back (gathered)": (D * b_local, d, 0),
+              "stress": (*QUANT_STRESS, 0)}
+    shapes.update({f"edge {r}x{n}" + (f" at +{o}" if o else ""): (r, n, o)
+                   for r, n, o in QUANT_EDGES})
     timed = ("lookup (ring)", "write-back", "stress")
     log(f"[quant] J_max {j_max}, hidden {d}, bucketed cap {cap}; shapes "
         + ", ".join(f"{k} {v}" for k, v in shapes.items()))
     rows = {name: [] for name in QUANT_OPS}
-    for label, (R, N) in shapes.items():
-        x, bits = quant_inputs(torch, R, N, seed=R * 7 + N, dev=dev)
+    for label, (R, N, offset) in shapes.items():
+        x, bits = quant_inputs(torch, R, N, seed=R * 7 + N, dev=dev,
+                               offset=offset)
         for dtype in ("bf16", "int8"):
             packs = {False: f"quant_pack_{dtype}_det",
                      True: f"quant_pack_{dtype}"}
@@ -971,24 +996,31 @@ def phase_kernel_quant(torch, dev):
                     lambda: qt.quantize_rows(x, dtype, b),
                     lambda: ref.quantize_rows_ref(x, dtype, b), lib))
             parts = ref.quantize_rows_ref(x, dtype, bits)
+            parts = (offset_view(torch, parts[0], offset),) + parts[1:]
             name = f"quant_unpack_{dtype}"
             u1 = qt.dequantize_rows(parts, dtype)
             u2 = qt.dequantize_rows(parts, dtype)
             uw = ref.dequantize_rows_ref(parts, dtype)
+            lib = ((lambda: parts[0].float()) if dtype == "bf16" else
+                   (lambda: torch.mul(parts[0], parts[1][:, None])))
             torch.cuda.synchronize()
             if not (bitwise_equal(torch, u1, u2)
                     and bitwise_equal(torch, u1, uw)):
                 raise AssertionError(f"{name} {R}x{N}: kernel != plain or "
                                      "two launches differ")
-            lib = (lambda: parts[0].float()) if dtype == "bf16" else None
+            if not bitwise_equal(torch, lib(), uw):
+                raise AssertionError(f"{name} {R}x{N}: the library call != "
+                                     "plain version")
             rows[name].append(quant_row(
                 torch, name, label, R, N, label in timed,
                 lambda: qt.dequantize_rows(parts, dtype),
-                lambda: ref.dequantize_rows_ref(parts, dtype), lib))
+                lambda: ref.dequantize_rows_ref(parts, dtype), lib,
+                fill=torch.empty((R, N), dtype=torch.float32, device=dev)
+                if label in timed else None))
     return rows
 
 
-def quant_row(torch, name, label, R, N, timed, fn, plain, library):
+def quant_row(torch, name, label, R, N, timed, fn, plain, library, fill=None):
     row = {"shape": {"what": label, "R": R, "N": N}, "max_abs_err": 0.0,
            "ms": None, "plain_ms": None, "library_ms": None,
            **bound(quant_bytes(name, R, N), QUANT_OPS[name] * R * N + R)}
@@ -998,10 +1030,13 @@ def quant_row(torch, name, label, R, N, timed, fn, plain, library):
         row["plain_ms"] = time_ms(torch, plain, iters)
         row["library_ms"] = (time_ms(torch, library, iters)
                              if library is not None else None)
+        if fill is not None:      # the output's bytes written, nothing read
+            row["fill_ms"] = time_ms(torch, lambda: fill.fill_(1.0), iters)
         log(f"[quant] {name} {label} ({R}, {N}): bitwise equal to the plain "
             f"version, twice; kernel {row['ms']:.6f} ms, plain "
             f"{row['plain_ms']:.6f} ms, library "
             + (f"{row['library_ms']:.6f} ms" if library else "-")
+            + (f", fill {row['fill_ms']:.6f} ms" if fill is not None else "")
             + f", bound {row['bound_ms']:.7f} ms ({row['bound_by']}, "
             f"{row['bytes']} B)")
     return row
@@ -1655,13 +1690,15 @@ TURN_CODE = (
     "'quant': c.phase_kernel_quant(torch, dev), "
     "'serve': c.phase_serving(torch, dev, 'sage')[1], "
     "'train': c.phase_training(torch, dev, *c.TRAIN_RUNS[0])[1], "
-    "'profile': c.phase_profile(torch, dev)}))")
+    "'profile': c.phase_profile(torch, dev), "
+    "'dist_profile': c.phase_dist_profile(torch)}))")
 
 
 def turns(parent: Path) -> None:
     """The kernel phases (SpMM forward and backward, the pack and unpack
-    kernels), the sage serving replay, the first training run and the
-    profiled train step of the tree at ``parent`` and of this one in
+    kernels), the sage serving replay, the first training run, the
+    profiled train step and the profiled distributed step (ring / int8) of
+    the tree at ``parent`` and of this one in
     turns: parent, this, this, parent, each in its own process on card 0
     with the kernels its tree builds.  One line of times a turn."""
     for label, root in (("parent", parent), ("this", ROOT), ("this", ROOT),
@@ -1682,7 +1719,13 @@ def turns(parent: Path) -> None:
                   f"ms_per_iter {rows['train']['ms_per_iter']:.3f}",
                   "device ms a step "
                   f"{rows['profile']['device_busy_ms_per_step']:.4f} "
-                  f"({rows['profile']['device_events_per_step']:.0f} events)"]
+                  f"({rows['profile']['device_events_per_step']:.0f} events)",
+                  "distributed step (ring / int8): device ms "
+                  f"{rows['dist_profile']['device_busy_ms_per_step']:.4f}, "
+                  "hand-written ms "
+                  f"{rows['dist_profile']['handwritten_ms_per_step']:.6f}, "
+                  "wall ms "
+                  f"{rows['dist_profile']['wall_ms_per_step']:.3f}"]
         log(f"[turns] {label} ({root}): " + "; ".join(times))
 
 

@@ -14,7 +14,8 @@ for the design and its bound.
 
 Device rule: a CPU tensor goes to the plain version (``ref.py``); a CUDA
 tensor launches the kernel or raises.  Nothing falls back.  ``LAUNCHES``
-counts each kernel's launches, one per launch.  The random bits are an
+counts each kernel's launches, one per launch.  ``plan_pack_int8`` and
+``plan_unpack_int8`` pick the int8 kernels' geometry.  The random bits are an
 int32 tensor holding the uint32 bit pattern (torch has no usable uint32
 arithmetic); the kernel reads them as a raw 32-bit buffer.  Nothing here
 is differentiated: the exchange packs detached embeddings.
@@ -22,11 +23,13 @@ is differentiated: the exchange packs detached embeddings.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.counts import LaunchCounts
+from repro_torch.kernels.segment_spmm import _sms
 
 PAYLOAD_DTYPES = ("f32", "bf16", "int8")
 
@@ -39,6 +42,53 @@ UNPACK_INT8 = "quant_unpack_int8"
 LAUNCHES = LaunchCounts((PACK_BF16, PACK_BF16_DET, PACK_INT8, PACK_INT8_DET,
                          UNPACK_BF16, UNPACK_INT8))
 
+ROW_WARPS = 8                    # the nearest-even int8 pack's block: 8 warps
+VECS_PER_LANE = (2, 4, 8, 16)    # its compiled register arrays, in float4
+# the widest row whose float4 all stay in registers (8 warps of 16 each);
+# a wider row's further float4 are read twice
+REGISTER_N = 4 * 32 * ROW_WARPS * VECS_PER_LANE[-1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Plan:
+    """The nearest-even int8 pack's geometry: ``warps_per_row`` warps a row
+    (``ROW_WARPS // warps_per_row`` rows a block), each thread keeping
+    ``vecs_per_lane`` float4 of x in registers; a row with more float4
+    than its threads keep (wider than REGISTER_N) reads the rest twice."""
+    warps_per_row: int
+    vecs_per_lane: int
+
+
+def plan_pack_int8(R: int, N: int, sms: int = 132) -> Int8Plan:
+    """The fewest warps a row (at most 8) whose threads hold its N // 4
+    float4 in at most 8 registers' worth each (16 at 8 warps); then twice
+    as many warps a row, while the rows' warps stay within two fills of the
+    card (64 an SM), until a thread holds at most 2 float4: where few rows
+    arrive, each row's chain of loads, reduction and stores is cut across
+    more threads.  The register array is the smallest compiled one that
+    holds a thread's share: 8 warps a row of 2 at 2 x 1280, 2 warps of 8
+    at 8192 x 1280."""
+    nvec = N // 4
+    W = 1
+    while W < ROW_WARPS and nvec > 32 * W * 8:
+        W *= 2
+    while W < ROW_WARPS and R * W * 2 <= 128 * sms and -(-nvec // (32 * W)) > 2:
+        W *= 2
+    share = -(-nvec // (32 * W))
+    K = next((k for k in VECS_PER_LANE if k >= share), VECS_PER_LANE[-1])
+    return Int8Plan(W, K)
+
+
+UNPACK_GROUPS = (1, 2, 4, 8, 16)   # the int8 unpack's compiled words a thread
+
+
+def plan_unpack_int8(R: int, N: int, sms: int = 132) -> int:
+    """Words of 4 int8 a thread of the int8 unpack (a warp takes 128 of
+    them a word): the most that still give the card 4 warps an SM."""
+    n = R * N
+    return max((g for g in UNPACK_GROUPS if n >= 128 * g * 4 * sms),
+               default=UNPACK_GROUPS[0])
+
 
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels._build import load
@@ -47,9 +97,9 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.quant_pack_bf16.argtypes = [p, p, p, i, i, p]
-        lib.quant_pack_int8.argtypes = [p, p, p, p, i, i, p]
+        lib.quant_pack_int8.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.quant_unpack_bf16.argtypes = [p, p, i, i, p]
-        lib.quant_unpack_int8.argtypes = [p, p, p, i, i, p]
+        lib.quant_unpack_int8.argtypes = [p, p, p, i, i, i, p]
         for fn in (lib.quant_pack_bf16, lib.quant_pack_int8,
                    lib.quant_unpack_bf16, lib.quant_unpack_int8):
             fn.restype = i
@@ -115,8 +165,9 @@ def quantize_rows(x: torch.Tensor, dtype: str, rand_bits=None):
     out = torch.empty(shape, dtype=torch.int8, device=x.device)
     scale = torch.empty((R,), dtype=torch.float32, device=x.device)
     if x.numel():
+        g = plan_pack_int8(R, N, _sms(x.device.index or 0))
         _run(x, lib.quant_pack_int8, x.data_ptr(), bits_ptr, out.data_ptr(),
-             scale.data_ptr(), R, N)
+             scale.data_ptr(), R, N, g.warps_per_row, g.vecs_per_lane)
         LAUNCHES.add(PACK_INT8 if rand_bits is not None else PACK_INT8_DET)
     return out, scale
 
@@ -146,6 +197,6 @@ def dequantize_rows(parts, dtype: str) -> torch.Tensor:
     _check("scale", parts[1], torch.float32, (R,), v.device)
     if v.numel():
         _run(v, lib.quant_unpack_int8, v.data_ptr(), parts[1].data_ptr(),
-             out.data_ptr(), R, N)
+             out.data_ptr(), R, N, plan_unpack_int8(R, N, _sms(v.device.index or 0)))
         LAUNCHES.add(UNPACK_INT8)
     return out

@@ -397,11 +397,11 @@ def test_train_steps_kernel_path_matches_plain(cuda, backbone, dataset,
 # ---------------------------------------------------------------------------
 
 
-def _quant_inputs(R, N, seed, cuda):
+def _quant_inputs(R, N, seed, cuda, offset=0):
     """Random rows with a zero row, ±0, values on the nearest-even ties of
     both grids, and a row whose amax is 127 (scale exactly 1); where R > 4
     and N > 3, a row with NaN of both signs, a row with ±inf and a row of
-    NaN."""
+    NaN.  x is a view ``offset`` elements into its buffer."""
     rng = np.random.default_rng(seed)
     x = (rng.normal(size=(R, N)) * 3.0).astype(np.float32)
     x[0] = 0.0
@@ -416,7 +416,18 @@ def _quant_inputs(R, N, seed, cuda):
         x[4] = np.nan
     bits = rng.integers(0, 2 ** 32, (R, N), dtype=np.uint64).astype(
         np.uint32).view(np.int32)
-    return torch.from_numpy(x).to(cuda), torch.from_numpy(bits).to(cuda)
+    return (_offset(torch.from_numpy(x).to(cuda), offset),
+            torch.from_numpy(bits).to(cuda))
+
+
+def _offset(t, offset):
+    """A contiguous copy of t ``offset`` elements into a larger buffer."""
+    if not offset:
+        return t
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def _same_bits(a, b):
@@ -430,18 +441,23 @@ def _same_bits(a, b):
 @pytest.mark.gpu
 @pytest.mark.parametrize("stochastic", [False, True])
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
-@pytest.mark.parametrize("R,N", [(1, 4), (2, 64), (3, 33), (8, 1280),
-                                 (16, 1000), (512, 1280)])
-def test_quant_kernels_bitwise_plain(cuda, R, N, dtype, stochastic):
+@pytest.mark.parametrize("R,N,offset", [
+    (1, 4, 0), (2, 64, 0), (3, 33, 0), (8, 1280, 0), (16, 1000, 0),
+    (512, 1280, 0), (1, 1280, 0), (6, 20001, 0), (8192, 1280, 0),
+    (6, 1281, 1), (2, 1280, 3), (5, 33, 2)])
+def test_quant_kernels_bitwise_plain(cuda, R, N, offset, dtype, stochastic):
+    """Also rows wider than the int8 pack keeps in registers (20001 >
+    REGISTER_N), and x and v as views ``offset`` elements into their
+    buffers, so that no row starts on a 16-byte boundary."""
     from repro_torch.kernels import quant as Q
 
-    x, bits = _quant_inputs(R, N, seed=R + N, cuda=cuda)
+    x, bits = _quant_inputs(R, N, seed=R + N, cuda=cuda, offset=offset)
     bits = bits if stochastic else None
     ops.reset_kernel_launches()
     a = Q.quantize_rows(x, dtype, bits)
     b = Q.quantize_rows(x, dtype, bits)
     want = ref.quantize_rows_ref(x, dtype, bits)
-    back_a = Q.dequantize_rows(a, dtype)
+    back_a = Q.dequantize_rows((_offset(a[0], offset),) + a[1:], dtype)
     back_b = Q.dequantize_rows(b, dtype)
     torch.cuda.synchronize()
     pack = {("bf16", False): Q.PACK_BF16_DET, ("bf16", True): Q.PACK_BF16,
@@ -466,6 +482,145 @@ def test_quant_kernels_bitwise_plain(cuda, R, N, dtype, stochastic):
                                torch.tensor([0x7FC00000] * 2, dtype=torch.int32))
             assert not a[0][nan].any() and not a[0][3].any()
             assert bool(torch.isinf(a[1][3]))
+
+
+def _pack_int8_with(x, warps_per_row, vecs_per_lane):
+    """The nearest-even int8 pack at a geometry of the caller's choosing."""
+    from repro_torch.kernels import quant as Q
+
+    R, N = x.shape
+    out = torch.empty((R, N), dtype=torch.int8, device=x.device)
+    scale = torch.empty((R,), dtype=torch.float32, device=x.device)
+    err = Q._lib().quant_pack_int8(
+        x.data_ptr(), None, out.data_ptr(), scale.data_ptr(), R, N,
+        warps_per_row, vecs_per_lane, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out, scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N,offset", [(6, 37, 0), (6, 1280, 1), (9, 5000, 3),
+                                        (300, 17, 2), (2, 1, 0)])
+def test_int8_pack_every_geometry_bitwise_plain(cuda, R, N, offset):
+    """Every (warps a row, float4 a thread) the kernel takes, including
+    register arrays too small for the row (whose rest is read twice),
+    gives the plain version's values and scales."""
+    x, _ = _quant_inputs(R, N, seed=R * N, cuda=cuda, offset=offset)
+    want = ref.quantize_rows_ref(x, "int8")
+    for W in (1, 2, 4, 8):
+        for K in (2, 4, 8, 16):
+            got = _pack_int8_with(x, W, K)
+            torch.cuda.synchronize()
+            assert all(_same_bits(g, w) for g, w in zip(got, want)), (W, K)
+
+
+@pytest.mark.gpu
+def test_int8_pack_same_on_register_and_wide_paths(cuda):
+    """The same rows, zero-padded across REGISTER_N, go through the
+    register path and the wide-row path (which reads its rest twice):
+    values and scales agree with each other and with the plain version."""
+    from repro_torch.kernels import quant as Q
+
+    n = Q.REGISTER_N - 384
+    x, _ = _quant_inputs(6, n, seed=5, cuda=cuda)
+    wide = torch.zeros((6, Q.REGISTER_N + 1000), device=cuda)
+    wide[:, :n] = x
+    for N, fits in ((n, True), (wide.shape[1], False)):
+        g = Q.plan_pack_int8(6, N)
+        assert (N // 4 <= 32 * g.warps_per_row * g.vecs_per_lane) == fits
+    narrow_v, narrow_s = Q.quantize_rows(x, "int8")
+    wide_v, wide_s = Q.quantize_rows(wide, "int8")
+    want_v, want_s = ref.quantize_rows_ref(x, "int8")
+    torch.cuda.synchronize()
+    assert _same_bits(narrow_s, wide_s) and _same_bits(narrow_s, want_s)
+    assert torch.equal(narrow_v, wide_v[:, :n]) and torch.equal(narrow_v, want_v)
+    assert not wide_v[:, n:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N,v_offset,out_offset", [
+    (2, 1280, 0, 0), (8192, 1280, 0, 0), (6, 37, 1, 0), (5, 1281, 3, 1),
+    (300, 17, 2, 2), (7, 1, 0, 3)])
+def test_int8_unpack_every_group_count_bitwise_plain(cuda, R, N, v_offset,
+                                                     out_offset):
+    """Every words-a-thread count the kernel takes, with v and out off
+    their 16-byte boundaries, gives the plain version's bits; so does
+    torch.mul(v, scale[:, None]), the library call chip_smoke.py times."""
+    from repro_torch.kernels import quant as Q
+
+    x, _ = _quant_inputs(R, N, seed=R + N, cuda=cuda)
+    v, s = ref.quantize_rows_ref(x, "int8")
+    v = _offset(v, v_offset)
+    want = ref.dequantize_rows_ref((v, s), "int8")
+    assert _same_bits(torch.mul(v, s[:, None]), want)
+    for groups in Q.UNPACK_GROUPS:
+        out = _offset(torch.empty((R, N), device=cuda), out_offset)
+        err = Q._lib().quant_unpack_int8(
+            v.data_ptr(), s.data_ptr(), out.data_ptr(), R, N, groups,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0 and _same_bits(out, want), groups
+
+
+def _amax_for_scale(s):
+    """The amax nearest 127 s whose int8 scale RN(amax * f32(1/127)) is
+    exactly s (f32 arithmetic, as the kernel's)."""
+    s, c = np.float32(s), np.float32(1.0) / np.float32(127.0)
+    lo = hi = np.float32(np.float64(s) * 127.0)
+    for _ in range(512):
+        for a in (lo, hi):
+            if np.isfinite(a) and np.float32(a * c) == s:
+                return a
+        lo, hi = np.nextafter(lo, np.float32(0)), np.nextafter(hi, np.float32(np.inf))
+    raise AssertionError(f"no amax gives the scale {s!r}")
+
+
+# scales of the reciprocal path: powers of two from its threshold 2^-100
+# to the largest a finite row has (FLT_MAX's), one ulp below each, s = 1
+# (exact ties), and others; then of the IEEE path: one ulp below 2^-100 and subnormal
+_POW2 = (-100, -99, -64, -20, -1, 0, 1, 20, 64, 120, 121)
+_SWEEP = sorted({float(np.float32(2.0 ** k)) for k in _POW2}
+                | {float(np.nextafter(np.float32(2.0 ** k), np.float32(0)))
+                   for k in _POW2}
+                | {float(np.float32(v)) for v in (3.0 / 127, 0.1, 7.3, 1e-20)}
+                | {float(np.finfo(np.float32).max
+                         * (np.float32(1) / np.float32(127)))}
+                | {float(np.nextafter(np.float32(2.0 ** -100), np.float32(0))),
+                   float(np.float32(2.0 ** -140))})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", _SWEEP)
+def test_int8_pack_reciprocal_matches_ieee_division_every_x(cuda, scale):
+    """For a row whose scale is ``scale``, every f32 x with |x| <= amax,
+    both signs, in rows of 1280 (the lookup's N) led by ±amax: the
+    kernel's values equal the plain version's (IEEE division, round half
+    to even) and its scales; the plain version on the card agrees with
+    the CPU's on a sample.  The kernel divides by the reciprocal with one
+    FMA correction for scales in [2^-100, FLT_MAX], by __fdiv_rn below."""
+    from repro_torch.kernels import quant as Q
+
+    amax = _amax_for_scale(scale)
+    top = int(np.asarray(amax, np.float32).view(np.int32)) + 1
+    per_row, rows = 1279, 1 << 15
+    chunk = per_row * rows
+    sample = torch.Generator().manual_seed(0)
+    for start in range(0, top, chunk):
+        pats = torch.arange(start, min(start + chunk, top), dtype=torch.int32,
+                            device=cuda)
+        xs = torch.zeros(chunk, device=cuda)
+        xs[:pats.numel()] = pats.view(torch.float32)
+        for sign in (1.0, -1.0):
+            x = torch.empty((rows, per_row + 1), device=cuda)
+            x[:, 0] = sign * float(amax)
+            x[:, 1:] = sign * xs.view(rows, per_row)
+            v, s = Q.quantize_rows(x, "int8")
+            want_v, want_s = ref.quantize_rows_ref(x, "int8")
+            assert _same_bits(s, want_s) and bool((s == scale).all())
+            assert torch.equal(v, want_v), (scale, start, sign)
+            pick = torch.randint(0, rows, (64,), generator=sample)
+            cpu_v, _ = ref.quantize_rows_ref(x[pick.to(cuda)].cpu(), "int8")
+            assert torch.equal(cpu_v, want_v[pick.to(cuda)].cpu())
 
 
 @pytest.mark.gpu

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's serving path, its graph-track training path and its
-distributed training path on the card at the repo's full model width
+distributed training path on the card, each also over the tiered store,
+at the repo's full model width
 (GNNConfig / ServeConfig / run_experiment defaults: hidden 64, 2
 message-passing layers, max_seg_nodes 64, batch 8), and the sequence
 track's serving path on internlm2-1.8b at full width and depth, with
@@ -37,7 +38,11 @@ fails the run (none catches its own):
                 N not a multiple of 32, zero rows, ±0, nearest-even ties,
                 NaN of both signs, ±inf, a row of NaN, rows wider than the
                 int8 pack keeps in registers, x and v views off a 16-byte
-                boundary), beside x.to(bfloat16), .float() and
+                boundary), subnormal rows at N 8 and 1280 (scales under,
+                at and just above FLT_MIN, subnormal x and quotients, the
+                stochastic packs with bit words whose high 24 bits are
+                zero: tests/_quant_cases.py) and the int8 unpack at scales
+                ±1e-40, beside x.to(bfloat16), .float() and
                 torch.mul(v, scale[:, None]) (each bitwise the plain
                 version) and, for the unpacks, a fill of their output;
                 swa_attention (1e-5) at (B, S, H, KV, D, W) (2, 256, 4, 2,
@@ -78,7 +83,24 @@ fails the run (none catches its own):
                 identical per-epoch losses.  Then 5 ring / int8 steps
                 under torch.profiler (device busy share), and the wall
                 time of a step at 1, 2 and 4 shards
-  8. seq_serve  internlm2-1.8b (1.9 B parameters, f32) on the card: (a)
+  8. store      the tiered embedding store: (a) training run (a) again with
+                max(10% of its 60 training graphs, a batch) = 8 rows on the
+                card: per-epoch losses, metrics and final table bitwise the
+                uncapped run; ms per iteration, peak memory, hit rate,
+                faults, evictions, bytes each way, write-back waits; (b) the
+                same with stale-first eviction and the delta gate at 0.05,
+                then with the forecaster: finite, write-backs skipped, rows
+                forecast; (c) the sage replay with 64 of the cache's 512
+                rows on the card: predictions bitwise the uncapped engine,
+                p50 / p99 beside it; (d) train_dist ring / int8 with
+                --table-device-rows 16 (32 of 64 rows: a batch a shard):
+                per-epoch losses bitwise the uncapped ring / int8 run,
+                exchange bytes the model; (e) a table of 262,144 rows x J
+                20 x d 64 (1.34 GB pinned host tier, 10% on the card):
+                begin + commit and the write-back's landing for 8, 64 and
+                1,024 misses with as many evictions, as GB/s each way;
+                then 200 random batches: snapshot bitwise a DeviceStore's
+  9. seq_serve  internlm2-1.8b (1.9 B parameters, f32) on the card: (a)
                 launch.serve.serve, B 2, prompt 16, 16 generated tokens,
                 ms a token; (b) Model.prefill of that prompt = the decode
                 loop (5e-4); (c) prefill B 2, S 2048, kernel path = plain
@@ -89,8 +111,9 @@ fails the run (none catches its own):
                 (f) encode_segment over 8 documents x 8 segments x 512
                 tokens, kernel = plain (5e-4).  24 swa_attention launches
                 in each of (b)-(f); then one profiled prefill of (c)
-  9. kernels    one JSON line: per kernel, launches on the main path
-                (serving, training, distributed training and seq_serve),
+ 10. kernels    one JSON line: per kernel, launches on the main path
+                (serving, training, distributed training, the store's
+                (a), (c) and (d), and seq_serve),
                 error, times and bound
 
     python3 chip_smoke.py --turns PARENT_DIR
@@ -168,6 +191,24 @@ QUANT_STRESS = (8192, 1280)             # 40 MiB of f32 rows
 # views that start off a 16-byte boundary
 QUANT_EDGES = [(1, 4, 0), (3, 33, 0), (2, 1000, 0), (6, 37, 0), (1, 1280, 0),
                (6, 20001, 0), (6, 1281, 1), (2, 1280, 3)]
+# widths of the subnormal rows of tests/_quant_cases.py (scales under, at
+# and just above FLT_MIN, subnormal x and quotients; the stochastic packs
+# with bit words whose high 24 bits are zero)
+QUANT_SUBNORMAL_N = (8, 1280)
+# the store phase: (a) training run (a) with about 10% of its training
+# graphs device-resident (no fewer than a batch); (c) the serving cache
+# with an eighth of its rows on the device; (d) the ring / int8
+# distributed run with --table-device-rows 16 (raised to a batch a shard);
+# (e) a table its users hold: 262,144 rows x J 20 x d 64 f32 (1.34 GB in
+# the pinned host tier), 10% device-resident, batches of 8, 64 and 1,024
+# misses timed, then 200 random batches against the DeviceStore
+STORE_DEVICE_FRAC = 0.1
+STORE_CACHE_DIVISOR = 8
+STORE_DIST_ROWS = 16
+MIGRATION_TABLE = (262_144, 20, 64)
+MIGRATION_BATCHES = (8, 64, 1024)
+MIGRATION_REPEATS = 5
+MIGRATION_STEPS = 200
 # the sequence track: internlm2-1.8b at full width and depth (24 layers,
 # d_model 2048, 16 query and 8 KV heads of 128, d_ff 8192, vocab 92,544)
 SEQ_ARCH = "internlm2-1.8b"
@@ -968,11 +1009,16 @@ def phase_kernel_quant(torch, dev):
                    for r, n, o in QUANT_EDGES})
     timed = ("lookup (ring)", "write-back", "stress")
     log(f"[quant] J_max {j_max}, hidden {d}, bucketed cap {cap}; shapes "
-        + ", ".join(f"{k} {v}" for k, v in shapes.items()))
+        + ", ".join(f"{k} {v}" for k, v in shapes.items())
+        + "; subnormal rows at N " + ", ".join(map(str, QUANT_SUBNORMAL_N)))
+    cases = [(label, R, N, offset, *quant_inputs(torch, R, N, seed=R * 7 + N,
+                                                 dev=dev, offset=offset))
+             for label, (R, N, offset) in shapes.items()]
+    for n in QUANT_SUBNORMAL_N:
+        x, bits = subnormal_inputs(torch, n, dev)
+        cases.append((f"subnormal {x.shape[0]}x{n}", *x.shape, 0, x, bits))
     rows = {name: [] for name in QUANT_OPS}
-    for label, (R, N, offset) in shapes.items():
-        x, bits = quant_inputs(torch, R, N, seed=R * 7 + N, dev=dev,
-                               offset=offset)
+    for label, R, N, offset, x, bits in cases:
         for dtype in ("bf16", "int8"):
             packs = {False: f"quant_pack_{dtype}_det",
                      True: f"quant_pack_{dtype}"}
@@ -1017,7 +1063,43 @@ def phase_kernel_quant(torch, dev):
                 lambda: ref.dequantize_rows_ref(parts, dtype), lib,
                 fill=torch.empty((R, N), dtype=torch.float32, device=dev)
                 if label in timed else None))
+    quant_subnormal_scales(torch, dev)
     return rows
+
+
+def subnormal_inputs(torch, n, dev):
+    """tests/_quant_cases.py's subnormal rows at width n on the card, with
+    its bit words whose high 24 bits are zero."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _quant_cases import subnormal_rows
+
+    x, bits = subnormal_rows(n, seed=n)
+    return (torch.from_numpy(x).to(dev),
+            torch.from_numpy(bits.view(np.int32)).to(dev))
+
+
+def quant_subnormal_scales(torch, dev):
+    """The int8 unpack at subnormal scales: (5, -3) at ±1e-40 gives (0, -0)
+    and (-0, 0), bitwise the plain version (the JAX package's bits);
+    torch.mul keeps the subnormal products, so it is no yardstick there."""
+    from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import ref
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _quant_cases import subnormal_unpack
+
+    v, s = (torch.from_numpy(a).to(dev) for a in subnormal_unpack())
+    got = qt.dequantize_rows((v, s), "int8")
+    want = ref.dequantize_rows_ref((v, s), "int8")
+    torch.cuda.synchronize()
+    bits = got.view(torch.int32).cpu().tolist()
+    if not bitwise_equal(torch, got, want) or bits != [[0, -2 ** 31],
+                                                       [-2 ** 31, 0]]:
+        raise AssertionError(f"unpack_int8 at subnormal scales: {bits}")
+    log("[quant] quant_unpack_int8 (5, -3) at scales ±1e-40: (0, -0) and "
+        "(-0, 0), bitwise the plain version")
 
 
 def quant_row(torch, name, label, R, N, timed, fn, plain, library, fill=None):
@@ -1177,6 +1259,283 @@ def phase_dist_f32_strategies(torch):
     return out["ring"][0]
 
 
+# ---------------------------------------------------------------------------
+# the tiered embedding store
+# ---------------------------------------------------------------------------
+
+
+def store_line(st):
+    return (f"hit rate {st['hit_rate']:.4f} ({st['hits']} hits, "
+            f"{st['misses']} faults of {st['lookups']} lookups), "
+            f"{st['evictions']} evictions, bytes_h2d {st['bytes_h2d']}, "
+            f"bytes_d2h {st['bytes_d2h']}, writeback_wait_ms "
+            f"{st['writeback_wait_ms']}")
+
+
+def tables_equal(torch, a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_store_training(torch):
+    """(a) training run (a) with about 10% of its training graphs on the
+    device: per-epoch losses, final metrics and snapshot bitwise the
+    uncapped run's; (b) the same with stale-first eviction and the delta
+    gate, then with the forecaster: finite, the gate skipped write-backs,
+    the forecaster observed and forecast rows.  Returns (a)'s kernel
+    launches, counted from 0 just before it, and the summaries."""
+    from repro_torch.graphs.experiment import run_experiment
+    from repro_torch.kernels import ops
+
+    dataset, backbone, decay = TRAIN_RUNS[0]
+    kw = dict(dataset=dataset, backbone=backbone, variant="gst_efd",
+              epochs=TRAIN_EPOCHS, finetune_epochs=FINETUNE_EPOCHS,
+              sed_age_weighting=decay, device="cuda")
+    full = run_experiment(**kw)
+    n_train, batch = full.table.emb.shape[0], 8
+    rows = max(math.ceil(STORE_DEVICE_FRAC * n_train), batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    r = run_experiment(table_device_rows=rows, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    peak = torch.cuda.max_memory_allocated() - base
+    st = r.store_stats
+    if not (r.epoch_losses == full.epoch_losses
+            and (r.train_metric, r.test_metric) == (full.train_metric,
+                                                    full.test_metric)
+            and tables_equal(torch, r.table, full.table)):
+        raise AssertionError(f"store (a): capped run {r.epoch_losses} "
+                             f"{r.train_metric} {r.test_metric} != uncapped "
+                             f"{full.epoch_losses} {full.train_metric} "
+                             f"{full.test_metric} (or the tables differ)")
+    if st["backend"] != "TieredStore" or st["evictions"] <= 0:
+        raise AssertionError(f"store (a): the cap did not spill: {st}")
+    log(f"[store] (a) {dataset}/{backbone} gst_efd, {rows} of {n_train} "
+        f"rows on the device: per-epoch losses, metrics and snapshot "
+        f"bitwise the uncapped run; {r.ms_per_iter:.6f} ms/iter (uncapped "
+        f"{full.ms_per_iter:.6f}), peak device memory {peak} B above the "
+        f"{base} B allocated before, {seconds:.3f} s; {store_line(st)}; "
+        f"launches {launched(launches)}")
+    out = {"a": {"device_rows": rows, "n_rows": n_train,
+                 "ms_per_iter": r.ms_per_iter,
+                 "uncapped_ms_per_iter": full.ms_per_iter,
+                 "peak_bytes": peak, "base_bytes": base, "seconds": seconds,
+                 "epoch_losses": r.epoch_losses,
+                 "train_metric": r.train_metric,
+                 "test_metric": r.test_metric, "store": st,
+                 "launches": launched(launches)}}
+    for label, extra in (("wb_threshold 0.05", dict(wb_threshold=0.05)),
+                         ("stale_forecast", dict(stale_forecast=True))):
+        b = run_experiment(table_device_rows=rows, evict_policy="stale-first",
+                           **extra, **kw)
+        bs = b.store_stats
+        moved = (bs["wb_skipped_rows"] > 0 if "wb_threshold" in extra
+                 else bs["forecast"]["observed_rows"] > 0
+                 and bs["forecast"]["forecast_rows"] > 0)
+        if not (moved and all(map(math.isfinite, (
+                b.train_metric, b.test_metric, *b.epoch_losses)))):
+            raise AssertionError(f"store (b) {label}: {b} {bs}")
+        log(f"[store] (b) stale-first, {label}: train {b.train_metric:.4f} "
+            f"test {b.test_metric:.4f} (uncapped {full.train_metric:.4f} / "
+            f"{full.test_metric:.4f}), {b.ms_per_iter:.6f} ms/iter; "
+            f"{store_line(bs)}; wb_skipped_rows {bs['wb_skipped_rows']}, "
+            f"forecast {bs.get('forecast')}")
+        out[f"b {label}"] = {"train_metric": b.train_metric,
+                             "test_metric": b.test_metric,
+                             "ms_per_iter": b.ms_per_iter, "store": bs}
+    return launches, out
+
+
+def phase_store_serving(torch):
+    """(c) the sage serving replay with cache_capacity // 8 rows of the
+    cache on the device: every prediction bitwise the uncapped engine's.
+    Returns its kernel launches (counted from 0 before the replay) and a
+    summary."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.traffic import TrafficConfig, make_request_stream
+
+    stream = make_request_stream(TrafficConfig())
+    rows = ServeConfig().cache_capacity // STORE_CACHE_DIVISOR
+    out, launches = {}, None
+    for label, cap in (("uncapped", None), ("capped", rows)):
+        engine = ServeEngine(ServeConfig(backbone="sage", device="cuda",
+                                         table_device_rows=cap), seed=0)
+        engine.process(stream[:4], window=8)          # warm-up, not counted
+        engine.reset_stats()
+        ops.reset_kernel_launches()
+        results = engine.process(stream, window=8)
+        torch.cuda.synchronize()
+        if cap is not None:
+            launches = ops.kernel_launches()
+        out[label] = (results, engine.stats.summary())
+        engine.close()
+    for a, b in zip(out["uncapped"][0], out["capped"][0]):
+        if not (a.pred.tobytes() == b.pred.tobytes()):
+            raise AssertionError(f"store (c): request {a.request_id}: "
+                                 f"{a.pred} != {b.pred}")
+    (_, full), (_, s) = out["uncapped"], out["capped"]
+    st = s["cache"]["store"]
+    if st["backend"] != "TieredStore":
+        raise AssertionError(f"store (c): {st}")
+    log(f"[store] (c) sage replay, {rows} of {s['cache']['capacity']} cache "
+        f"rows on the device: {len(out['capped'][0])} predictions bitwise "
+        f"the uncapped engine; p50 {s['latency_p50_ms']:.6f} ms, p99 "
+        f"{s['latency_p99_ms']:.6f} ms (uncapped {full['latency_p50_ms']:.6f}"
+        f" / {full['latency_p99_ms']:.6f}); cache hit rate "
+        f"{s['cache']['hit_rate']:.4f}; store {store_line(st)}")
+    return launches, {"device_rows": rows,
+                      "latency_p50_ms": s["latency_p50_ms"],
+                      "latency_p99_ms": s["latency_p99_ms"],
+                      "uncapped_latency_p50_ms": full["latency_p50_ms"],
+                      "uncapped_latency_p99_ms": full["latency_p99_ms"],
+                      "cache_hit_rate": s["cache"]["hit_rate"], "store": st}
+
+
+def phase_store_dist(torch, uncapped):
+    """(d) train_dist ring / int8 with --table-device-rows 16 on 4 shard
+    threads: per-epoch losses bitwise the uncapped ring / int8 run's
+    (``uncapped``, phase_dist's summary), the exchange bytes a step the
+    model's.  Returns its kernel launches (from 0) and a summary."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_dist import run
+
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    t0 = time.perf_counter()
+    r = run(dist_args("ring", "int8", 0.0, "--table-device-rows",
+                      str(STORE_DIST_ROWS)), log=lambda *a, **k: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    st = r.store_stats
+    per_epoch = r.train_steps // len(r.epoch_losses)
+    step_bytes = [b / per_epoch for b in r.epoch_exchange_bytes]
+    if r.epoch_losses != uncapped["epoch_losses"] \
+            or r.train_metric != uncapped["train_metric"]:
+        raise AssertionError(f"store (d): capped {r.epoch_losses} "
+                             f"{r.train_metric} != uncapped "
+                             f"{uncapped['epoch_losses']} "
+                             f"{uncapped['train_metric']}")
+    if any(b != r.step_bytes_model for b in step_bytes):
+        raise AssertionError(f"store (d): {step_bytes} bytes a step, model "
+                             f"{r.step_bytes_model}")
+    if st["backend"] != "TieredStore" or st["evictions"] <= 0:
+        raise AssertionError(f"store (d): the cap did not spill: {st}")
+    log(f"[store] (d) ring / int8, {DIST_SHARDS} shards, "
+        f"--table-device-rows {STORE_DIST_ROWS} ({st['device_rows']} of "
+        f"{st['n_rows']} rows on the device): per-epoch losses and train "
+        f"metric bitwise the uncapped run, exch {step_bytes[-1]:.1f} B a "
+        f"step a shard = the model; {r.ms_per_iter:.6f} ms/iter (uncapped "
+        f"{uncapped['ms_per_iter']:.6f}), {seconds:.3f} s; {store_line(st)};"
+        f" launches {launched(launches)}")
+    return launches, {"ms_per_iter": r.ms_per_iter,
+                      "uncapped_ms_per_iter": uncapped["ms_per_iter"],
+                      "epoch_losses": r.epoch_losses,
+                      "exch_bytes_per_step_per_shard": step_bytes[-1],
+                      "seconds": seconds, "store": st,
+                      "launches": launched(launches)}
+
+
+def phase_store_migration(torch, dev):
+    """(e) migrations at a table size users hold: MIGRATION_TABLE in a
+    TieredStore with 10% of the rows on the card (host tier pinned).
+    For batches of 8, 64 and 1,024 rows, none resident, each evicting as
+    many: begin + commit to a synchronised card, and the write-back's
+    landing in the host tier after it, as GB/s of the rows' (emb, age,
+    init) bytes; then MIGRATION_STEPS random batches with in-place writes
+    through it and through a DeviceStore: the snapshots bitwise equal."""
+    import numpy as np
+
+    from repro_torch.core import embedding_table as tbl
+    from repro_torch.store import DeviceStore, TieredStore
+
+    n, J, d = MIGRATION_TABLE
+    C = n // 10
+    t0 = time.perf_counter()
+    store = TieredStore(n, J, d, device_rows=C, device=dev)
+    made_s = time.perf_counter() - t0
+    table = store.init_device_table()
+    host_gb = store.host_tier_bytes() / 1e9
+    table, _ = store.prepare(table, np.arange(C))       # fill the device tier
+    store.flush_writebacks()
+    torch.cuda.synchronize()
+    nxt, timings = C, {}
+    for b in MIGRATION_BATCHES:
+        begin, begin_commit, landing = [], [], []
+        for _ in range(MIGRATION_REPEATS):
+            ids = np.arange(nxt, nxt + b) % n
+            nxt += b
+            t0 = time.perf_counter()
+            prep = store.begin(ids)
+            torch.cuda.synchronize()
+            tb = time.perf_counter()
+            table = store.commit(table, prep)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            store.flush_writebacks()
+            t2 = time.perf_counter()
+            if prep.n_up != b or prep.n_ev != b:
+                raise AssertionError(f"store (e): {prep.n_up} faults, "
+                                     f"{prep.n_ev} evictions for {b} rows")
+            begin.append((tb - t0) * 1e3)
+            begin_commit.append((t1 - t0) * 1e3)
+            landing.append((t2 - t0) * 1e3)
+        mb, ml = statistics.median(begin_commit), statistics.median(landing)
+        moved = b * store.row_bytes
+        timings[b] = {"begin_ms": statistics.median(begin),
+                      "begin_commit_ms": mb, "landed_ms": ml,
+                      "h2d_gb_s": moved / mb / 1e6,
+                      "d2h_gb_s": moved / ml / 1e6,
+                      "bytes_each_way": moved}
+        log(f"[store] (e) {b} misses + {b} evictions ({moved} B each way): "
+            f"begin {timings[b]['begin_ms']:.6f} ms (its copies synced), "
+            f"begin + commit {mb:.6f} ms ({timings[b]['h2d_gb_s']:.4f} GB/s "
+            f"host -> device), write-back landed {ml:.6f} ms after begin "
+            f"({timings[b]['d2h_gb_s']:.4f} GB/s device -> host); median of "
+            f"{MIGRATION_REPEATS}")
+    store.close()
+
+    # the bitwise check: the same random batches and in-place writes
+    # through a fresh TieredStore and a DeviceStore
+    rng = np.random.default_rng(0)
+    tiered = TieredStore(n, J, d, device_rows=C, device=dev)
+    dense = DeviceStore(n, J, d, device=dev)
+    t_tier, t_dense = tiered.init_device_table(), dense.init_device_table()
+    hot = rng.choice(n, 4096, replace=False)
+    t0 = time.perf_counter()
+    for t in range(MIGRATION_STEPS):
+        ids = np.unique(np.concatenate([rng.choice(hot, 256),
+                                        rng.integers(0, n, 768)]))
+        seg = torch.from_numpy(rng.integers(0, J, (len(ids), 1))).to(dev)
+        vals = torch.randn(len(ids), 1, d, device=dev)
+        for st, tb in ((tiered, t_tier), (dense, t_dense)):
+            tb, slots = st.prepare(tb, ids, step=t)
+            tbl.update_sampled(tb, torch.from_numpy(
+                slots.astype(np.int64)).to(dev), seg, vals, t)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    if not tables_equal(torch, tiered.snapshot(t_tier),
+                        dense.snapshot(t_dense)):
+        raise AssertionError("store (e): the tiered snapshot differs from "
+                             "the DeviceStore's")
+    st = tiered.stats()
+    tiered.close()
+    log(f"[store] (e) {n} x {J} x {d} f32, host tier {host_gb:.4f} GB "
+        f"pinned (made in {made_s:.3f} s), {C} rows ({C * store.row_bytes} "
+        f"B) on the card: after {MIGRATION_STEPS} random batches "
+        f"({drive_s:.3f} s) the snapshot is bitwise the DeviceStore's; "
+        f"{store_line(st)}")
+    return {"table": MIGRATION_TABLE, "device_rows": C,
+            "host_tier_gb": host_gb, "host_tier_made_s": made_s,
+            "batches": timings, "random_steps": MIGRATION_STEPS,
+            "random_steps_s": drive_s, "store": st}
+
+
 def phase_dist_profile(torch, n_steps=5):
     """Where a distributed step's time goes (ring / int8, 4 shards):
     torch.profiler over ``n_steps`` kernel-path steps after 3 warm-up
@@ -1190,7 +1549,8 @@ def phase_dist_profile(torch, n_steps=5):
 
     s = setup(dist_args("ring", "int8", 0.0))
     gens = [epoch_generator(0, 0) for _ in range(DIST_SHARDS)]
-    batches = [s.put(_assemble(s.ds, ids))
+    # the device-resident store: routing is the identity, commit a no-op
+    batches = [s.put(_assemble(s.ds, ids))[1]
                for ids in s.train_scheds[0][:3 + n_steps]]
     states = s.states
     for b in batches[:3]:
@@ -1243,7 +1603,7 @@ def phase_dist_scaling(torch, n_steps=5):
                              (4, 1e-4)):
         s = setup(dist_args("ring", "int8", 0.0, shards=shards))
         gens = [epoch_generator(0, 0) for _ in range(shards)]
-        batches = [s.put(_assemble(s.ds, ids))
+        batches = [s.put(_assemble(s.ds, ids))[1]    # identity routing
                    for ids in s.train_scheds[0][:3 + n_steps]]
         states = s.states
         sys.setswitchinterval(interval)
@@ -1785,6 +2145,15 @@ def main() -> int:
         dist.append(summary)
     f32_losses = phase_dist_f32_strategies(torch)
 
+    store = {}
+    for part, phase in (("training", lambda: phase_store_training(torch)),
+                        ("serving", lambda: phase_store_serving(torch)),
+                        ("dist", lambda: phase_store_dist(torch, dist[0]))):
+        launches, store[part] = phase()
+        for k, v in launches.items():
+            main_launches[k] = main_launches.get(k, 0) + v
+    store["migration"] = phase_store_migration(torch, dev)
+
     profile = phase_profile(torch, dev)
     dist_profile = phase_dist_profile(torch)
     dist_scaling = phase_dist_scaling(torch)
@@ -1828,14 +2197,15 @@ def main() -> int:
             raise AssertionError(f"{k['name']}: no launch on the main path")
     log(json.dumps({"serving": serving, "training": training,
                     "profile": profile, "dist": dist,
-                    "dist_f32_epoch_losses": f32_losses,
+                    "dist_f32_epoch_losses": f32_losses, "store": store,
                     "dist_profile": dist_profile,
                     "dist_scaling_ms": dist_scaling, "seq_serve": seq_serve,
                     "card": smi,
                     "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -10,7 +10,9 @@ in its own thread (``LocalGroup``) or process (``ProcessGroup``), with:
     all replicas are bitwise equal;
   * the historical table ROW-SHARDED: shard k holds rows [k·R, (k+1)·R)
     as its own (R, J, d) tensors, reached through the context's exchange
-    strategy (``dist/exchange.py``);
+    strategy (``dist/exchange.py``); with a device-row cap each shard's
+    table holds C rows of a ``TieredStore`` split over the shards, and the
+    step addresses slot ids (``DistContext.table_rows`` = C);
   * the batch split on its leading dim, each row carrying its global
     position ``batch_pos``, so every row draws what the single-device
     step draws for it (``core/segment.py::per_row_keys``);
@@ -36,7 +38,8 @@ from repro_torch.core import gst as G
 from repro_torch.dist import table as dtbl
 from repro_torch.dist.exchange import (EXCHANGES, PAYLOAD_DTYPES, Exchange,
                                        make_exchange)
-from repro_torch.store import DeviceStore, EmbeddingStore
+from repro_torch.store import (DeviceStore, EmbeddingStore, TieredStore,
+                               device_rows_per_shard)
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +54,11 @@ class DistContext:
     num_shards: int
     n_rows: int                # unpadded historical-table rows
     rows_per_shard: int
+    # device-resident rows PER SHARD when the table is tiered (store/),
+    # None = the whole table on the device.  The exchange routes by
+    # ``id // table_rows``: under a tiered store the ids the step sees are
+    # device-row ("slot") ids, whose owner arithmetic uses C
+    device_rows_per_shard: Optional[int] = None
     # table-exchange strategy: "ring", "alltoall" or "bucketed" ("auto" is
     # resolved by the launcher with select_exchange before make_context)
     exchange: str = "ring"
@@ -66,14 +74,23 @@ class DistContext:
         return self.group.device
 
     @property
+    def table_rows(self) -> int:
+        """Rows per shard OF THE TABLE THE STEP SEES (exchange owner
+        arithmetic)."""
+        return self.device_rows_per_shard or self.rows_per_shard
+
+    @property
     def local_ranks(self) -> List[int]:
         return self.group.local_ranks
 
 
-def make_context(group, n_rows: int, *, exchange: str = "ring",
+def make_context(group, n_rows: int, device_rows: Optional[int] = None, *,
+                 exchange: str = "ring",
                  exchange_cap: Optional[int] = None,
                  payload_dtype: str = "f32",
                  use_kernels: bool = True) -> DistContext:
+    """``device_rows``: the total device-resident row cap (the
+    --table-device-rows knob); None keeps the whole table on the device."""
     if exchange not in EXCHANGES:
         raise ValueError(
             f"unknown exchange strategy {exchange!r}: expected one of "
@@ -83,23 +100,38 @@ def make_context(group, n_rows: int, *, exchange: str = "ring",
         raise ValueError(f"unknown payload dtype {payload_dtype!r}: expected "
                          f"one of {PAYLOAD_DTYPES}")
     d = group.size
+    per_shard = None if device_rows is None else \
+        device_rows_per_shard(n_rows, d, device_rows)
     return DistContext(group=group, num_shards=d, n_rows=n_rows,
                        rows_per_shard=dtbl.rows_per_shard(n_rows, d),
+                       device_rows_per_shard=per_shard,
                        exchange=exchange, exchange_cap=exchange_cap,
                        payload_dtype=payload_dtype, use_kernels=use_kernels)
 
 
 def make_dist_store(ctx: DistContext, j_max: int, d_h: int,
-                    dtype=torch.float32) -> EmbeddingStore:
-    """The context's embedding store: the device-resident backend, split
-    over the shards (the tiered store is not ported yet)."""
-    return DeviceStore(ctx.n_rows, j_max, d_h, num_shards=ctx.num_shards,
-                       dtype=dtype, device=ctx.device)
+                    dtype=torch.float32, evict_policy: str = "lru",
+                    wb_threshold: float = 0.0,
+                    stale_forecast: bool = False) -> EmbeddingStore:
+    """The context's embedding store, split over the shards: a
+    ``TieredStore`` of C device rows a shard when the context carries a
+    device-row cap (its eviction policy, delta-gated write-back threshold
+    and stale-row forecaster as given), the device-resident backend
+    otherwise.  Its local shards are this process's."""
+    if ctx.device_rows_per_shard is None:
+        return DeviceStore(ctx.n_rows, j_max, d_h, num_shards=ctx.num_shards,
+                           dtype=dtype, device=ctx.device)
+    return TieredStore(ctx.n_rows, j_max, d_h,
+                       device_rows=ctx.device_rows_per_shard * ctx.num_shards,
+                       num_shards=ctx.num_shards, dtype=dtype,
+                       device=ctx.device, local_shards=ctx.local_ranks,
+                       evict_policy=evict_policy, wb_threshold=wb_threshold,
+                       stale_forecast=stale_forecast)
 
 
 def make_shard_exchange(ctx: DistContext, comm) -> Exchange:
     return make_exchange(ctx.exchange, comm=comm, num_shards=ctx.num_shards,
-                         rows=ctx.rows_per_shard, cap=ctx.exchange_cap,
+                         rows=ctx.table_rows, cap=ctx.exchange_cap,
                          payload_dtype=ctx.payload_dtype,
                          use_kernels=ctx.use_kernels)
 
@@ -124,7 +156,9 @@ def device_state(ctx: DistContext, state: G.TrainState,
                  store: Optional[EmbeddingStore] = None) -> List[G.TrainState]:
     """One replica of everything but the table for each shard this process
     holds, with the shard's rows of ``state.table`` (the full dense table);
-    with a ``store`` the store seeds the shards' tables."""
+    with a ``store`` the store seeds the shards' tables from it (a tiered
+    store takes the rows into its host tier and starts each shard's C-row
+    device tier empty)."""
     if store is not None:
         tables = store.restore(state.table, ctx.local_ranks)
     else:
@@ -134,11 +168,15 @@ def device_state(ctx: DistContext, state: G.TrainState,
     return [replicate(state, t, ctx.device) for t in tables]
 
 
-def host_table(ctx: DistContext, states: List[G.TrainState]):
+def host_table(ctx: DistContext, states: List[G.TrainState],
+               store: Optional[EmbeddingStore] = None):
     """The full table from every shard's rows, on the host, padding
-    stripped (every shard must be in this process)."""
+    stripped (every shard must be in this process); with a ``store``, its
+    snapshot of the shards' tables (both tiers of a tiered store)."""
     if len(states) != ctx.num_shards:
         raise ValueError("host_table needs every shard in this process")
+    if store is not None:
+        return store.snapshot([s.table for s in states])
     return dtbl.join_tables([tuple(t.cpu() for t in s.table) for s in states],
                             ctx.n_rows)
 

@@ -10,10 +10,12 @@ The data split, the batch order and the epoch structure are the
 reference's, from the same numpy generators.  The step's random draws come
 from a ``torch.Generator`` made from ``seed`` and the epoch, on the CPU (so
 the draws do not depend on the device); ``draws`` replaces them, which is
-how the parity tests replay JAX's ``key(epoch)`` stream.  The tiered store
-(``table_device_rows``, ``wb_threshold``, ``stale_forecast``) lands with
-the store slice; the staleness probe and the ``obs`` ticks with the
-telemetry slice.
+how the parity tests replay JAX's ``key(epoch)`` stream.  The historical
+table lives behind an embedding store: the whole table on the device
+(``DeviceStore``), or with ``table_device_rows`` a bounded set of hot rows
+over a host-RAM tier (``TieredStore``), bitwise the same run either way
+while the write-back gate and the forecaster are off.  The staleness probe
+and the ``obs`` ticks land with the telemetry slice.
 """
 from __future__ import annotations
 
@@ -25,13 +27,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import embedding_table as tbl
 from repro_torch.core import gst as G
 from repro_torch.graphs import batching as Bt
 from repro_torch.graphs import data as D
 from repro_torch.graphs.gnn import GNNConfig, gnn_init, make_encode_fn
 from repro_torch.models.common import load_jax_params
 from repro_torch.optim import make_optimizer
-from repro_torch.store import DeviceStore
+from repro_torch.store import DeviceStore, TieredStore
 
 
 @dataclass
@@ -47,6 +50,9 @@ class ExperimentResult:
     store_stats: Optional[Dict] = None   # residency counters (store/)
     train_steps: int = 0         # train steps taken (finetune steps apart)
     finetune_steps: int = 0
+    epoch_losses: Optional[list] = None   # mean train loss of each epoch
+    table: Optional[tbl.EmbeddingTable] = None  # the final historical
+                                 # table on the host (store.snapshot)
 
 
 def to_batch(seg_inputs, seg_valid, ids, labels, device) -> G.GSTBatch:
@@ -119,6 +125,7 @@ def run_experiment(
     use_kernels: bool = True,
     device="cuda",
     table_device_rows: Optional[int] = None,
+    evict_policy: str = "lru",
     wb_threshold: float = 0.0,
     sed_age_weighting: float = 0.0,   # λ of the stale-branch exp(-λ·age)
                                       # decay in Eq. 1 (0 = off)
@@ -136,11 +143,13 @@ def run_experiment(
     ``weights``: optional (backbone tree, head tree) of numpy arrays in the
     JAX package's layout, loaded with ``load_jax_params`` in place of the
     weights drawn from ``seed``.
+
+    ``table_device_rows``: cap the table's device-resident rows (at least
+    one batch) over a host tier, with ``evict_policy`` ("lru" or
+    "stale-first"), the delta-gated write-back ``wb_threshold`` (0 = off)
+    and ``stale_forecast`` (extrapolate stale rows on fault-in); the last
+    two only act on a capped table, where rows go stale in the host tier.
     """
-    if table_device_rows or wb_threshold > 0 or stale_forecast:
-        raise NotImplementedError(
-            "table_device_rows, wb_threshold and stale_forecast need the "
-            "TieredStore, which lands with the store slice")
     dev = resolve_device(device)
     var = G.VARIANTS[variant]
     track, ds, ds_test = load_datasets(dataset, n_graphs, max_seg_nodes,
@@ -159,7 +168,13 @@ def run_experiment(
         load_jax_params(head, weights[1])
     bb, head = bb.to(dev), head.to(dev)
     opt = make_optimizer("adam", lr=lr)
-    store = DeviceStore(ds.n, ds.j_max, hidden, device=dev)
+    store = (TieredStore(ds.n, ds.j_max, hidden,
+                         device_rows=max(table_device_rows, batch_size),
+                         device=dev, evict_policy=evict_policy,
+                         wb_threshold=wb_threshold,
+                         stale_forecast=stale_forecast)
+             if table_device_rows else
+             DeviceStore(ds.n, ds.j_max, hidden, device=dev))
     state = G.TrainState(bb, head, None, store.init_device_table(), 0)
     state = state._replace(opt_state=opt.init(G.train_params(state)))
 
@@ -180,21 +195,26 @@ def run_experiment(
             ws.append(tup[1].shape[0])
         return float(np.average(ms, weights=ws)) if ms else float("nan")
 
-    def route(tup):
+    def route(tup, step=None):
         """Map the batch's graph ids onto device rows through the store
-        (the identity under the DeviceStore)."""
-        _, slots = store.prepare(state.table, tup[2])
+        (migrating rows between the tiers; the identity under the
+        DeviceStore).  ``step``: the train step about to WRITE these rows,
+        the stale-first eviction's hint (None on read-only paths)."""
+        nonlocal state
+        table, slots = store.prepare(state.table, tup[2], step=step)
+        state = state._replace(table=table)
         return torch.from_numpy(slots.astype(np.int64)).to(dev)
 
-    def routed(tup):
-        return to_batch(*tup, dev)._replace(graph_ids=route(tup))
+    def routed(tup, step=None):
+        return to_batch(*tup, dev)._replace(graph_ids=route(tup, step))
 
     try:
         iter_times = []
         brng = np.random.default_rng(seed + 3)
         last_train = 0.0
+        epoch_losses = []
         for epoch in range(epochs):
-            ep_metrics = []
+            ep_metrics, ep_losses = [], []
             egen = epoch_generator(seed, epoch)
             for tup in Bt.batch_iterator(ds, batch_size, rng=brng):
                 drawn = (None if draws is None
@@ -203,12 +223,18 @@ def run_experiment(
                 # the timed region ends with a device sync: eagerly, the
                 # loss is ready before the backward and the update have run
                 t0 = time.perf_counter()
-                batch = batch._replace(graph_ids=route(tup))
+                # the timed region includes the tier migration: it is part
+                # of a capped table's step cost
+                batch = batch._replace(graph_ids=route(tup, state.step))
                 state, m = step(state, batch, egen, drawn)
                 _sync(dev)
                 iter_times.append(time.perf_counter() - t0)
                 ep_metrics.append(float(m["metric"]))
+                ep_losses.append(float(m["loss"]))
             last_train = float(np.mean(ep_metrics))
+            epoch_losses.append(float(np.mean(ep_losses)))
+            # resident rows rewritten this epoch re-report their device
+            # ages to the eviction bookkeeping (no-op under plain LRU)
             store.refresh_ages(state.table)
         train_steps = state.step
 
@@ -219,7 +245,8 @@ def run_experiment(
         finetune_steps = 0
         if var.finetune_head:
             for tup in Bt.batch_iterator(ds, batch_size, rng=brng, shuffle=False):
-                state = refresh(state, routed(tup))
+                # refresh WRITES every requested row at the current step
+                state = refresh(state, routed(tup, state.step))
             ft_opt = make_optimizer("adam", lr=lr * 0.5)
             state = state._replace(opt_state=ft_opt.init(
                 list(state.head.parameters())))
@@ -235,6 +262,7 @@ def run_experiment(
 
         store.flush_writebacks()
         store_stats = store.stats()
+        table = store.snapshot(state.table)
     finally:
         store.close()
     # skip the first few warm-up iterations in the timing
@@ -245,4 +273,5 @@ def run_experiment(
         test_metric=evaluate(ds_test, state),
         ms_per_iter=ms_per_iter, use_kernels=use_kernels,
         finetuned=finetuned, store_stats=store_stats,
-        train_steps=train_steps, finetune_steps=finetune_steps)
+        train_steps=train_steps, finetune_steps=finetune_steps,
+        epoch_losses=epoch_losses, table=table)

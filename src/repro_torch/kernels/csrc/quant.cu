@@ -16,6 +16,10 @@
 // is divided by 1 and packs 0 where x is NaN; a row holding +-inf has scale
 // inf and packs 0 everywhere (x / inf = +-0, inf / inf = NaN).  A NaN reaches
 // the int8 cast unclamped and the cast makes it 0, as XLA's does.
+// Subnormals as XLA's arithmetic on the CPU treats them: the bf16 paths
+// are bit operations and keep them; the int8 paths read a subnormal x or
+// scale as a zero of its sign and flush a subnormal scale or quotient to
+// one (explicit selects, flush_subnormal).
 //
 // Replaces the TPU kernels of src/repro/kernels/quant.py: _pack_bf16_kernel
 // (:139), _pack_bf16_det_kernel (:143), _pack_int8_kernel (:147),
@@ -53,7 +57,7 @@
 // correctly rounded quotient), __fmul_rn for the scale and the unpack,
 // rintf or the 1.5 * 2^23 addition for round to nearest even,
 // cvt.rn.bf16x2.f32 for the bf16 pack; built without --use_fast_math, so
-// denormals are kept.
+// denormals are kept wherever no select flushes them.
 //
 // What bounds it: bytes.  Per element it reads 4 B (+4 B of bits on the
 // write path) and writes 1-2 B (pack) or reads 1-2 B and writes 4 B
@@ -86,6 +90,14 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
+}
+
+// A subnormal becomes a zero of its sign, by an explicit select: the
+// reference's int8 arithmetic is XLA's on the CPU, which reads subnormal
+// inputs as zero and flushes subnormal results (DAZ and FTZ).  The file is
+// not built with -ftz=true, since its bf16 conversions keep subnormals.
+__device__ __forceinline__ float flush_subnormal(float a) {
+  return fabsf(a) < FLT_MIN ? copysignf(0.f, a) : a;
 }
 
 __device__ __forceinline__ float warp_max(float m) {
@@ -159,6 +171,8 @@ pack_int8_stochastic_kernel(const float* __restrict__ x, const uint32_t* __restr
   const int n_warps = blockDim.x >> 5;
 
   float m = 0.f;
+  // a subnormal x counts as 0 in the amax too, but only a row of nothing
+  // else could notice, and its scale is flushed below
   for (int i = threadIdx.x; i < N; i += blockDim.x) m = nan_max(m, fabsf(x[base + i]));
   m = warp_max(m);
   if (lane == 0) partial[warp] = m;
@@ -170,12 +184,13 @@ pack_int8_stochastic_kernel(const float* __restrict__ x, const uint32_t* __restr
   }
   __syncthreads();
 
-  float s = __fmul_rn(partial[0], 1.0f / 127.0f);   // f32(1/127), folded
+  float s = flush_subnormal(__fmul_rn(partial[0], 1.0f / 127.0f));   // f32(1/127), folded
   if (s != s) s = __uint_as_float(kF32QNaN);
   if (threadIdx.x == 0) scale[blockIdx.x] = s;
   const float div = s > 0.f ? s : 1.f;
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const float v = __fdiv_rn(x[base + i], div);
+    // a subnormal quotient matters: at bits >> 8 == 0 it would round up to 1
+    const float v = flush_subnormal(__fdiv_rn(flush_subnormal(x[base + i]), div));
     const float lo = floorf(v);
     const float u = __fmul_rn(static_cast<float>(bits[base + i] >> 8), 0x1p-24f);
     float q = lo + (u < v - lo ? 1.f : 0.f);
@@ -215,7 +230,9 @@ __device__ __forceinline__ uint32_t int8x4_nearest(float4 v, float d, float r) {
 // the clamp to [-127, 127] that keeps a NaN, and cvt.rzi (NaN -> 0), as
 // XLA's cast does.
 __device__ __forceinline__ int8_t int8_nearest_ieee(float x, float d) {
-  const float q = nan_min(nan_max(rintf(__fdiv_rn(x, d)), -127.f), 127.f);
+  // a subnormal x reads as ±0: at a scale under 2^-100 its quotient can
+  // reach 1 (a subnormal quotient rounds to 0 either way)
+  const float q = nan_min(nan_max(rintf(__fdiv_rn(flush_subnormal(x), d)), -127.f), 127.f);
   return static_cast<int8_t>(__float2int_rz(q));
 }
 
@@ -290,7 +307,10 @@ pack_int8_det_kernel(const float* __restrict__ x, int8_t* __restrict__ out,
   }
   if (!live) return;
 
-  float s = __fmul_rn(m, 1.0f / 127.0f);              // f32(1/127), folded
+  // a subnormal scale is flushed to 0 (the row is then divided by 1); at a
+  // scale in [2^-100, FLT_MAX], |x / s| < 2^-26 for a subnormal x, which
+  // rounds to 0 whether x reads as 0 or not, so the fast path needs nothing
+  float s = flush_subnormal(__fmul_rn(m, 1.0f / 127.0f));   // f32(1/127), folded
   if (s != s) s = __uint_as_float(kF32QNaN);
   if (t == 0) scale[row] = s;
   const float d = s > 0.f ? s : 1.f;
@@ -329,6 +349,11 @@ __device__ __forceinline__ float unpack_int8(int8_t q, float s) {
   return __fmul_rn(static_cast<float>(q), s);
 }
 
+// a row's scale, a subnormal one read as a zero of its sign (-3 x +0 = -0)
+__device__ __forceinline__ float row_scale(const float* scale, long long row) {
+  return flush_subnormal(scale[row]);
+}
+
 // A flat pass over the R*N buffer from v + head (v's first 4-byte boundary)
 // on: a warp takes 128 G elements, lane l the G words at 4 l + 128 k
 // (k < G), so each load instruction reads 128 contiguous bytes and each
@@ -357,7 +382,7 @@ unpack_int8_kernel(const int8_t* __restrict__ v, const float* __restrict__ scale
 #pragma unroll
     for (int k = 0; k < G; ++k) {
       float f[4];
-      float s = scale[row];
+      float s = row_scale(scale, row);
       if (col + 4 <= N) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) f[i] = unpack_int8(static_cast<int8_t>(w[k] >> (8 * i)), s);
@@ -369,7 +394,7 @@ unpack_int8_kernel(const int8_t* __restrict__ v, const float* __restrict__ scale
           f[i] = unpack_int8(static_cast<int8_t>(w[k] >> (8 * i)), s);
           if (++cc == N && i < 3) {
             cc = 0;
-            s = scale[++rr];
+            s = row_scale(scale, ++rr);
           }
         }
       }
@@ -383,9 +408,9 @@ unpack_int8_kernel(const int8_t* __restrict__ v, const float* __restrict__ scale
       for (col += 128; col >= N; col -= N) ++row;
     }
   }
-  for (long long j = t; j < head; j += stride) out[j] = unpack_int8(v[j], scale[j / N]);
+  for (long long j = t; j < head; j += stride) out[j] = unpack_int8(v[j], row_scale(scale, j / N));
   for (long long j = head + spans * (128 * G) + t; j < n; j += stride)
-    out[j] = unpack_int8(v[j], scale[j / N]);
+    out[j] = unpack_int8(v[j], row_scale(scale, j / N));
 }
 
 // A warp per 32 elements of the row, at most kMaxThreads threads.

@@ -172,6 +172,19 @@ def _uniform01(bits: torch.Tensor) -> torch.Tensor:
     return (_u32(bits) >> 8).to(torch.float32) * _TWO_M24
 
 
+_F32_TINY = torch.finfo(torch.float32).tiny     # FLT_MIN, 2^-126
+
+
+def _flush_subnormal(t: torch.Tensor) -> torch.Tensor:
+    """A subnormal of t becomes a zero of its sign: XLA's f32 arithmetic on
+    the CPU reads subnormal inputs as zero and flushes subnormal results
+    (DAZ and FTZ), which the int8 wire format's arithmetic inherits.  An
+    explicit select, so nothing global (``torch.set_flush_denormal``)
+    changes."""
+    return torch.where(t.abs() < _F32_TINY, torch.copysign(
+        torch.zeros_like(t), t), t)
+
+
 def _int8_quantize(x: torch.Tensor, bits=None):
     """x (r, n) f32 -> (values (r, n) int8, scale (r, 1) f32).  ``bits``
     None rounds to nearest even (read path), else stochastically.
@@ -181,11 +194,17 @@ def _int8_quantize(x: torch.Tensor, bits=None):
     the device's arithmetic would give another pattern on CUDA), is
     divided by 1 and packs 0 where x is NaN; a row holding ±inf has scale
     inf and packs 0 everywhere (x / inf is ±0, inf / inf NaN).  The NaN to
-    0 of the cast is explicit, not left to ``Tensor.to``."""
+    0 of the cast is explicit, not left to ``Tensor.to``.
+
+    Subnormals as XLA treats them on the CPU: a subnormal x reads as ±0,
+    and a subnormal scale or quotient is flushed to ±0 (a row whose scale
+    falls under FLT_MIN is divided by 1 and packs to 0s)."""
+    x = _flush_subnormal(x)
     amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
-    scale = amax * _INV127
+    scale = _flush_subnormal(amax * _INV127)
     scale = torch.where(torch.isnan(scale), _F32_QNAN, scale)
-    v = x / torch.where(scale > 0, scale, torch.ones_like(scale))
+    v = _flush_subnormal(
+        x / torch.where(scale > 0, scale, torch.ones_like(scale)))
     if bits is None:
         q = torch.round(v)                       # half to even, as jnp.round
     else:
@@ -214,12 +233,15 @@ def quantize_rows_ref(x: torch.Tensor, dtype: str, rand_bits=None):
 
 
 def dequantize_rows_ref(parts, dtype: str) -> torch.Tensor:
-    """Inverse of ``quantize_rows_ref``: wire parts -> f32 (R, ...)."""
+    """Inverse of ``quantize_rows_ref``: wire parts -> f32 (R, ...).  An
+    int8 row's subnormal scale reads as a zero of its sign, as XLA's
+    multiply on the CPU reads it (5 and -3 at scale 1e-40 give 0 and -0)."""
     if dtype == "bf16":
         (v,) = parts
         return v.to(torch.float32)
     if dtype == "int8":
         v, scale = parts
+        scale = _flush_subnormal(scale)
         return v.to(torch.float32) * scale.reshape((-1,) + (1,) * (v.dim() - 1))
     raise ValueError(f"dequantize dtype {dtype!r} not in ('bf16', 'int8')")
 

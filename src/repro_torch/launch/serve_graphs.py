@@ -10,8 +10,10 @@ latency, throughput, cross-request cache hit-rate, encode batches and
 kernel launches.  ``--check-parity`` verifies a sample of engine
 predictions against the one-shot batch encoder and exits nonzero on
 mismatch; ``--min-hit-rate`` turns the hit-rate into an assertion.
-``--metrics``, ``--trace-out`` and ``--mem-probe`` land with the telemetry
-slice; the tiered-store flags with the store slice.
+``--table-device-rows`` caps the cache's device-resident rows over a
+host-RAM tier (``--evict-policy``, ``--wb-threshold`` and
+``--stale-forecast`` act on that tier).  ``--metrics``, ``--trace-out``
+and ``--mem-probe`` land with the telemetry slice.
 """
 from __future__ import annotations
 
@@ -30,6 +32,10 @@ def build_engine(args):
         max_seg_nodes=args.max_seg_nodes,
         cache_capacity=args.cache_capacity,
         cache_enabled=not args.no_cache,
+        table_device_rows=args.table_device_rows,
+        evict_policy=args.evict_policy,
+        wb_threshold=args.wb_threshold,
+        stale_forecast=args.stale_forecast,
         stream_chunk=args.stream_chunk,
         device=args.device,
     )
@@ -80,6 +86,23 @@ def main(argv=None):
                          "kernel on the card (gps always runs plain torch)")
     ap.add_argument("--no-cache", action="store_true")
     ap.add_argument("--cache-capacity", type=int, default=512)
+    ap.add_argument("--table-device-rows", type=int, default=None,
+                    help="cap device-resident cache rows; cold entries "
+                         "spill to a host-RAM tier and fault back on hit "
+                         "instead of being re-encoded (store/tiered.py). "
+                         "Default: all cache rows on the device")
+    ap.add_argument("--evict-policy", default="lru",
+                    choices=["lru", "stale-first"],
+                    help="device-tier eviction under --table-device-rows: "
+                         "LRU or age-aware stale-first")
+    ap.add_argument("--wb-threshold", type=float, default=0.0,
+                    help="delta-gated write-back under --table-device-rows: "
+                         "skip the host-tier emb write of spilled rows that "
+                         "moved less than this (max-abs) while resident. "
+                         "0 = gate off, bit-exact")
+    ap.add_argument("--stale-forecast", action="store_true",
+                    help="extrapolate stale host rows forward on fault-in "
+                         "under --table-device-rows (store/forecast.py)")
     ap.add_argument("--popularity", type=float, default=0.0,
                     help="repeat-request skew: P(graph) ∝ "
                          "times_served**popularity over distinct seen "
@@ -143,6 +166,12 @@ def _run(args, engine, stream):
               f"{c['size']}/{c['capacity']} slots, "
               f"{c['evictions']} evictions, "
               f"age mean/max {c['age_mean_steps']:.1f}/{c['age_max_steps']} steps")
+        st = c["store"]
+        print(f"  store             [{st['backend']}] device rows "
+              f"{st['occupancy']}/{st['device_rows']} "
+              f"(of {st['n_rows']} total), tier hit-rate "
+              f"{st['hit_rate']:.2f}, {st['evictions']} spills, "
+              f"{st['migration_bytes'] / 1024:.1f} KiB migrated")
 
     if args.check_parity:
         worst = check_parity(engine, stream[:3], args.parity_atol)

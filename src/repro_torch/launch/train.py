@@ -13,10 +13,11 @@ Counterpart of ``src/repro/launch/train.py`` (``--track graph``):
 Runs on the card (``--device cuda``, the default; it raises where no card
 is visible) unless ``--device cpu`` is given.  ``--lr`` does not reach the
 graph track, which trains at ``run_experiment``'s 5e-3: the reference's
-``train_graph`` passes no learning rate either.  The seq and lm tracks land
-with the sequence slice, ``--metrics``/``--trace-out`` with the telemetry
-slice, and the tiered-store flags parse here but raise
-``NotImplementedError`` until the store slice.
+``train_graph`` passes no learning rate either.  ``--table-device-rows``
+caps the historical table's device-resident rows over a host-RAM tier
+(``--evict-policy``, ``--wb-threshold`` and ``--stale-forecast`` act on
+that tier).  The seq and lm tracks land with the sequence slice,
+``--metrics``/``--trace-out`` with the telemetry slice.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ def train_graph(args):
         finetune_epochs=args.finetune_epochs, keep_prob=args.keep_prob,
         seed=args.seed, use_kernels=args.use_kernels, device=args.device,
         table_device_rows=args.table_device_rows,
+        evict_policy=args.evict_policy,
         wb_threshold=args.wb_threshold,
         sed_age_weighting=args.sed_age_weighting,
         stale_forecast=args.stale_forecast)
@@ -59,18 +61,24 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--keep-prob", type=float, default=0.5)
     ap.add_argument("--table-device-rows", type=int, default=None,
-                    help="cap device-resident historical-table rows "
-                         "(the store slice; raises until then)")
+                    help="cap device-resident historical-table rows; the "
+                         "rest live in a host-RAM tier (store/tiered.py). "
+                         "Default: the whole table on the device")
+    ap.add_argument("--evict-policy", default="lru",
+                    choices=["lru", "stale-first"],
+                    help="device-tier eviction under --table-device-rows: "
+                         "LRU or age-aware stale-first")
     ap.add_argument("--wb-threshold", type=float, default=0.0,
-                    help="delta-gated write-back under --table-device-rows "
-                         "(the store slice; raises until then)")
+                    help="delta-gated write-back under --table-device-rows: "
+                         "skip the host-tier emb write of evicted rows that "
+                         "moved less than this. 0 = off, bit-exact")
     ap.add_argument("--sed-age-weighting", type=float, default=0.0,
                     help="λ of the exp(-λ·age) staleness decay folded into "
                          "the stale branch of Eq.-1 η (use_sed+use_table "
                          "variants). 0 = off")
     ap.add_argument("--stale-forecast", action="store_true",
                     help="extrapolate stale host-tier rows on fault-in "
-                         "(the store slice; raises until then)")
+                         "under --table-device-rows (store/forecast.py)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lr", type=float, default=1e-3,
                     help="does not reach the graph track (as in the "

@@ -25,12 +25,18 @@ in the reference.  ``--use-kernels`` routes the SpMM, the SED pooling and
 the payload pack/unpack through the port's kernels (their plain versions
 on a CPU tensor).
 
+``--table-device-rows`` caps the table's device-resident rows (at least a
+batch a shard) over a host-RAM tier: a ``TieredStore`` split over the
+shards, each shard's table C rows, the exchange routing slot ids
+(``--evict-policy``, ``--wb-threshold`` and ``--stale-forecast`` act on
+that tier).  The feeder begins each batch's migration (host bookkeeping,
+staging copies) ahead of its step; the consumer commits it into the
+shards' tables right before the step.
+
 Each epoch prints its last loss, the feeder's host-blocked time and the
 exchange traffic one shard sent, from the comm's counters.  Not ported
 yet, and raising ``NotImplementedError``: ``--prefetch-lookups`` and
-``--patch-cap`` (the prefetch lane), ``--table-device-rows``,
-``--evict-policy``, ``--wb-threshold`` and ``--stale-forecast`` (the
-tiered store); the telemetry flags are not parsed.
+``--patch-cap`` (the prefetch lane); the telemetry flags are not parsed.
 """
 from __future__ import annotations
 
@@ -71,6 +77,7 @@ class DistResult:
     ms_per_iter: float
     step_bytes_model: int             # analytic exchange bytes a train step
     epoch_exchange_bytes: List[int]   # one shard's counted bytes an epoch
+    store_stats: Optional[dict] = None  # residency counters (store/)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -126,15 +133,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--patch-cap", type=int, default=None,
                     help="the prefetch lane's patch buckets (not ported yet)")
     ap.add_argument("--table-device-rows", type=int, default=None,
-                    help="the tiered store (not ported yet: raises)")
+                    help="cap the table's device-resident rows (total over "
+                         "the shards, at least shards x batch) over a "
+                         "host-RAM tier (store/tiered.py). Default: the "
+                         "whole table on the devices")
     ap.add_argument("--evict-policy", default="lru",
                     choices=["lru", "stale-first"],
-                    help="the tiered store (not ported yet: stale-first "
-                         "raises)")
+                    help="device-tier eviction under --table-device-rows: "
+                         "LRU or age-aware stale-first")
     ap.add_argument("--wb-threshold", type=float, default=0.0,
-                    help="the tiered store (not ported yet: > 0 raises)")
+                    help="delta-gated write-back under --table-device-rows: "
+                         "skip the host-tier emb write of evicted rows that "
+                         "moved less than this. 0 = off, bit-exact")
     ap.add_argument("--stale-forecast", action="store_true",
-                    help="the tiered store (not ported yet: raises)")
+                    help="extrapolate stale host-tier rows on fault-in "
+                         "under --table-device-rows (store/forecast.py)")
     return ap
 
 
@@ -144,12 +157,6 @@ def _not_ported(args) -> None:
             "--prefetch-lookups/--patch-cap need the prefetch lane "
             "(PrefetchLane, update_sampled_patch), which lands with the "
             "next slice of the port")
-    if (args.table_device_rows is not None or args.evict_policy != "lru"
-            or args.wb_threshold > 0 or args.stale_forecast):
-        raise NotImplementedError(
-            "--table-device-rows, --evict-policy, --wb-threshold and "
-            "--stale-forecast need the TieredStore, which lands with the "
-            "tiered-store slice of the port")
 
 
 def _make_group(args):
@@ -180,7 +187,8 @@ class DistSetup:
     spec: object            # serve/buckets.BucketSpec
     variant: G.GSTVariant
     enc: object             # the backbone's encode_fn
-    store: object           # store/base.DeviceStore, split over the shards
+    store: object           # store/: DeviceStore or TieredStore, split
+                            # over the shards
     states: list            # the local shards' TrainStates
     step: object            # dist/train.py train step
     eval_step: object
@@ -190,12 +198,30 @@ class DistSetup:
     eval_sched: list
     cap: Optional[int]
     xbytes: int
+    hint: int = 0           # the next train/refresh step's number
 
-    def put(self, b):
-        """A host batch -> its shards' device batches, the ids routed
-        through the store (the identity for the device-resident store)."""
-        prep = self.store.begin(np.asarray(b.graph_ids))
-        return DT.shard_batch(self.ctx, b._replace(graph_ids=prep.slots))
+    def put(self, b, step: Optional[int] = None):
+        """A host batch -> (its store migration, its shards' device
+        batches), the ids routed through the store (the identity for the
+        device-resident store).  ``step``: the step about to WRITE these
+        rows, the stale-first eviction's hint.  Safe on the feeder thread;
+        ``commit`` applies the migration."""
+        prep = self.store.begin(np.asarray(b.graph_ids), step=step)
+        return prep, DT.shard_batch(self.ctx,
+                                    b._replace(graph_ids=prep.slots))
+
+    def put_writing(self, b):
+        """``put`` for a train or refresh batch: the hint counts up."""
+        self.hint += 1
+        return self.put(b, step=self.hint - 1)
+
+    def commit(self, states, item):
+        """Apply an item of ``put`` to the shards' tables, in put order:
+        (states, the item's device batches)."""
+        prep, batches = item
+        tables = self.store.commit([st.table for st in states], prep)
+        return ([st._replace(table=t) for st, t in zip(states, tables)],
+                batches)
 
 
 def setup(args) -> DistSetup:
@@ -258,10 +284,18 @@ def setup(args) -> DistSetup:
                                        cap=cap,
                                        payload_dtype=args.payload_dtype)
     cap = cap if exchange == "bucketed" else None
-    ctx = DT.make_context(group, ds.n, exchange=exchange, exchange_cap=cap,
-                          payload_dtype=args.payload_dtype,
+    # every shard must be able to hold one batch's rows at once: owner
+    # histograms are the same in graph-row and slot space (a row's slot
+    # stays on its owner shard), so the capacity planned above holds too
+    device_rows = (None if args.table_device_rows is None
+                   else max(args.table_device_rows, n_dev * args.batch_size))
+    ctx = DT.make_context(group, ds.n, device_rows, exchange=exchange,
+                          exchange_cap=cap, payload_dtype=args.payload_dtype,
                           use_kernels=args.use_kernels)
-    store = DT.make_dist_store(ctx, ds.j_max, args.hidden)
+    store = DT.make_dist_store(ctx, ds.j_max, args.hidden,
+                               evict_policy=args.evict_policy,
+                               wb_threshold=args.wb_threshold,
+                               stale_forecast=args.stale_forecast)
     step = DT.make_dist_train_step(enc, opt, var, ctx=ctx,
                                    keep_prob=args.keep_prob,
                                    num_sampled=args.num_sampled,
@@ -281,19 +315,43 @@ def setup(args) -> DistSetup:
 
 def run(args, log=print) -> DistResult:
     s = setup(args)
-    ctx, ds, step, states = s.ctx, s.ds, s.step, s.states
+    try:
+        return _run(s, log)
+    finally:
+        s.store.close()   # stops a tiered store's write-back thread
+
+
+def _store_line(store) -> str:
+    st = store.stats()
+    gate = (f", delta-gate skipped {st['wb_skipped_rows']} rows "
+            f"({st['wb_skipped_bytes'] / 1024:.1f} KiB)"
+            if st.get("wb_threshold", 0.0) > 0.0 else "")
+    return (f"store [{st['backend']}] device rows {st['device_rows']}/"
+            f"{st['n_rows']}  hit-rate {st['hit_rate']:.2f} "
+            f"({st['misses']} faults), {st['evictions']} evictions, "
+            f"{st['migration_bytes'] / 1024:.1f} KiB migrated, "
+            f"occupancy {st['occupancy']}{gate}")
+
+
+def _run(s: DistSetup, log) -> DistResult:
+    args, ctx, ds, step, states = s.args, s.ctx, s.ds, s.step, s.states
     if ctx.local_ranks[0] != 0:
         log = lambda *a, **k: None            # noqa: E731  (rank 0 prints)
     ex = step.exchanges[0]
     log(f"[dist] devices={ctx.num_shards} rows/shard={ctx.rows_per_shard} "
+        f"device-rows/shard={ctx.table_rows} "
         f"bucket={s.spec.key} feeder={args.feeder} device={ctx.device} "
         f"exchange={ctx.exchange} (payload={ex.payload_dtype}, "
         f"{s.xbytes / 1024:.1f} KiB/step/shard"
         + (f", cap={s.cap}" if s.cap is not None else "") + ")", flush=True)
+    tiered = ctx.device_rows_per_shard is not None
 
     def sync():
         if ctx.device.type == "cuda":
             torch.cuda.synchronize(ctx.device)
+
+    def tables():
+        return [st.table for st in states]
 
     comm0 = ctx.group.comms[0]
     t_start = time.perf_counter()
@@ -301,12 +359,15 @@ def run(args, log=print) -> DistResult:
     stats = None
     for epoch, sched in enumerate(s.train_scheds):
         gens = [epoch_generator(args.seed, epoch) for _ in ctx.local_ranks]
-        feeder = DP.make_feeder(args.feeder, ds, sched, s.put,
+        feeder = DP.make_feeder(args.feeder, ds, sched, s.put_writing,
                                 depth=args.depth)
         sent0 = comm0.exchange_bytes
         loss = None
-        for batches in feeder:
+        for item in feeder:
+            # the timed region includes the tier migration's commit: it
+            # is part of a capped table's step cost
             t0 = time.perf_counter()
+            states, batches = s.commit(states, item)
             states, m = step(states, batches, gens)
             sync()
             iter_times.append(time.perf_counter() - t0)
@@ -319,12 +380,19 @@ def run(args, log=print) -> DistResult:
             f"exch KiB {epoch_bytes[-1] / 1024:.1f} "
             f"({stats.batches} steps, {s.xbytes / 1024:.1f} KiB/step/shard "
             "modelled)", flush=True)
+        # resident rows rewritten this epoch re-report their device ages to
+        # the eviction bookkeeping (no-op under plain LRU)
+        s.store.refresh_ages(tables())
     train_steps = states[0].step
+    if tiered:
+        log(f"  {_store_line(s.store)}", flush=True)
 
     finetuned, ft_loss, ft_steps = False, float("nan"), 0
     if s.variant.finetune_head:
         refresh = DT.make_dist_refresh_step(s.enc, ctx=ctx)
-        for batches in DP.make_feeder("sync", ds, s.refresh_sched, s.put):
+        for item in DP.make_feeder("sync", ds, s.refresh_sched,
+                                   s.put_writing):
+            states, batches = s.commit(states, item)
             states = refresh(states, batches)
         ft_opt = make_optimizer("adam", lr=args.lr * 0.5)
         states = [st._replace(opt_state=ft_opt.init(list(
@@ -333,8 +401,10 @@ def run(args, log=print) -> DistResult:
                                         use_kernels=args.use_kernels)
         m = None
         for sched in s.ft_scheds:
-            for batches in DP.make_feeder(args.feeder, ds, sched, s.put,
-                                          depth=args.depth):
+            # finetune only READS the table: no step hint
+            for item in DP.make_feeder(args.feeder, ds, sched, s.put,
+                                       depth=args.depth):
+                states, batches = s.commit(states, item)
                 states, m = ft(states, batches)
                 ft_steps += 1
         if m is not None:
@@ -346,10 +416,14 @@ def run(args, log=print) -> DistResult:
                DP.make_feeder("sync", ds, s.eval_sched,
                               lambda b: DT.shard_batch(ctx, b))]
     train_metric = float(np.mean(metrics))
+    # surface any failed write-back before reporting success
+    s.store.flush_writebacks()
     wall = time.perf_counter() - t_start
     blocked = stats.host_blocked_ms_per_batch
     log(f"[dist] done in {wall:.1f}s: train metric {train_metric:.3f}, "
         f"host blocked {blocked:.2f} ms/batch ({args.feeder})", flush=True)
+    if tiered:
+        log(f"  {_store_line(s.store)}", flush=True)
     ms = (float(np.median(iter_times[3:]) * 1e3) if len(iter_times) > 4
           else float("nan"))
     return DistResult(cap=s.cap,
@@ -358,7 +432,8 @@ def run(args, log=print) -> DistResult:
                       train_steps=train_steps, finetune_steps=ft_steps,
                       refresh_steps=len(s.refresh_sched) if finetuned else 0,
                       ms_per_iter=ms, step_bytes_model=s.xbytes,
-                      epoch_exchange_bytes=epoch_bytes)
+                      epoch_exchange_bytes=epoch_bytes,
+                      store_stats=s.store.stats())
 
 
 def main(argv=None) -> DistResult:

@@ -8,7 +8,9 @@ decides where those rows live — with ``DeviceStore``, all in device memory.
 
 Host side keeps hash -> row in LRU order plus hit/miss/eviction counters.
 Eviction frees the least-recently-used row; its embedding stays where it
-is and is overwritten on reuse.
+is and is overwritten on reuse.  Over a ``TieredStore`` the keying
+layer's capacity is the rows of both tiers: an entry spilled to the host
+tier faults back bit-exact on a hit.
 """
 from __future__ import annotations
 
@@ -50,12 +52,15 @@ class SegmentCache:
         return len(self._slots)
 
     def close(self):
-        """Release the backing store."""
+        """Release the backing store (stops a TieredStore's write-back
+        thread)."""
         self.store.close()
 
     def flush(self):
-        """Empty the cache (contents + counters)."""
-        self.table = self.store.init_device_table()
+        """Empty the cache (contents + counters; a tiered store's host tier
+        and residency too)."""
+        (self.table,) = self.store.restore(tbl.init_table(
+            self.capacity, self.store.j_max, self.d_h, self.store.dtype))
         self._slots.clear()
         self.hits = self.misses = self.evictions = self.skipped_inserts = 0
         self.store.counters = StoreCounters()

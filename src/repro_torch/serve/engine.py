@@ -51,7 +51,7 @@ from repro_torch.serve.buckets import (
     truncation_counts,
 )
 from repro_torch.serve.cache import SegmentCache
-from repro_torch.store import StoreCounters
+from repro_torch.store import StoreCounters, TieredStore
 
 SEG_KEYS = ("x", "edges", "edge_valid", "node_valid")
 
@@ -166,9 +166,14 @@ class ServeConfig:
     ladder: Optional[Tuple[BucketSpec, ...]] = None
     cache_capacity: int = 512
     cache_enabled: bool = True
-    # the tiered store and its options are not ported yet: anything but
-    # these defaults raises NotImplementedError
+    # cap the cache's device-resident rows over a host-RAM tier
+    # (store/tiered.py): cold entries spill to the host and fault back on a
+    # hit instead of being re-encoded.  None keeps every row on the device.
+    # The other three act only on a capped cache: its eviction policy
+    # ("lru" or "stale-first"), the delta-gated write-back threshold (0 =
+    # off, bit-exact) and the stale-row forecaster
     table_device_rows: Optional[int] = None
+    evict_policy: str = "lru"
     wb_threshold: float = 0.0
     stale_forecast: bool = False
     stream_chunk: int = 8
@@ -235,9 +240,6 @@ class ServeEngine:
 
     def __init__(self, cfg: ServeConfig, params: Optional[GNN] = None,
                  head: Optional[G.Head] = None, seed: int = 0):
-        if cfg.table_device_rows is not None or cfg.wb_threshold > 0 \
-                or cfg.stale_forecast:
-            raise NotImplementedError("TieredStore not ported yet")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.gnn_cfg = GNNConfig(backbone=cfg.backbone, n_feat=cfg.n_feat,
@@ -248,15 +250,24 @@ class ServeEngine:
         self.head = (head if head is not None else G.head_init(
             cfg.hidden, cfg.n_out, cfg.head_mode, gen, "cpu")).to(self.device)
         self.ladder = cfg.resolved_ladder()
+        store = None
+        if cfg.cache_enabled and cfg.table_device_rows is not None:
+            store = TieredStore(cfg.cache_capacity, 1, cfg.hidden,
+                                device_rows=cfg.table_device_rows,
+                                device=self.device,
+                                evict_policy=cfg.evict_policy,
+                                wb_threshold=cfg.wb_threshold,
+                                stale_forecast=cfg.stale_forecast)
         self.cache = (SegmentCache(cfg.cache_capacity, cfg.hidden,
-                                   device=self.device)
+                                   store=store, device=self.device)
                       if cfg.cache_enabled else None)
         self.stats = ServeStats()
         self._stream = None
         self._request_counter = 0
 
     def close(self):
-        """Release the cache's backing store."""
+        """Release the cache's backing store (a TieredStore's write-back
+        thread)."""
         if self.cache is not None:
             self.cache.close()
 

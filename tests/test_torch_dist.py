@@ -506,10 +506,36 @@ def test_cli_strategies_print_identical_losses_at_f32(capsys):
                                   ["--wb-threshold", "0.1"],
                                   ["--stale-forecast"]])
 def test_cli_flags_of_later_slices_raise(flag):
+    """The prefetch lane still raises.  The tiered-store flags, which
+    raised until the store was ported, now run (the name is kept): 2
+    shards, 32 graphs, 16 device rows (the two shards' batch) under the
+    flag; ``--table-device-rows`` alone and with stale-first eviction
+    print the uncapped run's losses bitwise, the gate skips write-backs,
+    the forecaster observes evictions."""
     from repro_torch.launch.train_dist import main
 
-    with pytest.raises(NotImplementedError):
-        main(["--device", "cpu", "--devices", "2"] + flag)
+    base = ["--device", "cpu", "--devices", "2", "--n-graphs", "32",
+            "--epochs", "2", "--finetune-epochs", "1", "--feeder", "sync"]
+    if flag == ["--prefetch-lookups"]:
+        with pytest.raises(NotImplementedError):
+            main(base + flag)
+        return
+    capped = flag if flag[0] == "--table-device-rows" else \
+        ["--table-device-rows", "16"] + flag
+    r = main(base + capped)
+    st = r.store_stats
+    assert r.finetuned and np.isfinite(r.train_metric)
+    assert all(np.isfinite(r.epoch_losses))
+    assert st["backend"] == "TieredStore" and st["device_rows"] == 16
+    assert st["evictions"] > 0
+    if "--wb-threshold" in flag:
+        assert st["wb_skipped_rows"] > 0
+    elif "--stale-forecast" in flag:
+        assert st["forecast"]["observed_rows"] > 0
+    else:
+        assert r.epoch_losses == main(base).epoch_losses
+        assert st["evict_policy"] == ("stale-first" if "stale-first" in flag
+                                      else "lru")
 
 
 # ---------------------------------------------------------------------------

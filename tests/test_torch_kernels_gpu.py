@@ -5,7 +5,8 @@ plain versions (kernels/ref.py): within rtol = atol = 1e-5 in f32 forward
 (6e-2 in bf16) and 1e-4 for gradients, the pack and unpack kernels
 BITWISE, bitwise equal from launch to launch, refusing what they cannot
 do; a few GST train steps through them, single-device and distributed,
-against the plain path; and the reduced dense transformer's kernel path
+against the plain path; the tiered store's migrations on the card against
+the device-resident store; and the reduced dense transformer's kernel path
 against its plain path.
 
 Every test here needs a CUDA card and skips without one.  The file imports
@@ -597,10 +598,13 @@ def test_int8_pack_reciprocal_matches_ieee_division_every_x(cuda, scale):
     kernel's values equal the plain version's (IEEE division, round half
     to even) and its scales; the plain version on the card agrees with
     the CPU's on a sample.  The kernel divides by the reciprocal with one
-    FMA correction for scales in [2^-100, FLT_MAX], by __fdiv_rn below."""
+    FMA correction for scales in [2^-100, FLT_MAX], by __fdiv_rn below.  A
+    subnormal scale is flushed to 0, as the JAX package's arithmetic does
+    (the row is then divided by 1)."""
     from repro_torch.kernels import quant as Q
 
     amax = _amax_for_scale(scale)
+    kept = scale if scale >= np.finfo(np.float32).tiny else 0.0
     top = int(np.asarray(amax, np.float32).view(np.int32)) + 1
     per_row, rows = 1279, 1 << 15
     chunk = per_row * rows
@@ -616,7 +620,7 @@ def test_int8_pack_reciprocal_matches_ieee_division_every_x(cuda, scale):
             x[:, 1:] = sign * xs.view(rows, per_row)
             v, s = Q.quantize_rows(x, "int8")
             want_v, want_s = ref.quantize_rows_ref(x, "int8")
-            assert _same_bits(s, want_s) and bool((s == scale).all())
+            assert _same_bits(s, want_s) and bool((s == kept).all())
             assert torch.equal(v, want_v), (scale, start, sign)
             pick = torch.randint(0, rows, (64,), generator=sample)
             cpu_v, _ = ref.quantize_rows_ref(x[pick.to(cuda)].cpu(), "int8")
@@ -643,6 +647,143 @@ def test_quant_kernels_refuse_what_they_cannot_do(cuda):
         Q.dequantize_rows((v.float(),), "bf16")
     with pytest.raises(ValueError, match="contiguous"):
         Q.dequantize_rows((v.t(), s), "int8")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits_kind", [None, "high24_zero", "random"])
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("n", [8, 130, 1280])
+def test_quant_kernels_subnormal_rows_bitwise_plain(cuda, n, dtype, bits_kind):
+    """Subnormal rows (tests/_quant_cases.py: scales under, at and just
+    above FLT_MIN, subnormal x and quotients, bit words whose high 24 bits
+    are zero): packs and unpacks bitwise their plain versions, which flush
+    the int8 arithmetic's subnormals as the JAX package's does and keep
+    the bf16 paths' (tests/test_torch_quant.py holds those to JAX)."""
+    from _quant_cases import subnormal_rows
+    from repro_torch.kernels import quant as Q
+
+    x_np, low = subnormal_rows(n, seed=n)
+    rng = np.random.default_rng(n)
+    bits_np = {None: None, "high24_zero": low,
+               "random": rng.integers(0, 2 ** 32, x_np.shape,
+                                      dtype=np.uint64).astype(np.uint32)
+               }[bits_kind]
+    x = torch.from_numpy(x_np).to(cuda)
+    bits = (None if bits_np is None else
+            torch.from_numpy(bits_np.view(np.int32)).to(cuda))
+    got = Q.quantize_rows(x, dtype, bits)
+    want = ref.quantize_rows_ref(x, dtype, bits)
+    back = Q.dequantize_rows(got, dtype)
+    torch.cuda.synchronize()
+    assert all(_same_bits(g, w) for g, w in zip(got, want))
+    assert _same_bits(back, ref.dequantize_rows_ref(want, dtype))
+    sub = (x != 0) & (x.abs() < torch.finfo(torch.float32).tiny)
+    if dtype == "int8":
+        assert not got[0][sub].any() and not got[1][:2].any()
+    else:
+        assert bool((back[sub] != 0).any())
+
+
+@pytest.mark.gpu
+def test_int8_unpack_subnormal_scale_is_signed_zero(cuda):
+    """(5, -3) at scales ±1e-40 unpack to (0, -0) and (-0, 0), as the plain
+    version (and the JAX package) give them; torch.mul keeps the
+    subnormal products."""
+    from _quant_cases import subnormal_unpack
+    from repro_torch.kernels import quant as Q
+
+    v, s = (torch.from_numpy(a).to(cuda) for a in subnormal_unpack())
+    got = Q.dequantize_rows((v, s), "int8")
+    want = ref.dequantize_rows_ref((v, s), "int8")
+    assert _same_bits(got, want)
+    assert got.view(torch.int32).cpu().tolist() == [[0, -2 ** 31],
+                                                    [-2 ** 31, 0]]
+
+
+def _store_ops(n, J, d, steps, seed):
+    """A random sequence of (rows, segment slots, values, step): batches
+    of 1-4 distinct rows, one segment slot each written."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in range(steps):
+        b = int(rng.integers(1, 5))
+        rows = rng.choice(n, b, replace=False)
+        seg = rng.integers(0, J, (b, 1))
+        vals = rng.normal(size=(b, 1, d)).astype(np.float32)
+        out.append((rows, seg, vals, t))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["lru", "stale-first"])
+def test_tiered_migration_on_card_matches_device_store(cuda, policy):
+    """A TieredStore on the card (pinned host tier, side-stream copies)
+    holding 4 of 40 rows, driven by the same begins, commits and in-place
+    writes as a DeviceStore: the snapshots are bitwise equal, with
+    faults and evictions on the way."""
+    from repro_torch.core import embedding_table as tbl
+    from repro_torch.store import DeviceStore, TieredStore
+
+    n, J, d = 40, 3, 16
+    dense = DeviceStore(n, J, d, device=cuda)
+    tiered = TieredStore(n, J, d, device_rows=4, device=cuda,
+                         evict_policy=policy)
+    assert tiered._host[0].emb.is_pinned()
+    t_dense, t_tier = dense.init_device_table(), tiered.init_device_table()
+    for rows, seg, vals, t in _store_ops(n, J, d, 200, seed=3):
+        for store, table in ((dense, t_dense), (tiered, t_tier)):
+            table, slots = store.prepare(table, rows, step=t)
+            tbl.update_sampled(table, torch.from_numpy(
+                slots.astype(np.int64)).to(cuda),
+                torch.from_numpy(seg).to(cuda),
+                torch.from_numpy(vals).to(cuda), t)
+        if t % 50 == 49:
+            tiered.refresh_ages(t_tier)
+    want, got = dense.snapshot(t_dense), tiered.snapshot(t_tier)
+    assert all(torch.equal(a, b) for a, b in zip(want, got))
+    assert tiered.counters.evictions > 100 and tiered.counters.misses > 100
+    tiered.close()
+
+
+@pytest.mark.gpu
+def test_tiered_eviction_copy_survives_an_in_place_write(cuda):
+    """A row evicted by a commit goes home with its content at the commit,
+    although the step right after it writes the same slot in place (the
+    new row's) before the device -> host copy lands."""
+    from repro_torch.core import embedding_table as tbl
+    from repro_torch.store import TieredStore
+
+    n, J, d = 6, 1, 1 << 16          # 256 KiB a row: a copy that takes time
+    store = TieredStore(n, J, d, device_rows=1, device=cuda)
+    table = store.init_device_table()
+    zero = torch.zeros((1, 1), dtype=torch.long, device=cuda)
+    for t in range(n):
+        table, slots = store.prepare(table, np.asarray([t]))
+        slot = torch.from_numpy(slots.astype(np.int64)).to(cuda)
+        # the write lands in the slot the previous row was just evicted from
+        tbl.update_sampled(table, slot, zero,
+                           torch.full((1, 1, d), float(t + 1), device=cuda),
+                           t)
+    store.flush_writebacks()
+    for t in range(n - 1):
+        assert bool((store._host[0].emb[t] == float(t + 1)).all()), t
+    snap = store.snapshot(table)
+    assert torch.equal(snap.emb[:, 0, 0], torch.arange(1.0, n + 1))
+    store.close()
+
+
+@pytest.mark.gpu
+def test_capped_training_on_card_is_bitwise_uncapped(cuda):
+    """run_experiment on the card with about 10% of the rows device-resident
+    gives the uncapped run's metrics bit for bit."""
+    from repro_torch.graphs.experiment import run_experiment
+
+    kw = dict(n_graphs=48, max_seg_nodes=32, hidden=16, batch_size=4,
+              epochs=2, finetune_epochs=1, device="cuda")
+    a = run_experiment(**kw)
+    b = run_experiment(table_device_rows=4, **kw)
+    assert (a.train_metric, a.test_metric) == (b.train_metric, b.test_metric)
+    assert b.store_stats["evictions"] > 0
 
 
 @pytest.mark.gpu

@@ -15,6 +15,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from _quant_cases import subnormal_rows, subnormal_unpack  # noqa: E402
 from repro.kernels import quant as jq  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import quant as tq  # noqa: E402
@@ -130,6 +131,59 @@ def test_nan_and_inf_rows_bitwise_vs_jax(dtype, stochastic):
         assert not _raw(got[0])[np.isnan(x)].any() and not _raw(got[0])[3].any()
         assert (_raw(got[1])[[2, 4]].view(np.uint32) == 0x7FC00000).all()
         assert np.isinf(got[1][3].item())
+
+
+@pytest.mark.parametrize("bits_kind", [None, "high24_zero", "random"])
+@pytest.mark.parametrize("dtype", COMPRESSED)
+@pytest.mark.parametrize("n", [8, 130])
+def test_subnormal_rows_bitwise_vs_jax(n, dtype, bits_kind):
+    """Subnormals (tests/_quant_cases.py) bitwise against JAX's jnp
+    reference and its Pallas kernels in interpret mode, packs and unpacks:
+    the bf16 paths keep subnormals (bit operations), the int8 paths flush
+    them as XLA's CPU arithmetic does (a subnormal x or scale reads as ±0,
+    a subnormal scale or quotient becomes ±0)."""
+    x, low_bits = subnormal_rows(n, seed=n)
+    bits = {None: None, "high24_zero": low_bits,
+            "random": _bits(x.shape, seed=n)}[bits_kind]
+    jbits = None if bits is None else jnp.asarray(bits)
+    got = tq.quantize_rows(torch.from_numpy(x), dtype, _t_bits(bits))
+    back = tq.dequantize_rows(got, dtype).numpy().view(np.int32)
+    for want in (jq.quantize_rows_ref(jnp.asarray(x), dtype, jbits),
+                 jq.quantize_rows(jnp.asarray(x), dtype, jbits,
+                                  use_pallas=True, interpret=True)):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(_raw(g), _raw(w))
+        np.testing.assert_array_equal(
+            back, np.asarray(jq.dequantize_rows_ref(want, dtype)).view(
+                np.int32))
+    sub = (x != 0) & (np.abs(x) < np.finfo(np.float32).tiny)
+    if dtype == "bf16":
+        if bits is None:
+            # 1e-39 and -5e-40 keep their subnormal bf16 patterns
+            assert _raw(got[0])[0, :2].view(np.uint16).tolist() == [0x000B,
+                                                                   0x8005]
+        assert (tq.dequantize_rows(got, dtype).numpy()[sub] != 0).any()
+    else:
+        q, scale = (_raw(p) for p in got)
+        assert scale[[0, 1]].tolist() == [0.0, 0.0] and not q[0].any()
+        if bits is None:
+            assert not q[1].any() and q[2, :4].tolist() == [127, 1, 0, 0]
+        assert not q[sub].any()
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_subnormal_scale_unpacks_to_signed_zero_as_jax(pallas):
+    """(5, -3) at scale 1e-40 unpacks to (0, -0) and at -1e-40 to (-0, 0):
+    JAX's bits, from its jnp reference or its Pallas kernel."""
+    v, s = subnormal_unpack()
+    got = tq.dequantize_rows((torch.from_numpy(v), torch.from_numpy(s)),
+                             "int8").numpy()
+    want = np.asarray(jq.dequantize_rows(
+        (jnp.asarray(v), jnp.asarray(s)), "int8", use_pallas=pallas,
+        interpret=True))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert got.view(np.uint32).tolist() == [[0, 0x80000000],
+                                            [0x80000000, 0]]
 
 
 @pytest.mark.parametrize("dtype", COMPRESSED)

@@ -7,8 +7,10 @@ The kernels run only on a card; here the index arithmetic that
 (R, N) of chip_smoke.py's quant phase and every alignment of x or v mod 16
 bytes: every element and every scale is taken exactly once.  And
 ``torch.mul(v, scale[:, None])`` (int8 times f32 promotes to f32, one
-elementwise product) is bitwise the plain version and the JAX package's
-``dequantize_rows_ref``, NaN, ±inf, zero and subnormal scales included.
+elementwise product) is bitwise the plain version at every normal scale,
+NaN, ±inf and zero included; at a subnormal scale the plain version gives
+the JAX package's ``dequantize_rows_ref`` bits (±0, as XLA flushes it on
+the CPU) and ``torch.mul`` keeps the subnormal product.
 """
 import sys
 from pathlib import Path
@@ -32,8 +34,8 @@ SMS = 132
 
 def _smoke_shapes():
     """chip_smoke.py's quant (R, N): its distributed run's lookups and
-    write-backs (from the run's own set-up, on the CPU), the stress shape
-    and the edge cases."""
+    write-backs (from the run's own set-up, on the CPU), the stress shape,
+    the edge cases and the subnormal rows (8 of them)."""
     from repro_torch.launch.train_dist import build_parser, setup
 
     args = [a if a != "cuda" else "cpu" for a in chip_smoke.DIST_ARGS]
@@ -43,7 +45,8 @@ def _smoke_shapes():
     b, D = 8 // chip_smoke.DIST_SHARDS, chip_smoke.DIST_SHARDS
     return sorted({(b, j * d), (D * b, j * d), (D * cap, j * d), (b, d),
                    (D * b, d), chip_smoke.QUANT_STRESS}
-                  | {(r, n) for r, n, _ in chip_smoke.QUANT_EDGES})
+                  | {(r, n) for r, n, _ in chip_smoke.QUANT_EDGES}
+                  | {(8, n) for n in chip_smoke.QUANT_SUBNORMAL_N})
 
 
 SHAPES = _smoke_shapes()
@@ -165,11 +168,12 @@ def test_unpack_plan_fills_the_card_before_widening():
                                    float("-inf"), 1e-40, 2.0 ** -149, 1.0,
                                    3.0 / 127, 1e30])
 def test_torch_mul_is_the_int8_unpack(value):
-    """The library column's contract: torch.mul(v, scale[:, None]) gives
-    the plain version's bits for every int8 value at a scale of ``value``
-    (in one row, beside a random scale and -value), and the JAX package's
-    where XLA's CPU arithmetic keeps subnormals: it flushes a subnormal
-    product to ±0, the port does not (ROADMAP C3)."""
+    """The library column's contract: the plain version gives the JAX
+    package's bits for every int8 value at a scale of ``value`` (in one
+    row, beside a random scale and -value), subnormal scales included
+    (read as ±0, as XLA's CPU arithmetic reads them); torch.mul(v,
+    scale[:, None]) gives the same bits wherever the scale is not
+    subnormal, and keeps the subnormal product where it is."""
     rng = np.random.default_rng(7)
     v = np.concatenate([np.arange(-127, 128, dtype=np.int8),
                         rng.integers(-127, 128, 1, dtype=np.int8)])
@@ -179,10 +183,17 @@ def test_torch_mul_is_the_int8_unpack(value):
     got = torch.mul(tv, ts[:, None])
     assert got.dtype == torch.float32
     want = ref.dequantize_rows_ref((tv, ts), "int8")
-    np.testing.assert_array_equal(got.numpy().view(np.int32),
-                                  want.numpy().view(np.int32))
-    if not 0 < abs(value) < np.finfo(np.float32).tiny:
-        jax_want = np.asarray(jq.dequantize_rows_ref(
-            (jnp.asarray(v), jnp.asarray(s)), "int8"))
+    jax_want = np.asarray(jq.dequantize_rows_ref(
+        (jnp.asarray(v), jnp.asarray(s)), "int8"))
+    np.testing.assert_array_equal(want.numpy().view(np.int32),
+                                  jax_want.view(np.int32))
+    if 0 < abs(value) < np.finfo(np.float32).tiny:
+        # the subnormal rows differ (v != 0 gives a subnormal product),
+        # the middle row at a normal scale does not
+        assert not np.array_equal(got[0::2].numpy().view(np.int32),
+                                  want[0::2].numpy().view(np.int32))
+        np.testing.assert_array_equal(got[1].numpy().view(np.int32),
+                                      want[1].numpy().view(np.int32))
+    else:
         np.testing.assert_array_equal(got.numpy().view(np.int32),
-                                      jax_want.view(np.int32))
+                                      want.numpy().view(np.int32))

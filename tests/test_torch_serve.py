@@ -215,5 +215,34 @@ def test_default_device_is_cuda_and_raises_without_a_card():
                                 dict(wb_threshold=0.1),
                                 dict(stale_forecast=True)])
 def test_tiered_store_options_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="TieredStore"):
-        ServeEngine(ServeConfig(device="cpu", **kw))
+    """The tiered-store options, once refused, now run (the name is kept
+    from when they raised): the engine over a capped cache (16 device rows
+    of 32, with the gate or the forecaster added to the cap) answers a
+    replay with finite predictions, bitwise the uncapped engine's where
+    the gate and the forecaster are off (a cache row is written once and
+    never moves, so neither changes a fault-in here either), and its
+    store counters show the tier at work."""
+    from repro_torch.serve.traffic import TrafficConfig, make_request_stream
+
+    stream = make_request_stream(TrafficConfig(
+        n_unique=8, n_requests=16, duplicate_rate=0.5, comm_range=(2, 5),
+        comm_size_range=(8, 20), seed=3))
+    cfg = dict(backbone="sage", hidden=16, max_seg_nodes=32,
+               cache_capacity=32, device="cpu")
+    full = ServeEngine(ServeConfig(**cfg), seed=0)
+    capped = ServeEngine(ServeConfig(**cfg, **{"table_device_rows": 16,
+                                               **kw}), seed=0)
+    try:
+        want = full.process(stream, window=4)
+        got = capped.process(stream, window=4)
+        for a, b in zip(want, got):
+            assert np.isfinite(b.pred).all()
+            assert np.array_equal(a.pred, b.pred)
+        st = capped.stats.summary()["cache"]["store"]
+        assert st["backend"] == "TieredStore" and st["device_rows"] == 16
+        assert st["evictions"] > 0 and st["misses"] > 0
+        assert st["wb_threshold"] == kw.get("wb_threshold", 0.0)
+        assert st["stale_forecast"] == kw.get("stale_forecast", False)
+    finally:
+        full.close()
+        capped.close()

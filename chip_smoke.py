@@ -41,8 +41,9 @@ fails the run (none catches its own):
                 boundary), subnormal rows at N 8 and 1280 (scales under,
                 at and just above FLT_MIN, subnormal x and quotients, the
                 stochastic packs with bit words whose high 24 bits are
-                zero: tests/_quant_cases.py) and the int8 unpack at scales
-                ±1e-40, beside x.to(bfloat16), .float() and
+                zero: tests/_quant_cases.py), the stochastic int8 pack
+                with its bits off x's 16-byte phase (the stress shape and
+                a ragged N) and the int8 unpack at scales ±1e-40, beside x.to(bfloat16), .float() and
                 torch.mul(v, scale[:, None]) (each bitwise the plain
                 version) and, for the unpacks, a fill of their output;
                 swa_attention (1e-5) at (B, S, H, KV, D, W) (2, 256, 4, 2,
@@ -191,6 +192,12 @@ QUANT_STRESS = (8192, 1280)             # 40 MiB of f32 rows
 # views that start off a 16-byte boundary
 QUANT_EDGES = [(1, 4, 0), (3, 33, 0), (2, 1000, 0), (6, 37, 0), (1, 1280, 0),
                (6, 20001, 0), (6, 1281, 1), (2, 1280, 3)]
+# (R, N, element offsets of x and of the random bits in their buffers): the
+# stochastic int8 pack with its bits off x's 16-byte phase, at the stress
+# shape (bits at each other phase) and at a ragged N (bit loads of 4, 4
+# and 8 bytes)
+QUANT_BITS_EDGES = [(8192, 1280, 0, 1), (8192, 1280, 0, 2), (8192, 1280, 0, 3),
+                    (6, 1281, 1, 0), (6, 1281, 1, 2), (6, 1281, 1, 3)]
 # widths of the subnormal rows of tests/_quant_cases.py (scales under, at
 # and just above FLT_MIN, subnormal x and quotients; the stochastic packs
 # with bit words whose high 24 bits are zero)
@@ -1063,7 +1070,39 @@ def phase_kernel_quant(torch, dev):
                 lambda: ref.dequantize_rows_ref(parts, dtype), lib,
                 fill=torch.empty((R, N), dtype=torch.float32, device=dev)
                 if label in timed else None))
+    rows["quant_pack_int8"] += quant_bits_phases(torch, dev)
     quant_subnormal_scales(torch, dev)
+    return rows
+
+
+def quant_bits_phases(torch, dev):
+    """The stochastic int8 pack with its random bits off x's 16-byte phase
+    (QUANT_BITS_EDGES), untimed: bitwise the plain version, two launches
+    bitwise equal."""
+    from repro_torch.kernels import quant as qt
+    from repro_torch.kernels import ref
+
+    rows = []
+    for R, N, x_off, b_off in QUANT_BITS_EDGES:
+        x, bits = quant_inputs(torch, R, N, seed=R * 7 + N, dev=dev,
+                               offset=x_off)
+        bits = offset_view(torch, bits, b_off)
+        a1 = qt.quantize_rows(x, "int8", bits)
+        a2 = qt.quantize_rows(x, "int8", bits)
+        want = ref.quantize_rows_ref(x, "int8", bits)
+        torch.cuda.synchronize()
+        if not all(bitwise_equal(torch, p1, p2) and bitwise_equal(torch, p1, pw)
+                   for p1, p2, pw in zip(a1, a2, want)):
+            raise AssertionError(f"quant_pack_int8 {R}x{N}, x at +{x_off}, "
+                                 f"bits at +{b_off}: kernel != plain or two "
+                                 "launches differ")
+        label = f"bits off x's phase {R}x{N}, x +{x_off}, bits +{b_off}"
+        rows.append(quant_row(torch, "quant_pack_int8", label, R, N, False,
+                              None, None, None))
+    log("[quant] quant_pack_int8 with its bits off x's 16-byte phase: "
+        + ", ".join(f"{R}x{N} x +{xo} bits +{bo}"
+                    for R, N, xo, bo in QUANT_BITS_EDGES)
+        + ": bitwise the plain version, two launches equal")
     return rows
 
 

@@ -27,26 +27,32 @@
 // _unpack_int8_kernel (:163).  Those take (32, N padded to 128) row blocks
 // into VMEM so the row's amax stays on chip.  Here:
 //
-// - nearest-even int8 pack: W warps a row, 8 / W rows a block (W and the
-//   register array from kernels/quant.py::plan_pack_int8: many warps a row
-//   where few rows arrive, 2 at 8192 x 1280).  x is read once, 16 bytes a
+// - int8 packs, nearest even (pack_int8_det_kernel) and stochastic
+//   (pack_int8_stochastic_kernel), one geometry (PackRow): W warps a row,
+//   8 / W rows a block (W and the register array from
+//   kernels/quant.py::plan_pack_int8: many warps a row where few rows
+//   arrive, 2 at 8192 x 1280).  x is read once, 16 bytes a
 //   load with L2's 256-byte prefetch hint, and stays in registers from the
 //   amax to the store (a row wider than REGISTER_N reads the rest twice);
 //   the amax is a shuffle tree, one shared word a warp and one barrier
-//   when W > 1; four results go out as one word.  A row's scale in
-//   [2^-100, FLT_MAX] (or 0) divides by the reciprocal with one FMA
-//   correction and rounds by adding 1.5 * 2^23, 4 full-rate operations an
-//   element; any other row (NaN, inf, tiny) is read again and divided by
-//   __fdiv_rn.  A test holds the two to the IEEE path for every x at a
-//   sweep of scales (tests/test_torch_kernels_gpu.py).
+//   when W > 1; four results go out as one word.
+//   Nearest even: a row's scale in [2^-100, FLT_MAX] (or 0) divides by the
+//   reciprocal with one FMA correction and rounds by adding 1.5 * 2^23, 4
+//   full-rate operations an element; any other row (NaN, inf, tiny) is
+//   read again and divided by __fdiv_rn.  A test holds the two to the IEEE
+//   path for every x at a sweep of scales (tests/test_torch_kernels_gpu.py).
+//   Stochastic: the random bits come with x, 16 bytes a load issued before
+//   the amax (narrower where their 16-byte phase differs from x's, each
+//   word still read once), and wait in registers beside x while the amax
+//   is reduced; every element is divided by __fdiv_rn, since the stochastic
+//   comparison reads every bit of the quotient (int8_stochastic).
 // - int8 unpack: a flat pass, a warp 128 G contiguous elements (G words
 //   a thread from plan_unpack_int8, 16 at 8192 x 1280): every load
 //   instruction reads 128 contiguous bytes and every store writes 512.
 // - nearest-even bf16 pack: a flat pass, a thread a chunk of 8 elements
 //   (two 16-byte loads with the prefetch hint, one 16-byte store).
-// - stochastic packs and the bf16 unpack: a block a row, a scalar loop;
-//   the stochastic int8 pack reduces the amax with shuffles and one shared
-//   word a warp.
+// - the stochastic bf16 pack and the bf16 unpack: a block a row, a scalar
+//   loop.
 //
 // Each takes a scalar head up to its first aligned address and a scalar
 // tail, so any 4-byte-aligned x and any v or out alignment are taken.
@@ -61,12 +67,14 @@
 //
 // What bounds it: bytes.  Per element it reads 4 B (+4 B of bits on the
 // write path) and writes 1-2 B (pack) or reads 1-2 B and writes 4 B
-// (unpack), a handful of operations an element.  At the training shapes
-// (a few rows of 64-1280 floats) that is a few KB and a launch (~5 us)
-// dominates: one launch per exchanged buffer.  At 8192 x 1280 on an
-// NVIDIA H100 80GB HBM3 at 700 W, the int8 pack and unpack take 72% of
-// the bytes bound's speed; a bare 42 MB fill of f32 (the unpack's writes)
-// reaches only 2.4 TB/s there (PERF.md).
+// (unpack), a handful of operations an element (the stochastic int8
+// pack's IEEE division about 25 instructions, some 8 us of issue over
+// 8192 x 1280 on 132 SMs against its 28 us bytes bound).  At the
+// training shapes (a few rows of 64-1280 floats) that is a few KB and a
+// launch (~5 us) dominates: one launch per exchanged buffer.  At 8192 x 1280 on an
+// NVIDIA H100 80GB HBM3 at 700 W, the nearest-even int8 pack and the
+// unpack take 72% of the bytes bound's speed; a bare 42 MB fill of f32
+// (the unpack's writes) reaches only 2.4 TB/s there (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -130,6 +138,29 @@ __device__ __forceinline__ float4 ld_once(const float4* p) {
   return v;
 }
 
+// 4, 8 and 16 bytes with the same hints
+__device__ __forceinline__ uint32_t ld_once_u32(const void* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint2 ld_once_u32x2(const uint32_t* p) {
+  uint2 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v2.u32 {%0, %1}, [%2];"
+      : "=r"(v.x), "=r"(v.y)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint4 ld_once_u32x4(const uint32_t* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
 // a thread a chunk of 8 elements (32 bytes in, 16 out) from x + head on;
 // the head (x's elements before its first 16-byte boundary) and the tail
 // (after the last whole chunk) element by element
@@ -159,45 +190,6 @@ pack_bf16_stochastic_kernel(const float* __restrict__ x, const uint32_t* __restr
     // the reference converts the truncated f32 to bf16: a NaN turns quiet
     const bool nan = (u & 0x7F80u) == 0x7F80u && (u & 0x7Fu) != 0u;
     out[base + i] = static_cast<uint16_t>(nan ? (u & 0x8000u) | kBf16QNaN : u);
-  }
-}
-
-__global__ void __launch_bounds__(kMaxThreads)
-pack_int8_stochastic_kernel(const float* __restrict__ x, const uint32_t* __restrict__ bits,
-                            int8_t* __restrict__ out, float* __restrict__ scale, int N) {
-  __shared__ float partial[kMaxThreads / 32];
-  const size_t base = static_cast<size_t>(blockIdx.x) * N;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-
-  float m = 0.f;
-  // a subnormal x counts as 0 in the amax too, but only a row of nothing
-  // else could notice, and its scale is flushed below
-  for (int i = threadIdx.x; i < N; i += blockDim.x) m = nan_max(m, fabsf(x[base + i]));
-  m = warp_max(m);
-  if (lane == 0) partial[warp] = m;
-  __syncthreads();
-  if (warp == 0) {
-    m = lane < n_warps ? partial[lane] : 0.f;
-    m = warp_max(m);
-    if (lane == 0) partial[0] = m;
-  }
-  __syncthreads();
-
-  float s = flush_subnormal(__fmul_rn(partial[0], 1.0f / 127.0f));   // f32(1/127), folded
-  if (s != s) s = __uint_as_float(kF32QNaN);
-  if (threadIdx.x == 0) scale[blockIdx.x] = s;
-  const float div = s > 0.f ? s : 1.f;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    // a subnormal quotient matters: at bits >> 8 == 0 it would round up to 1
-    const float v = flush_subnormal(__fdiv_rn(flush_subnormal(x[base + i]), div));
-    const float lo = floorf(v);
-    const float u = __fmul_rn(static_cast<float>(bits[base + i] >> 8), 0x1p-24f);
-    float q = lo + (u < v - lo ? 1.f : 0.f);
-    // a NaN stays NaN to the cast, and cvt.rzi makes it 0 (PTX), as XLA's
-    // cast does
-    q = nan_min(nan_max(q, -127.f), 127.f);
-    out[base + i] = static_cast<int8_t>(__float2int_rz(q));
   }
 }
 
@@ -236,6 +228,40 @@ __device__ __forceinline__ int8_t int8_nearest_ieee(float x, float d) {
   return static_cast<int8_t>(__float2int_rz(q));
 }
 
+// x / d rounded stochastically as an int8, in the low byte of a word: IEEE
+// division, floor(v) + (u < v - floor(v)) with u = (bits >> 8) * 2^-24, the
+// clamp to [-127, 127] that keeps a NaN, and cvt.rzi (NaN -> 0).  The
+// comparison reads every bit of v, so the nearest-even pack's reciprocal
+// (exact only where its rounding cannot tell) is no substitute for
+// __fdiv_rn here.
+__device__ __forceinline__ uint32_t int8_stochastic(float x, float d, uint32_t bits) {
+  // a subnormal x reads as ±0, and a subnormal quotient matters: at
+  // bits >> 8 == 0 it would round up to 1
+  const float v = flush_subnormal(__fdiv_rn(flush_subnormal(x), d));
+  const float lo = floorf(v);
+  const float u = __fmul_rn(static_cast<float>(bits >> 8), 0x1p-24f);
+  const float q = __fadd_rn(lo, u < __fsub_rn(v, lo) ? 1.f : 0.f);
+  return static_cast<uint32_t>(__float2int_rz(nan_min(nan_max(q, -127.f), 127.f)));
+}
+
+__device__ __forceinline__ uint32_t int8x4_stochastic(float4 v, uint4 b, float d) {
+  return __byte_perm(
+      __byte_perm(int8_stochastic(v.x, d, b.x), int8_stochastic(v.y, d, b.y), 0x0040),
+      __byte_perm(int8_stochastic(v.z, d, b.z), int8_stochastic(v.w, d, b.w), 0x0040), 0x5410);
+}
+
+// the four bit words from p on, each read once: one 16-byte load where
+// their phase against x's float4 is 0 (p is then 16-byte aligned), two
+// 8-byte loads where it is 2, else four 4-byte loads
+__device__ __forceinline__ uint4 ld_bits4(const uint32_t* p, int phase) {
+  if (phase == 0) return ld_once_u32x4(p);
+  if (phase == 2) {
+    const uint2 a = ld_once_u32x2(p), b = ld_once_u32x2(p + 2);
+    return make_uint4(a.x, a.y, b.x, b.y);
+  }
+  return make_uint4(ld_once_u32(p), ld_once_u32(p + 1), ld_once_u32(p + 2), ld_once_u32(p + 3));
+}
+
 // four int8 (the low byte first) to o, as one word where o is 4-byte aligned
 __device__ __forceinline__ void store_int8x4(int8_t* o, uint32_t q, bool word) {
   if (word) {
@@ -246,58 +272,42 @@ __device__ __forceinline__ void store_int8x4(int8_t* o, uint32_t q, bool word) {
   }
 }
 
-// The nearest-even int8 pack: W warps a row (W = 1, 2, 4 or 8), 8 / W rows
-// a block of 8 warps.  A row's head (its elements before x's next 16-byte
-// boundary, at most 3) and tail (after its last whole float4, at most 3) go
-// to threads 0-2 of the row as scalars; float4 j of the body goes to thread
-// j % (32 W), which keeps its first K float4 in registers from the amax to
-// the store and reads any further ones (a row wider than 4 * 32 * W * K
-// elements) twice.  The amax is a shuffle tree, then, for W > 1, one shared
-// word a warp and one barrier.  ``x_mod`` is x's address / 4 mod 4;
-// ``out_words``: out's byte of every 16-byte-aligned x element is 4-byte
-// aligned, so four results go out as one word.
-template <int K>
-__global__ void __launch_bounds__(kFlatThreads)
-pack_int8_det_kernel(const float* __restrict__ x, int8_t* __restrict__ out,
-                     float* __restrict__ scale, int R, int N, int w_log2, int x_mod,
-                     bool out_words) {
-  __shared__ float partial[kFlatThreads / 32];
-  const int W = 1 << w_log2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int T = 32 * W;                                   // threads a row
-  const int t = ((warp & (W - 1)) << 5) | lane;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * ((kFlatThreads / 32) >> w_log2) + (warp >> w_log2);
-  const bool live = row < R;
-  const long long base = row * N;
-  const int head = min(N, static_cast<int>((4 - (x_mod + base) % 4) % 4));
-  const int nvec = (N - head) / 4;
-  const int tail = N - head - 4 * nvec;
-  const float* xr = x + base;
-  const float4* xv = reinterpret_cast<const float4*>(xr + head);
+// Where a thread of an int8 pack works: W warps a row (W = 1, 2, 4 or 8),
+// 8 / W rows a block of 8 warps, thread t of the row's 32 W.  A row's head
+// (its elements before x's next 16-byte boundary, at most 3) and tail (after
+// its last whole float4, at most 3) go to threads 0-2 of the row as
+// scalars; float4 j of the body goes to thread j % (32 W), which keeps its
+// first K float4 in registers from the amax to the store and reads any
+// further ones (a row wider than 4 * 32 * W * K elements) twice.  ``x_mod``
+// is x's address / 4 mod 4.
+struct PackRow {
+  int W, T, t;                                            // T: threads a row
+  long long row, base;
+  bool live;
+  int head, nvec, tail;
 
-  float4 v[K];
-  float m = 0.f, xh = 0.f, xt = 0.f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int j = t + k * T;
-    if (live && j < nvec) {
-      v[k] = ld_once(xv + j);
-      m = abs_max4(m, v[k]);
-    }
+  __device__ __forceinline__ PackRow(int R, int N, int w_log2, int x_mod) {
+    const int warp = threadIdx.x >> 5;
+    W = 1 << w_log2;
+    T = 32 * W;
+    t = ((warp & (W - 1)) << 5) | (threadIdx.x & 31);
+    row = static_cast<long long>(blockIdx.x) * ((kFlatThreads / 32) >> w_log2) + (warp >> w_log2);
+    live = row < R;
+    base = row * N;
+    head = min(N, static_cast<int>((4 - (x_mod + base) % 4) % 4));
+    nvec = (N - head) / 4;
+    tail = N - head - 4 * nvec;
   }
-  if (live && t < head) {
-    xh = xr[t];
-    m = nan_max(m, fabsf(xh));
-  }
-  if (live && t < tail) {
-    xt = xr[head + 4 * nvec + t];
-    m = nan_max(m, fabsf(xt));
-  }
-  for (int j = t + K * T; live && j < nvec; j += T) m = abs_max4(m, ld_once(xv + j));
+};
+
+// The row's amax from each of its threads' m: a shuffle tree, then, for
+// W > 1, one shared word a warp and one barrier (every thread of the block
+// takes part)
+__device__ __forceinline__ float row_amax(float m, int W, float* partial) {
+  const int warp = threadIdx.x >> 5;
   m = warp_max(m);
   if (W > 1) {
-    if (lane == 0) partial[warp] = m;
+    if ((threadIdx.x & 31) == 0) partial[warp] = m;
     __syncthreads();
     const int first = warp & ~(W - 1);
     m = partial[first];
@@ -305,16 +315,53 @@ pack_int8_det_kernel(const float* __restrict__ x, int8_t* __restrict__ out,
     for (int w = 1; w < kFlatThreads / 32; ++w)
       if (w < W) m = nan_max(m, partial[first + w]);
   }
-  if (!live) return;
+  return m;
+}
+
+// The nearest-even int8 pack over PackRow's geometry.  ``out_words``:
+// out's byte of every 16-byte-aligned x element is 4-byte aligned, so four
+// results go out as one word.
+template <int K>
+__global__ void __launch_bounds__(kFlatThreads)
+pack_int8_det_kernel(const float* __restrict__ x, int8_t* __restrict__ out,
+                     float* __restrict__ scale, int R, int N, int w_log2, int x_mod,
+                     bool out_words) {
+  __shared__ float partial[kFlatThreads / 32];
+  const PackRow g(R, N, w_log2, x_mod);
+  const int t = g.t, T = g.T, head = g.head, nvec = g.nvec, tail = g.tail;
+  const float* xr = x + g.base;
+  const float4* xv = reinterpret_cast<const float4*>(xr + head);
+
+  float4 v[K];
+  float m = 0.f, xh = 0.f, xt = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = t + k * T;
+    if (g.live && j < nvec) {
+      v[k] = ld_once(xv + j);
+      m = abs_max4(m, v[k]);
+    }
+  }
+  if (g.live && t < head) {
+    xh = xr[t];
+    m = nan_max(m, fabsf(xh));
+  }
+  if (g.live && t < tail) {
+    xt = xr[head + 4 * nvec + t];
+    m = nan_max(m, fabsf(xt));
+  }
+  for (int j = t + K * T; g.live && j < nvec; j += T) m = abs_max4(m, ld_once(xv + j));
+  m = row_amax(m, g.W, partial);
+  if (!g.live) return;
 
   // a subnormal scale is flushed to 0 (the row is then divided by 1); at a
   // scale in [2^-100, FLT_MAX], |x / s| < 2^-26 for a subnormal x, which
   // rounds to 0 whether x reads as 0 or not, so the fast path needs nothing
   float s = flush_subnormal(__fmul_rn(m, 1.0f / 127.0f));   // f32(1/127), folded
   if (s != s) s = __uint_as_float(kF32QNaN);
-  if (t == 0) scale[row] = s;
+  if (t == 0) scale[g.row] = s;
   const float d = s > 0.f ? s : 1.f;
-  int8_t* o = out + base;
+  int8_t* o = out + g.base;
   if (!(s == 0.f || (s >= 0x1p-100f && s <= FLT_MAX))) {
     // a row with a NaN or inf, or of magnitudes under ~1e-28: read again
     for (int i = t; i < N; i += T) o[i] = int8_nearest_ieee(xr[i], d);
@@ -332,17 +379,88 @@ pack_int8_det_kernel(const float* __restrict__ x, int8_t* __restrict__ out,
   if (t < tail) o[head + 4 * nvec + t] = static_cast<int8_t>(int8_nearest(xt, d, r));
 }
 
+// The stochastic int8 pack over PackRow's geometry, with each float4's
+// four random-bit words loaded with it: all of a thread's loads are issued
+// before its amax (in a loop of their own, so none waits on another) and
+// the bits wait in registers beside x until the store; further float4 are
+// read again after the amax, with their bits, which are so read once.  Bit
+// loads are 16 bytes where ``bits_phase`` (the bits' address / 4 minus
+// x's, mod 4) is 0 (ld_bits4).  A row of zeros and subnormals packs to
+// zeros without a division (IEEE division takes its slow path for a zero
+// dividend).  At one block an SM (the launch bound's 1), ptxas keeps K = 2
+// and 4 in registers; without it, it spills a few words around the
+// division's slow-path call.
+template <int K>
+__global__ void __launch_bounds__(kFlatThreads, 1)
+pack_int8_stochastic_kernel(const float* __restrict__ x, const uint32_t* __restrict__ bits,
+                            int8_t* __restrict__ out, float* __restrict__ scale, int R,
+                            int N, int w_log2, int x_mod, int bits_phase, bool out_words) {
+  __shared__ float partial[kFlatThreads / 32];
+  const PackRow g(R, N, w_log2, x_mod);
+  const int t = g.t, T = g.T, head = g.head, nvec = g.nvec, tail = g.tail;
+  const float* xr = x + g.base;
+  const float4* xv = reinterpret_cast<const float4*>(xr + head);
+  const uint32_t* br = bits + g.base;
+  const uint32_t* bv = br + head;
+
+  float4 v[K];
+  uint4 b[K];
+  float xh = 0.f, xt = 0.f;
+  uint32_t bh = 0u, bt = 0u;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = t + k * T;
+    if (g.live && j < nvec) {
+      v[k] = ld_once(xv + j);
+      b[k] = ld_bits4(bv + 4 * j, bits_phase);
+    }
+  }
+  if (g.live && t < head) {
+    xh = xr[t];
+    bh = br[t];
+  }
+  if (g.live && t < tail) {
+    xt = xr[head + 4 * nvec + t];
+    bt = br[head + 4 * nvec + t];
+  }
+  float m = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (g.live && t + k * T < nvec) m = abs_max4(m, v[k]);
+  if (g.live && t < head) m = nan_max(m, fabsf(xh));
+  if (g.live && t < tail) m = nan_max(m, fabsf(xt));
+  for (int j = t + K * T; g.live && j < nvec; j += T) m = abs_max4(m, ld_once(xv + j));
+  m = row_amax(m, g.W, partial);
+  if (!g.live) return;
+
+  float s = flush_subnormal(__fmul_rn(m, 1.0f / 127.0f));   // f32(1/127), folded
+  if (s != s) s = __uint_as_float(kF32QNaN);
+  if (t == 0) scale[g.row] = s;
+  const float d = s > 0.f ? s : 1.f;
+  int8_t* o = out + g.base;
+  if (m < FLT_MIN) {
+    // every x reads as ±0: v = ±0 rounds to 0 whatever the bits
+    for (int i = t; i < N; i += T) o[i] = 0;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = t + k * T;
+    if (j < nvec) store_int8x4(o + head + 4 * j, int8x4_stochastic(v[k], b[k], d), out_words);
+  }
+  for (int j = t + K * T; j < nvec; j += T)
+    store_int8x4(o + head + 4 * j,
+                 int8x4_stochastic(ld_once(xv + j), ld_bits4(bv + 4 * j, bits_phase), d),
+                 out_words);
+  if (t < head) o[t] = static_cast<int8_t>(int8_stochastic(xh, d, bh));
+  if (t < tail) o[head + 4 * nvec + t] = static_cast<int8_t>(int8_stochastic(xt, d, bt));
+}
+
 __global__ void __launch_bounds__(kMaxThreads)
 unpack_bf16_kernel(const uint16_t* __restrict__ v, float* __restrict__ out, int N) {
   const size_t base = static_cast<size_t>(blockIdx.x) * N;
   for (int i = threadIdx.x; i < N; i += blockDim.x)
     out[base + i] = __uint_as_float(static_cast<uint32_t>(v[base + i]) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld_once_u32(const void* p) {
-  uint32_t v;
-  asm("ld.global.nc.L1::no_allocate.L2::256B.u32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
 }
 
 __device__ __forceinline__ float unpack_int8(int8_t q, float s) {
@@ -451,28 +569,39 @@ int quant_pack_bf16(const float* x, const uint32_t* bits, uint16_t* out, int R, 
 }
 
 // x (R, N) f32 -> out (R, N) int8 and scale (R,) f32; ``bits`` as above.
-// The nearest-even pack takes ``warps_per_row`` (1, 2, 4 or 8) and
-// ``vecs_per_lane`` (the float4 a thread keeps in registers: 2, 4, 8 or
-// 16) from kernels/quant.py::plan_pack_int8; the stochastic pack ignores
-// them.  x must be 4-byte aligned (a float32 tensor always is); out may
-// have any alignment.
+// Both packs take ``warps_per_row`` (1, 2, 4 or 8) and ``vecs_per_lane``
+// (the float4 a thread keeps in registers: 2, 4, 8 or 16) from
+// kernels/quant.py::plan_pack_int8.  x and bits must be 4-byte aligned (a
+// float32 or int32 tensor always is); out may have any alignment.
 int quant_pack_int8(const float* x, const uint32_t* bits, int8_t* out, float* scale,
                     int R, int N, int warps_per_row, int vecs_per_lane, void* stream) {
   if (R <= 0 || N <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bits != nullptr) {
-    pack_int8_stochastic_kernel<<<R, threads_for(N), 0, st>>>(x, bits, out, scale, N);
-    return static_cast<int>(cudaGetLastError());
-  }
   const int W = warps_per_row;
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
-  if ((W != 1 && W != 2 && W != 4 && W != 8) || xa % 4u != 0u)
+  const uintptr_t ba = reinterpret_cast<uintptr_t>(bits);
+  if ((W != 1 && W != 2 && W != 4 && W != 8) || xa % 4u != 0u || ba % 4u != 0u)
     return static_cast<int>(cudaErrorInvalidValue);
   const int x_mod = static_cast<int>((xa / 4u) % 4u);
+  const int bits_phase = static_cast<int>((ba / 4u + 4u - x_mod) % 4u);
   const bool out_words = (reinterpret_cast<uintptr_t>(out) + 4u - x_mod) % 4u == 0u;
   const int w_log2 = W == 1 ? 0 : W == 2 ? 1 : W == 4 ? 2 : 3;
   const int rows_per_block = kFlatThreads / (32 * W);
   const unsigned blocks = static_cast<unsigned>((R + rows_per_block - 1) / rows_per_block);
+  if (bits != nullptr) {
+    const auto launch = [&](auto kernel) {
+      kernel<<<blocks, kFlatThreads, 0, st>>>(x, bits, out, scale, R, N, w_log2, x_mod,
+                                              bits_phase, out_words);
+      return static_cast<int>(cudaGetLastError());
+    };
+    switch (vecs_per_lane) {
+      case 2: return launch(pack_int8_stochastic_kernel<2>);
+      case 4: return launch(pack_int8_stochastic_kernel<4>);
+      case 8: return launch(pack_int8_stochastic_kernel<8>);
+      case 16: return launch(pack_int8_stochastic_kernel<16>);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   const auto launch = [&](auto kernel) {
     kernel<<<blocks, kFlatThreads, 0, st>>>(x, out, scale, R, N, w_log2, x_mod, out_words);
     return static_cast<int>(cudaGetLastError());

@@ -42,7 +42,7 @@ UNPACK_INT8 = "quant_unpack_int8"
 LAUNCHES = LaunchCounts((PACK_BF16, PACK_BF16_DET, PACK_INT8, PACK_INT8_DET,
                          UNPACK_BF16, UNPACK_INT8))
 
-ROW_WARPS = 8                    # the nearest-even int8 pack's block: 8 warps
+ROW_WARPS = 8                    # the int8 packs' block: 8 warps
 VECS_PER_LANE = (2, 4, 8, 16)    # its compiled register arrays, in float4
 # the widest row whose float4 all stay in registers (8 warps of 16 each);
 # a wider row's further float4 are read twice
@@ -51,10 +51,12 @@ REGISTER_N = 4 * 32 * ROW_WARPS * VECS_PER_LANE[-1]
 
 @dataclasses.dataclass(frozen=True)
 class Int8Plan:
-    """The nearest-even int8 pack's geometry: ``warps_per_row`` warps a row
+    """The int8 packs' geometry: ``warps_per_row`` warps a row
     (``ROW_WARPS // warps_per_row`` rows a block), each thread keeping
-    ``vecs_per_lane`` float4 of x in registers; a row with more float4
-    than its threads keep (wider than REGISTER_N) reads the rest twice."""
+    ``vecs_per_lane`` float4 of x (and, when stochastic, as many 16-byte
+    words of random bits) in registers; a row with more float4 than its
+    threads keep (wider than REGISTER_N) reads x's rest twice and its
+    bits' rest once."""
     warps_per_row: int
     vecs_per_lane: int
 

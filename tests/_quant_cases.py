@@ -1,7 +1,9 @@
-"""Wire-format inputs with subnormals, made with numpy from a seed: one
-generator for the CPU tests against the JAX package (tests/test_torch_quant.py),
-the card's tests (tests/test_torch_kernels_gpu.py) and chip_smoke.py's
-kernel phase.  It imports neither torch nor JAX.
+"""Wire-format inputs with subnormals, and random bits on the stochastic
+int8 rounding's boundary, made with numpy from a seed: one generator for
+the CPU tests against the JAX package (tests/test_torch_quant.py,
+tests/test_torch_quant_plan.py), the card's tests
+(tests/test_torch_kernels_gpu.py) and chip_smoke.py's kernel phase.  It
+imports neither torch nor JAX.
 
 The JAX package's int8 arithmetic is XLA's on the CPU, which reads a
 subnormal input as zero and flushes a subnormal result; its bf16 paths are
@@ -54,3 +56,21 @@ def subnormal_unpack():
     """(v (2, 2) int8, scale (2,) f32): (5, -3) at scales ±1e-40."""
     v = np.tile(np.asarray(UNPACK_VALUES, np.int8), (len(UNPACK_SCALES), 1))
     return v, np.asarray(UNPACK_SCALES, np.float32)
+
+
+def boundary_bits(x, delta: int, seed: int = 0):
+    """uint32 bits of x's shape on the stochastic int8 rounding's boundary:
+    bits >> 8 = floor((v - floor(v)) * 2^24) + delta (clipped to [0,
+    2^24)), v = x / scale in f32 as the wire format computes it (x finite,
+    its rows' scales normal), the low 8 bits random.  The rounding adds 1
+    where (bits >> 8) * 2^-24 < v - floor(v): at delta -1 an element with
+    v - floor(v) > 0 rounds up, at +1 down, and at 0 the result turns on
+    the quotient's last bit."""
+    x = np.asarray(x, np.float32)
+    scale = np.abs(x).max(axis=1, keepdims=True) * np.float32(1.0 / 127.0)
+    v = x / np.where(scale > 0, scale, np.float32(1.0))
+    frac = v - np.floor(v)
+    k = np.floor(frac.astype(np.float64) * 2.0 ** 24).astype(np.int64) + delta
+    k = np.clip(k, 0, 2 ** 24 - 1).astype(np.uint32)
+    low = np.random.default_rng(seed).integers(0, 256, x.shape, dtype=np.uint64)
+    return (k << np.uint32(8)) | low.astype(np.uint32)

@@ -485,16 +485,18 @@ def test_quant_kernels_bitwise_plain(cuda, R, N, offset, dtype, stochastic):
             assert bool(torch.isinf(a[1][3]))
 
 
-def _pack_int8_with(x, warps_per_row, vecs_per_lane):
-    """The nearest-even int8 pack at a geometry of the caller's choosing."""
+def _pack_int8_with(x, warps_per_row, vecs_per_lane, bits=None):
+    """An int8 pack (nearest even, or stochastic with ``bits``) at a
+    geometry of the caller's choosing."""
     from repro_torch.kernels import quant as Q
 
     R, N = x.shape
     out = torch.empty((R, N), dtype=torch.int8, device=x.device)
     scale = torch.empty((R,), dtype=torch.float32, device=x.device)
     err = Q._lib().quant_pack_int8(
-        x.data_ptr(), None, out.data_ptr(), scale.data_ptr(), R, N,
-        warps_per_row, vecs_per_lane, torch.cuda.current_stream().cuda_stream)
+        x.data_ptr(), None if bits is None else bits.data_ptr(),
+        out.data_ptr(), scale.data_ptr(), R, N, warps_per_row, vecs_per_lane,
+        torch.cuda.current_stream().cuda_stream)
     assert err == 0
     return out, scale
 
@@ -505,14 +507,70 @@ def _pack_int8_with(x, warps_per_row, vecs_per_lane):
 def test_int8_pack_every_geometry_bitwise_plain(cuda, R, N, offset):
     """Every (warps a row, float4 a thread) the kernel takes, including
     register arrays too small for the row (whose rest is read twice),
-    gives the plain version's values and scales."""
-    x, _ = _quant_inputs(R, N, seed=R * N, cuda=cuda, offset=offset)
-    want = ref.quantize_rows_ref(x, "int8")
-    for W in (1, 2, 4, 8):
-        for K in (2, 4, 8, 16):
-            got = _pack_int8_with(x, W, K)
-            torch.cuda.synchronize()
-            assert all(_same_bits(g, w) for g, w in zip(got, want)), (W, K)
+    gives the plain version's values and scales, rounding to nearest even
+    and stochastically."""
+    from repro_torch.kernels import quant as Q
+
+    x, bits = _quant_inputs(R, N, seed=R * N, cuda=cuda, offset=offset)
+    for b in (None, bits):
+        want = ref.quantize_rows_ref(x, "int8", b)
+        for W in (1, 2, 4, 8):
+            for K in Q.VECS_PER_LANE:
+                got = _pack_int8_with(x, W, K, b)
+                torch.cuda.synchronize()
+                assert all(_same_bits(g, w) for g, w in zip(got, want)), (
+                    W, K, b is not None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N,x_offset", [(8192, 1280, 0), (6, 1281, 1),
+                                          (9, 5000, 3), (6, 20001, 2)])
+def test_int8_stochastic_pack_bits_at_every_phase_bitwise_plain(cuda, R, N,
+                                                                x_offset):
+    """The random bits as views 0-3 elements into their buffer, so at
+    every 16-byte phase against x's (the kernel then loads them 16, 8 or
+    4 bytes at a time): values and scales bitwise the plain version, two
+    launches bitwise equal, through the plan and at every (W, K)."""
+    from repro_torch.kernels import quant as Q
+
+    x, bits = _quant_inputs(R, N, seed=R + N, cuda=cuda, offset=x_offset)
+    for b_offset in range(4):
+        b = _offset(bits, b_offset)
+        want = ref.quantize_rows_ref(x, "int8", b)
+        got = [Q.quantize_rows(x, "int8", b) for _ in range(2)]
+        if R * N < 100_000:
+            got += [_pack_int8_with(x, W, K, b) for W in (1, 2, 4, 8)
+                    for K in Q.VECS_PER_LANE]
+        torch.cuda.synchronize()
+        for parts in got:
+            assert all(_same_bits(g, w) for g, w in zip(parts, want)), b_offset
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+@pytest.mark.parametrize("R,N", [(8, 1280), (6, 20001), (8192, 1280)])
+def test_int8_stochastic_pack_boundary_bits_bitwise_plain(cuda, R, N, delta):
+    """Bits on the stochastic comparison's boundary (bits >> 8 =
+    floor((v - floor(v)) * 2^24) + delta, tests/_quant_cases.py): the
+    kernel's values equal the plain version's, through the plan and at
+    every (W, K), so its quotient is the IEEE one to the last bit."""
+    from _quant_cases import boundary_bits
+    from repro_torch.kernels import quant as Q
+
+    rng = np.random.default_rng(R + N)
+    x_np = (rng.normal(size=(R, N)) * 3.0).astype(np.float32)
+    x_np[1, :4] = (127.0, -1.0, 0.5, 0.0)
+    bits = torch.from_numpy(boundary_bits(x_np, delta, seed=N).view(
+        np.int32)).to(cuda)
+    x = torch.from_numpy(x_np).to(cuda)
+    want = ref.quantize_rows_ref(x, "int8", bits)
+    got = [Q.quantize_rows(x, "int8", bits)]
+    if R * N < 200_000:
+        got += [_pack_int8_with(x, W, K, bits) for W in (1, 2, 4, 8)
+                for K in Q.VECS_PER_LANE]
+    torch.cuda.synchronize()
+    for parts in got:
+        assert all(_same_bits(g, w) for g, w in zip(parts, want))
 
 
 @pytest.mark.gpu

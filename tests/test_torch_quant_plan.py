@@ -1,11 +1,18 @@
 """The int8 wire-format kernels' geometry (kernels/quant.py::plan_pack_int8
-and ::plan_unpack_int8) on the CPU, and the library call that chip_smoke.py
-times beside the int8 unpack.
+and ::plan_unpack_int8) on the CPU, the stochastic int8 pack's plain
+version against the JAX package where the kernel's design is most exposed,
+and the library call that chip_smoke.py times beside the int8 unpack.
 
 The kernels run only on a card; here the index arithmetic that
 ``csrc/quant.cu`` states for them is replayed over each plan, at every
 (R, N) of chip_smoke.py's quant phase and every alignment of x or v mod 16
-bytes: every element and every scale is taken exactly once.  And
+bytes (for the stochastic pack, also of its random bits): every element,
+every bit word and every scale is taken exactly once, and every load of
+bits is aligned to its width.  The plain stochastic pack is bitwise the
+JAX package's reference and Pallas kernel (interpret mode) at a row wider
+than REGISTER_N, with x and the bits at different offsets into their
+buffers, and with bits on the stochastic comparison's boundary, where the
+result turns on the quotient's last bit.  And
 ``torch.mul(v, scale[:, None])`` (int8 times f32 promotes to f32, one
 elementwise product) is bitwise the plain version at every normal scale,
 NaN, ±inf and zero included; at a subnormal scale the plain version gives
@@ -28,6 +35,7 @@ from repro_torch.kernels import ref  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+from _quant_cases import boundary_bits  # noqa: E402
 
 SMS = 132
 
@@ -35,7 +43,8 @@ SMS = 132
 def _smoke_shapes():
     """chip_smoke.py's quant (R, N): its distributed run's lookups and
     write-backs (from the run's own set-up, on the CPU), the stress shape,
-    the edge cases and the subnormal rows (8 of them)."""
+    the edge cases (those with bits off x's phase too) and the subnormal
+    rows (8 of them)."""
     from repro_torch.launch.train_dist import build_parser, setup
 
     args = [a if a != "cuda" else "cpu" for a in chip_smoke.DIST_ARGS]
@@ -46,6 +55,7 @@ def _smoke_shapes():
     return sorted({(b, j * d), (D * b, j * d), (D * cap, j * d), (b, d),
                    (D * b, d), chip_smoke.QUANT_STRESS}
                   | {(r, n) for r, n, _ in chip_smoke.QUANT_EDGES}
+                  | {(r, n) for r, n, _, _ in chip_smoke.QUANT_BITS_EDGES}
                   | {(8, n) for n in chip_smoke.QUANT_SUBNORMAL_N})
 
 
@@ -54,7 +64,7 @@ SHAPES = _smoke_shapes()
 
 def _pack_coverage(R, N, x_mod, plan):
     """How often the pack kernel's threads take each element of x and each
-    scale, replaying csrc/quant.cu::pack_int8_det_kernel's indexing: block
+    scale, replaying csrc/quant.cu::PackRow, both int8 packs' indexing: block
     b's warp w owns row b * (8 / W) + w / W; within a row, thread t < 32 W
     takes the scalar head element t (t < head), float4 j = t + k * 32 W (k
     < K from registers, then on, read twice) and tail element t; thread 0
@@ -111,6 +121,130 @@ def test_pack_plan_switches_to_the_wide_path_past_register_n():
             assert (N // 4 <= kept) == (N == n)
     assert tq.plan_pack_int8(2, 1280, SMS) == tq.Int8Plan(8, 2)
     assert tq.plan_pack_int8(8192, 1280, SMS) == tq.Int8Plan(2, 8)
+
+
+def _bits_loads(bits_mod, x_mod, word):
+    """The loads (first word, words) of csrc/quant.cu::ld_bits4 for the
+    four bit words from ``word`` on: one of 4 where the bits' phase
+    against x (bits_mod - x_mod mod 4) is 0, two of 2 where it is 2, else
+    four of 1."""
+    width = {0: 4, 2: 2}.get((bits_mod - x_mod) % 4, 1)
+    return [(word + i, width) for i in range(0, 4, width)]
+
+
+def _stochastic_coverage(R, N, x_mod, bits_mod, plan):
+    """The stochastic pack's reads of its random bits, replaying
+    csrc/quant.cu::pack_int8_stochastic_kernel over rows 0-3 (a row's head
+    depends on its start mod 4 only): thread t < 32 W reads the head word
+    t (t < head), the four words of float4 j = t + k * 32 W with ld_bits4
+    (k < K into registers before the amax, then on after it, once), and
+    the tail word t.  Returns, per row, how often each word is read, and
+    the loads whose address (bits at 4 * bits_mod mod 16 bytes) is not a
+    multiple of their width."""
+    W, K = plan.warps_per_row, plan.vecs_per_lane
+    T = 32 * W
+    reads, misaligned = {}, []
+    for r in range(min(R, 4)):
+        base = r * N
+        h = min(N, (4 - (x_mod + base) % 4) % 4)
+        nvec, tail = (N - h) // 4, (N - h) % 4
+        count = np.zeros(N, np.int64)
+        count[:h] += 1
+        for t in range(T):
+            j = t
+            while j < nvec:
+                for word, width in _bits_loads(bits_mod, x_mod, h + 4 * j):
+                    count[word:word + width] += 1
+                    if (4 * bits_mod + 4 * (base + word)) % (4 * width):
+                        misaligned.append((r, word, width))
+                j += T
+        count[h + 4 * nvec:h + 4 * nvec + tail] += 1
+        reads[r] = count
+    return reads, misaligned
+
+
+@pytest.mark.parametrize("bits_mod", [0, 1, 2, 3])
+@pytest.mark.parametrize("x_mod", [0, 1, 2, 3])
+@pytest.mark.parametrize("R,N", SHAPES)
+def test_stochastic_pack_plan_reads_every_bit_word_once_aligned(R, N, x_mod,
+                                                                bits_mod):
+    """The stochastic pack takes the nearest-even pack's plan and indexing
+    (every element and scale once, as above) and reads each random-bit
+    word once, with loads as wide as the bits' phase against x allows and
+    aligned to their width; its register arrays hold the row up to
+    REGISTER_N."""
+    plan = tq.plan_pack_int8(R, N, SMS)
+    assert plan.vecs_per_lane in tq.VECS_PER_LANE
+    scale_hits, hits = _pack_coverage(R, N, x_mod, plan)
+    assert (scale_hits == 1).all()
+    assert all((count == 1).all() for count in hits.values())
+    reads, misaligned = _stochastic_coverage(R, N, x_mod, bits_mod, plan)
+    assert not misaligned, misaligned[:5]
+    for r, count in reads.items():
+        assert (count == 1).all(), (r, np.flatnonzero(count != 1)[:5])
+    if N <= tq.REGISTER_N:
+        assert N // 4 <= 32 * plan.warps_per_row * plan.vecs_per_lane
+
+
+def _jax_int8_packs(x, bits):
+    """The JAX package's stochastic int8 pack of x with bits: its jnp
+    reference and its Pallas kernel in interpret mode."""
+    jx, jb = jnp.asarray(x), jnp.asarray(bits.astype(np.uint32))
+    return (jq.quantize_rows_ref(jx, "int8", jb),
+            jq.quantize_rows(jx, "int8", jb, use_pallas=True, interpret=True))
+
+
+def _assert_packs_equal(got, wants):
+    for want in wants:
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy().view(np.uint8),
+                                          np.asarray(w).view(np.uint8))
+
+
+@pytest.mark.parametrize("case", ["wider_than_register_n", "bits_off_x"])
+def test_plain_stochastic_pack_bitwise_jax_where_the_kernel_is_exposed(case):
+    """A row 5 elements wider than REGISTER_N (the kernel reads x's rest
+    twice and its bits' rest once), and x and the bits as views 1 and 3
+    elements into their buffers (off each other's 16-byte phase, as the
+    kernel's narrower bit loads take them): the plain stochastic pack is
+    bitwise JAX's reference and Pallas kernel."""
+    R, N = (3, tq.REGISTER_N + 5) if case == "wider_than_register_n" else (6, 1281)
+    rng = np.random.default_rng(N)
+    x = (rng.normal(size=(R, N)) * 3.0).astype(np.float32)
+    x[1, -1] = 127.0
+    bits = rng.integers(0, 2 ** 32, (R, N), dtype=np.uint64).astype(np.uint32)
+    tx, tb = torch.from_numpy(x), torch.from_numpy(bits.view(np.int32))
+    if case == "bits_off_x":
+        tx = torch.cat([torch.zeros(1), tx.ravel()])[1:].view(R, N)
+        tb = torch.cat([torch.zeros(3, dtype=torch.int32), tb.ravel()])[3:].view(R, N)
+        assert tx.storage_offset() == 1 and tb.storage_offset() == 3
+    got = tq.quantize_rows(tx, "int8", tb)
+    _assert_packs_equal(got, _jax_int8_packs(x, bits))
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_plain_stochastic_pack_bitwise_jax_at_boundary_bits(delta):
+    """Bits with bits >> 8 = floor((v - floor(v)) * 2^24) + delta
+    (tests/_quant_cases.py::boundary_bits): the plain stochastic pack is
+    bitwise JAX's reference and Pallas kernel at each delta, which pins
+    the quotient v = x / scale to its last bit (one ulp off flips the
+    result at delta 0); at -1 every element off the integer grid rounds
+    up and at +1 down."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(8, 1280)) * 3.0).astype(np.float32)
+    x[1, :4] = (127.0, -1.0, 0.5, 0.0)
+    bits = boundary_bits(x, delta, seed=11)
+    got = tq.quantize_rows(torch.from_numpy(x), "int8",
+                           torch.from_numpy(bits.view(np.int32)))
+    _assert_packs_equal(got, _jax_int8_packs(x, bits))
+    scale = np.abs(x).max(axis=1, keepdims=True) * np.float32(1.0 / 127.0)
+    v = x / scale
+    lo, off_grid = np.floor(v), v != np.floor(v)
+    k = bits >> np.uint32(8)
+    clear = off_grid & (k > 0) & (k < 2 ** 24 - 1)
+    if delta:
+        want = np.clip(lo + (delta < 0), -127, 127)
+        np.testing.assert_array_equal(got[0].numpy()[clear], want[clear])
 
 
 def _unpack_coverage(R, N, v_mod, groups):

@@ -8,9 +8,11 @@ distributed training path on the card, each also over the tiered store,
 at the repo's full model width
 (GNNConfig / ServeConfig / run_experiment defaults: hidden 64, 2
 message-passing layers, max_seg_nodes 64, batch 8), and the sequence
-track's serving path on internlm2-1.8b at full width and depth, with
-random weights from a seed, and holds each hand-written kernel against
-its plain PyTorch version.  Phases, in order; an error in any of them
+track's serving path on internlm2-1.8b at full width and depth and on
+qwen2-vl-7b, arctic-480b, deepseek-v3-671b and whisper-large-v3 at full
+width (the two MoE models cut in depth to fit the card), with random
+weights from a seed, and holds each hand-written kernel against its
+plain PyTorch version.  Phases, in order; an error in any of them
 fails the run (none catches its own):
 
   1. card       the device name and nvidia-smi's name and power limit
@@ -49,7 +51,9 @@ fails the run (none catches its own):
                 swa_attention (1e-5) at (B, S, H, KV, D, W) (2, 256, 4, 2,
                 64, 128), (1, 2048, 16, 8, 128, full), (1, 4096, ..., 1024),
                 (2, 1000, ..., 300), (1, 1, ..., full), (1, 777, 6, 1, 128,
-                1), (2, 513, 8, 8, 64, 33) against the (B, H, S, S) oracle,
+                1), (2, 513, 8, 8, 64, 33) and seq_families' head shapes
+                (1, 2048, 28, 4, 128, full), (1, 2048, 56, 8, 128, full),
+                (2, 448, 20, 20, 64, full) against the (B, H, S, S) oracle,
                 and (1, 32768, 16, 8, 128, full) against the plain chunked
                 attention, beside scaled_dot_product_attention, with its
                 3xTF32 tensor-core bound and its f32 FMA bound
@@ -112,9 +116,23 @@ fails the run (none catches its own):
                 (f) encode_segment over 8 documents x 8 segments x 512
                 tokens, kernel = plain (5e-4).  24 swa_attention launches
                 in each of (b)-(f); then one profiled prefill of (c)
- 10. kernels    one JSON line: per kernel, launches on the main path
+ 10. seq_families  the attention families at full width, f32, random
+                weights from seed 0, one at a time (card memory printed
+                before each build): qwen2-vl-7b (M-RoPE, patches),
+                arctic-480b cut to 1 of 35 layers, deepseek-v3-671b cut
+                to 1 dense + 1 MoE layer of 61, whisper-large-v3
+                (encoder-decoder).  Each: (a) launch.serve.serve B 2,
+                prompt 16, 16 generated, ms a token; (b) prefill of that
+                prompt = the decode loop (logits, every cache, 5e-4);
+                (c) prefill B 1, S 2048 (qwen2-vl's first 256 positions
+                patches; whisper: 1500 frames, decoder S 448), kernel path
+                = plain path, seconds and peak memory above the weights;
+                (d) encode_segment 8 x 512 tokens (whisper 8 x 1500
+                frames), kernel = plain; a profiled decode step.
+                swa_attention launches a pass: 28, 1, 0 (MLA), 32
+ 11. kernels    one JSON line: per kernel, launches on the main path
                 (serving, training, distributed training, the store's
-                (a), (c) and (d), and seq_serve),
+                (a), (c) and (d), seq_serve and seq_families),
                 error, times and bound
 
     python3 chip_smoke.py --turns PARENT_DIR
@@ -223,11 +241,14 @@ SEQ_ARCH = "internlm2-1.8b"
 # full model at 2048 tokens, a windowed 4096, S and W not multiples of a
 # tile, one token, a GQA ratio of 6 on one KV head with only the diagonal
 # visible (S ragged), no GQA at D 64 with a window across a tile edge;
-# then prefill_32k's length at batch 1
+# the head shapes of seq_families' prefills: qwen2-vl-7b and arctic-480b
+# at 2048 tokens (G 7), whisper-large-v3's decoder at B 2, S 448 (G 1, D
+# 64); then prefill_32k's length at batch 1
 SWA_SHAPES = [(2, 256, 4, 2, 64, 128), (1, 2048, 16, 8, 128, None),
               (1, 4096, 16, 8, 128, 1024), (2, 1000, 16, 8, 128, 300),
               (1, 1, 16, 8, 128, None), (1, 777, 6, 1, 128, 1),
-              (2, 513, 8, 8, 64, 33)]
+              (2, 513, 8, 8, 64, 33), (1, 2048, 28, 4, 128, None),
+              (1, 2048, 56, 8, 128, None), (2, 448, 20, 20, 64, None)]
 SWA_LONG = (1, 32768, 16, 8, 128, None)
 SWA_HEADLINE = 1
 SEQ_TOL = 5e-4   # forward vs decode, kernel vs plain model (test_models.py:40)
@@ -240,6 +261,17 @@ SEQ_PREFILL = (2, 2048)
 SEQ_LONG = (1, 32768)
 SEQ_WINDOW_S = 16384
 SEQ_DOCS = (8, 8, 512)
+# seq_families: (arch, layers kept (None: all), swa_attention launches a
+# full-sequence pass).  arctic-480b and deepseek-v3-671b keep their full
+# width and lose depth to fit the card in f32 (1 layer: 52.4 GiB; 1 dense
+# + 1 MoE layer: 51.9 GiB); deepseek-v3's MLA runs no swa_attention
+FAMILY_RUNS = [("qwen2-vl-7b", None, 28), ("arctic-480b", 1, 1),
+               ("deepseek-v3-671b", 2, 0), ("whisper-large-v3", None, 32)]
+# (c)'s prefill (B, S): whisper's decoder S is the public model's
+# max_target_positions, over its 1500 frames; (d)'s segments (B, S)
+FAMILY_PREFILL = (1, 2048)
+WHISPER_DECODER_S = 448
+FAMILY_DOCS = (8, 512)
 
 
 def log(msg: str) -> None:
@@ -2029,7 +2061,7 @@ def prefill_gemm_flops(params, cfg, batch, seq):
     return 2 * batch * seq * layers + 2 * batch * head
 
 
-def profiled(torch, fn, label, gemm_flops=None):
+def profiled(torch, fn, label, gemm_flops=None, tag="seq_serve"):
     """One warm call of ``fn``, then one under torch.profiler: device
     events, their summed time by kind (the attention kernel, matmuls, the
     rest), and the busy share of the wall time (a lower bound: the
@@ -2053,7 +2085,7 @@ def profiled(torch, fn, label, gemm_flops=None):
                 "gemm" if "gemm" in e.name.lower() else "other")
         by[kind] += e.time_range.elapsed_us() / 1e3
     busy = sum(by.values())
-    log(f"[seq_serve] profiled {label}: {len(events)} device events, busy "
+    log(f"[{tag}] profiled {label}: {len(events)} device events, busy "
         f"{busy:.3f} ms of {wall_ms:.3f} ms wall (busy share "
         f"{busy / wall_ms:.4f}): swa_attention {by['swa_attention']:.3f} ms, "
         f"matmuls {by['gemm']:.3f} ms, other {by['other']:.3f} ms")
@@ -2062,10 +2094,253 @@ def profiled(torch, fn, label, gemm_flops=None):
     if gemm_flops:
         res["gemm_tflops"] = gemm_flops / 1e12
         res["gemm_tflop_per_s"] = gemm_flops / (by["gemm"] * 1e-3) / 1e12
-        log(f"[seq_serve] profiled {label}: matmuls "
+        log(f"[{tag}] profiled {label}: matmuls "
             f"{res['gemm_tflops']:.3f} TFLOP at "
             f"{res['gemm_tflop_per_s']:.2f} TFLOP/s")
     return res
+
+
+def family_config(arch, layers):
+    """The full-width config of ``arch``, cut to ``layers`` layers (None:
+    all); deepseek-v3's two are one dense and one MoE layer."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers is None:
+        return cfg
+    if cfg.use_mla:
+        return dataclasses.replace(cfg, num_layers=layers,
+                                   block_pattern=("dense", "moe"))
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def family_inputs(torch, cfg, B, S, seed, dev, patches=True):
+    """Tokens, then the VLM's patches or the encoder-decoder's frames, drawn
+    from one numpy generator in the order launch/serve.py draws them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (B, S))).to(dev)}
+    if cfg.family == "vlm" and patches:
+        out["patches"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.vision_prefix_len, cfg.d_model))).float().to(dev)
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.encoder_seq_len, cfg.d_model))).float().to(dev)
+    return out
+
+
+def tree_max_diff(torch, a, b):
+    """Max abs diff over the leaves of two cache trees; integer leaves (the
+    MoE counters) must be equal."""
+    from repro_torch.models.common import flatten_tree
+
+    fa, fb = dict(flatten_tree(a)), dict(flatten_tree(b))
+    if set(fa) != set(fb):
+        raise AssertionError(f"cache trees differ: {sorted(fa)} {sorted(fb)}")
+    worst = 0.0
+    for name, x in fa.items():
+        if x.shape != fb[name].shape:
+            raise AssertionError(f"{name}: {tuple(x.shape)} != "
+                                 f"{tuple(fb[name].shape)}")
+        if not x.is_floating_point():
+            if not torch.equal(x, fb[name]):
+                raise AssertionError(f"{name} differs")
+            continue
+        torch.testing.assert_close(x, fb[name], rtol=SEQ_TOL, atol=SEQ_TOL)
+        worst = max(worst, max_diff(torch, x, fb[name]))
+    return worst
+
+
+def phase_seq_families(torch, dev):
+    """Sequence serving of the attention families at full width, f32,
+    random weights from seed 0 drawn on the card, one model at a time
+    (each freed before the next): qwen2-vl-7b (M-RoPE, patches),
+    arctic-480b (1 layer), deepseek-v3-671b (1 dense + 1 MoE layer) and
+    whisper-large-v3 (encoder-decoder).  For each: (a) launch.serve.serve
+    at B 2, prompt 16, 16 generated; (b) prefill of that prompt = the
+    decode loop (last logits, every cache; 5e-4); (c) prefill at B 1, S
+    2048 (qwen2-vl: its first 256 positions patches; whisper: 1500 frames
+    and a decoder S of 448), kernel path = plain path, seconds of a call
+    after a warm-up call and peak memory above the weights; (d) encode_segment at 8 x 512 tokens
+    (whisper: 8 x 1500 frames), kernel = plain; then one profiled decode
+    step.  swa_attention launches: the table's count a pass in (b)-(d)
+    (whisper's encode_segment runs the encoder alone: none); all on the
+    main path.  Returns (launches, summary)."""
+    import types
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, encdec
+    from repro_torch.models.common import flatten_tree
+
+    main, out = 0, []
+
+    def counted(fn, want):
+        nonlocal main
+        ops.reset_kernel_launches()
+        res, secs = synced_s(torch, fn)
+        got = launched(ops.kernel_launches())
+        if got != ({"swa_attention": want} if want else {}):
+            raise AssertionError(f"launches {got}, want {want} swa_attention")
+        main += want
+        return res, secs
+
+    for arch, layers, per_pass in FAMILY_RUNS:
+        before = torch.cuda.memory_allocated(dev)
+        free, total = torch.cuda.mem_get_info(dev)
+        log(f"[seq_families] {arch}: card memory free {free / 2**30:.3f} of "
+            f"{total / 2**30:.3f} GiB before the build")
+        cfg = family_config(arch, layers)
+        kern = build_model(cfg, use_kernels=True, device=dev)
+        plain = build_model(cfg, use_kernels=False, device=dev)
+        params, init_s = synced_s(torch, lambda: kern.init(
+            torch.Generator(dev).manual_seed(0)))
+        # no list of the leaves: it would keep the weights alive past the
+        # model's own loop iteration
+        n_params = sum(t.numel() for _, t in flatten_tree(params))
+        weights = sum(t.numel() * t.element_size()
+                      for _, t in flatten_tree(params))
+        res = {"arch": arch, "layers": cfg.num_layers,
+               "full_depth_layers": family_config(arch, None).num_layers,
+               "params": n_params, "weight_bytes": weights,
+               "init_s": init_s, "swa_launches_per_pass": per_pass}
+        log(f"[seq_families] {arch}: {n_params} parameters, "
+            f"{weights / 2**30:.3f} GiB ({cfg.num_layers} of "
+            f"{res['full_depth_layers']} layers, d_model {cfg.d_model}, "
+            f"{cfg.num_heads} x {cfg.num_kv_heads} heads of "
+            f"{cfg.resolved_head_dim}), f32, drawn on the card in "
+            f"{init_s:.3f} s")
+
+        # (a) the serving launcher
+        B, prompt, n_gen = SEQ_SERVE
+        args = types.SimpleNamespace(arch=arch, reduced=False, batch=B,
+                                     prompt_len=prompt, gen=n_gen, seed=0,
+                                     device=dev.type)
+        steps = prompt + n_gen - 1
+        gen, cold_s = counted(lambda: serve.serve(args, params, cfg), 0)
+        gen2, warm_s = counted(lambda: serve.serve(args, params, cfg), 0)
+        if gen.shape != (B, n_gen) or not (gen == gen2).all() \
+                or gen.min() < 0 or gen.max() >= cfg.vocab_size:
+            raise AssertionError(f"serve generated {gen.shape} {gen2.shape}")
+        res["serve"] = {"batch": B, "prompt": prompt, "gen": n_gen,
+                        "ms_per_token_cold": cold_s / steps * 1e3,
+                        "ms_per_token": warm_s / steps * 1e3,
+                        "sample": gen[0][:8].tolist()}
+        log(f"[seq_families] {arch} (a) serve B {B} prompt {prompt} gen "
+            f"{n_gen}: {res['serve']['ms_per_token']:.3f} ms a token (first "
+            f"call {res['serve']['ms_per_token_cold']:.3f}); sample "
+            f"{res['serve']['sample']}")
+
+        # (b) prefill of that prompt (text only: decode has no patches) =
+        # the decode loop, with the MoE capacity of the prompt's length
+        inp = family_inputs(torch, cfg, B, prompt, args.seed, dev,
+                            patches=False)
+        (lp, cp), _ = counted(lambda: kern.prefill(params, inp), per_pass)
+        caches = kern.init_cache(B, prompt)
+        if cfg.is_encoder_decoder:
+            caches = {"self": caches, "cross": encdec.cross_kv(
+                params, cfg, encdec.encode(params, cfg, inp["frames"]))}
+        for t in range(prompt):
+            ld, caches = kern.decode_step(
+                params, inp["tokens"][:, t:t + 1], caches,
+                torch.full((B,), t, device=dev), moe_cap_len=prompt)
+        torch.testing.assert_close(lp, ld, rtol=SEQ_TOL, atol=SEQ_TOL)
+        res["prefill_vs_decode"] = {"logits": max_diff(torch, lp, ld),
+                                    "caches": tree_max_diff(torch, cp, caches)}
+        log(f"[seq_families] {arch} (b) prefill = decode loop (B {B}, "
+            f"{prompt} tokens): max diff logits "
+            f"{res['prefill_vs_decode']['logits']:.3e}, caches "
+            f"{res['prefill_vs_decode']['caches']:.3e} (tol {SEQ_TOL}); "
+            f"{per_pass} swa_attention launches")
+        del lp, cp, ld, caches
+
+        # (c) prefill at full length, kernel path = plain path
+        Bc, S = FAMILY_PREFILL
+        if cfg.is_encoder_decoder:
+            S = WHISPER_DECODER_S
+        inp = family_inputs(torch, cfg, Bc, S, 1, dev)
+        runs = {}
+        for label, model, want in (("kernel", kern, per_pass),
+                                   ("plain", plain, 0)):
+            model.prefill(params, inp)  # warm-up, outside the counts
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            (lg, c), secs = counted(lambda: model.prefill(params, inp), want)
+            runs[label] = (lg, c, secs,
+                           torch.cuda.max_memory_allocated(dev) - base)
+        (lk, ck, k_s, k_peak), (lp, cp, p_s, p_peak) = \
+            runs["kernel"], runs["plain"]
+        if tuple(lk.shape) != (Bc, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(lk).all()):
+            raise AssertionError("prefill: non-finite or misshapen logits")
+        torch.testing.assert_close(lk, lp, rtol=SEQ_TOL, atol=SEQ_TOL)
+        res["prefill"] = {
+            "B": Bc, "S": S, "kernel_s": k_s, "plain_s": p_s,
+            "kernel_peak_bytes": k_peak, "plain_peak_bytes": p_peak,
+            "max_diff_logits": max_diff(torch, lk, lp),
+            "max_diff_caches": tree_max_diff(torch, ck, cp)}
+        if cfg.family == "vlm":
+            res["prefill"]["patches"] = cfg.vision_prefix_len
+        if cfg.is_encoder_decoder:
+            res["prefill"]["frames"] = cfg.encoder_seq_len
+        log(f"[seq_families] {arch} (c) prefill B {Bc} S {S}"
+            + (f" ({cfg.vision_prefix_len} patches)" if cfg.family == "vlm"
+               else f" over {cfg.encoder_seq_len} frames"
+               if cfg.is_encoder_decoder else "")
+            + f": kernel path {k_s:.3f} s ({per_pass} swa_attention "
+            f"launches), peak {k_peak / 2**30:.3f} GiB above the weights; "
+            f"plain path {p_s:.3f} s, peak {p_peak / 2**30:.3f} GiB; max "
+            f"diff logits {res['prefill']['max_diff_logits']:.3e}, caches "
+            f"{res['prefill']['max_diff_caches']:.3e} (tol {SEQ_TOL})")
+        del runs, lk, ck, lp, cp
+
+        # (d) GST's segment encoder
+        docs, seg_len = FAMILY_DOCS
+        inp = family_inputs(torch, cfg, docs,
+                            1 if cfg.is_encoder_decoder else seg_len, 2, dev)
+        want = 0 if cfg.is_encoder_decoder else per_pass
+        (ek, _), d_s = counted(lambda: kern.encode_segment(params, inp), want)
+        (ep, _), dp_s = synced_s(torch, lambda: plain.encode_segment(params,
+                                                                     inp))
+        if tuple(ek.shape) != (docs, cfg.d_model):
+            raise AssertionError(f"encode_segment: {tuple(ek.shape)}")
+        torch.testing.assert_close(ek, ep, rtol=SEQ_TOL, atol=SEQ_TOL)
+        n = cfg.encoder_seq_len if cfg.is_encoder_decoder else seg_len
+        res["encode_segment"] = {"docs": docs, "tokens": n,
+                                 "kernel_s": d_s, "plain_s": dp_s,
+                                 "max_diff": max_diff(torch, ek, ep)}
+        log(f"[seq_families] {arch} (d) encode_segment {docs} x {n} "
+            f"{'frames' if cfg.is_encoder_decoder else 'tokens'}: kernel "
+            f"path {d_s:.3f} s ({want} swa_attention launches), plain path "
+            f"{dp_s:.3f} s, max diff {res['encode_segment']['max_diff']:.3e} "
+            f"(tol {SEQ_TOL})")
+        del ek, ep
+
+        # where one decode step's device time goes (B 2, cache 32)
+        inp = family_inputs(torch, cfg, B, 1, 5, dev, patches=False)
+        caches = kern.init_cache(B, prompt + n_gen)
+        if cfg.is_encoder_decoder:
+            caches = {"self": caches, "cross": encdec.cross_kv(
+                params, cfg, encdec.encode(params, cfg, inp["frames"]))}
+        pos = torch.full((B,), prompt, device=dev)
+        res["decode_profile"] = profiled(
+            torch, lambda: kern.decode_step(params, inp["tokens"], caches,
+                                            pos),
+            f"{arch} decode step B {B}, cache {prompt + n_gen}",
+            tag="seq_families")
+        out.append(res)
+        del params, caches, inp, kern, plain
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated(dev) - before
+        if left > 2**30:
+            raise AssertionError(f"{arch}: {left / 2**30:.3f} GiB still "
+                                 "allocated after its model was freed")
+    return main, out
+
 
 
 def kernel_entry(name, source, replaces, launches, rows, headline):
@@ -2197,6 +2472,8 @@ def main() -> int:
     dist_profile = phase_dist_profile(torch)
     dist_scaling = phase_dist_scaling(torch)
     main_launches["swa_attention"], seq_serve = phase_seq_serve(torch, dev)
+    family_launches, seq_families = phase_seq_families(torch, dev)
+    main_launches["swa_attention"] += family_launches
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -2228,9 +2505,13 @@ def main() -> int:
         "swa_attention", csrc + "swa_attention.cu",
         "src/repro/kernels/swa_attention.py:27",
         main_launches["swa_attention"], swa_rows, SWA_HEADLINE))
-    kernels[-1].update(tc_bound_ms=swa_rows[SWA_HEADLINE]["tc_bound_ms"],
-                       fma_bound_ms=swa_rows[SWA_HEADLINE]["fma_bound_ms"],
-                       build=swa_build)
+    kernels[-1].update(
+        launches_by_path={
+            "seq_serve": main_launches["swa_attention"] - family_launches,
+            "seq_families": family_launches},
+        tc_bound_ms=swa_rows[SWA_HEADLINE]["tc_bound_ms"],
+        fma_bound_ms=swa_rows[SWA_HEADLINE]["fma_bound_ms"],
+        build=swa_build)
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
@@ -2239,6 +2520,7 @@ def main() -> int:
                     "dist_f32_epoch_losses": f32_losses, "store": store,
                     "dist_profile": dist_profile,
                     "dist_scaling_ms": dist_scaling, "seq_serve": seq_serve,
+                    "seq_families": seq_families,
                     "card": smi,
                     "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))

@@ -7,16 +7,20 @@ Counterpart of ``src/repro/launch/serve.py``:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --batch 2 --prompt-len 16 --gen 16
 
-    # the reduced model on the CPU
+    # a reduced model of any ported family on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-        --arch internlm2-1.8b --reduced
+        --arch internlm2-1.8b --reduced   # or arctic-480b, deepseek-v3-671b,
+                                          # qwen2-vl-7b, whisper-large-v3
 
 Runs on the card (``--device cuda``, the default; it raises where no card
 is visible) unless ``--device cpu`` is given.  As in the reference, the
 prompt is run through ``decode_step`` token by token (the cache is as long
 as prompt + generated tokens), so no full-sequence pass and no attention
-kernel runs here: ``Model.prefill`` is the full forward that does.  Only
-the dense family is ported (ROADMAP A4).
+kernel runs here: ``Model.prefill`` is the full forward that does.  The
+VLM's patches and the encoder-decoder's frames are drawn as the reference
+draws them; the patches go unused (decode has no patch prefix, as in the
+reference), the frames are encoded once into the cross-attention K/V
+before the decode loop.
 """
 from __future__ import annotations
 
@@ -28,17 +32,19 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced as reduce_cfg
-from repro_torch.models import build_model
+from repro_torch.models import build_model, encdec
 
 
-def serve(args, params=None):
+def serve(args, params=None, cfg=None):
     """Returns the generated tokens, (batch, gen) int.  ``params``: weights
     to serve (e.g. carried over from the JAX package); None draws them from
-    ``--seed`` on the device."""
+    ``--seed`` on the device.  ``cfg``: the config to serve (e.g. one cut
+    in depth); None takes ``--arch``'s, reduced with ``--reduced``."""
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduce_cfg(cfg)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduce_cfg(cfg)
     model = build_model(cfg, device=device)
     if params is None:
         params = model.init(torch.Generator(device).manual_seed(args.seed))
@@ -47,10 +53,21 @@ def serve(args, params=None):
     rng = np.random.default_rng(args.seed)
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (B, args.prompt_len))).to(device)
+    inputs = {"tokens": tokens}
+    if cfg.family == "vlm":
+        inputs["patches"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.vision_prefix_len, cfg.d_model))).float().to(device)
+    if cfg.is_encoder_decoder:
+        inputs["frames"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.encoder_seq_len, cfg.d_model))).float().to(device)
 
     t0 = time.time()
     # prefill by running decode over the prompt (cache len = total)
     caches = model.init_cache(B, total, torch.float32)
+    if cfg.is_encoder_decoder:
+        enc_out = encdec.encode(params, cfg, inputs["frames"])
+        caches = {"self": caches,
+                  "cross": encdec.cross_kv(params, cfg, enc_out)}
     out_tokens = []
     cur = tokens[:, :1]
     for t in range(total - 1):

@@ -45,7 +45,7 @@ def dense_init(d_in: int, d_out: int, generator: torch.Generator,
     w = torch.empty(*lead, d_in, d_out, dtype=torch.float32,
                     device=generator.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def embed_init(vocab: int, d: int, generator: torch.Generator,
@@ -100,6 +100,12 @@ def load_jax_params(target, np_tree):
 # ---------------------------------------------------------------------------
 
 
+def layernorm_params(d: int, dtype=torch.float32, lead: Tuple[int, ...] = (),
+                     device=None):
+    return {"scale": torch.ones(*lead, d, dtype=dtype, device=device),
+            "bias": torch.zeros(*lead, d, dtype=dtype, device=device)}
+
+
 def rmsnorm(p, x, eps: float = 1e-6):
     dt = x.dtype
     x = x.float()
@@ -133,9 +139,7 @@ def make_norm(kind: str, d: int, dtype=torch.float32, lead: Tuple[int, ...] = ()
         return ({"scale": torch.ones(*lead, d, dtype=dtype, device=device)},
                 rmsnorm)
     if kind == "layernorm":
-        return ({"scale": torch.ones(*lead, d, dtype=dtype, device=device),
-                 "bias": torch.zeros(*lead, d, dtype=dtype, device=device)},
-                layernorm)
+        return layernorm_params(d, dtype, lead, device), layernorm
     if kind == "nonparam_ln":
         return {}, lambda p, x: nonparam_ln(x)
     raise ValueError(kind)
@@ -152,11 +156,9 @@ def rope_freqs(head_dim: int, theta: float, device=None):
                                          device=device) / half))
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq)."""
+def _rotate(x, ang):
+    """x (..., seq, heads, D) rotated by ang (..., seq, D/2), in f32."""
     half = x.shape[-1] // 2
-    inv = rope_freqs(x.shape[-1], theta, x.device)
-    ang = positions[..., None].float() * inv  # (..., seq, half)
     cos = torch.cos(ang)[..., None, :]  # (..., seq, 1, half)
     sin = torch.sin(ang)[..., None, :]
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
@@ -164,9 +166,38 @@ def apply_rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
+def apply_rope(x, positions, theta: float):
+    """x: (..., seq, heads, head_dim); positions: broadcastable to (..., seq)."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * inv)
+
+
 def apply_mrope(x, positions_thw, theta: float, sections: Tuple[int, ...]):
-    """Qwen2-VL M-RoPE (the VLM family) is not ported yet."""
-    raise NotImplementedError(f"M-RoPE (qwen2-vl) {_A4}")
+    """Qwen2-VL M-RoPE. [arXiv:2409.12191]
+
+    x: (B, S, H, D); positions_thw: (B, S, 3) temporal/height/width position
+    ids.  ``sections`` splits the D/2 rotary frequencies into (t, h, w)
+    groups; each group rotates by its own position id.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} must sum to D/2 = {half}")
+    inv = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
+    # per-frequency position: section 0 -> t, 1 -> h, 2 -> w
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.as_tensor(sections, device=x.device))  # (half,)
+    pos = positions_thw.float()[..., sec_id]  # (B, S, half)
+    return _rotate(x, pos * inv)
+
+
+def sinusoidal_positions(seq: int, d: int, dtype=torch.float32, device=None):
+    """Whisper-style sinusoidal embeddings, (seq, d): sin then cos of
+    pos / 10000^(i / max(d/2 - 1, 1)), i < d/2."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / max(d // 2 - 1, 1)))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -269,19 +300,30 @@ def chunked_causal_attention(q, k, v, *, window: int = 0, chunk: int = 1024):
     return out.to(q.dtype)
 
 
+def _rotate_qk(q, k, positions, rope_theta, mrope_sections, positions_thw):
+    """q and k rotated by RoPE at ``positions``, or by M-RoPE at
+    ``positions_thw`` where ``mrope_sections`` is set."""
+    if mrope_sections:
+        return (apply_mrope(q, positions_thw, rope_theta, mrope_sections),
+                apply_mrope(k, positions_thw, rope_theta, mrope_sections))
+    return (apply_rope(q, positions, rope_theta),
+            apply_rope(k, positions, rope_theta))
+
+
 def attn_qkv(p, x, *, num_heads: int, num_kv: int, head_dim: int, positions,
-             rope_theta: float, kv_override=None):
+             rope_theta: float, mrope_sections: Tuple[int, ...] = (),
+             positions_thw=None, kv_override=None):
     """The projections of ``attn_forward``, rotated: (q (B, S, H, D),
-    k, v (B, S, KV, D)).  M-RoPE (the reference's ``mrope_sections``)
-    waits for the VLM family."""
+    k, v (B, S, KV, D)).  Cross-attention (``kv_override``) rotates q
+    alone, by plain RoPE, and only where ``rope_theta`` is set."""
     B, S, _ = x.shape
     q = (x @ p["wq"]).reshape(B, S, num_heads, head_dim)
     if kv_override is None:
         k = (x @ p["wk"]).reshape(B, S, num_kv, head_dim)
         v = (x @ p["wv"]).reshape(B, S, num_kv, head_dim)
         if rope_theta:
-            q = apply_rope(q, positions, rope_theta)
-            k = apply_rope(k, positions, rope_theta)
+            q, k = _rotate_qk(q, k, positions, rope_theta, mrope_sections,
+                              positions_thw)
     else:
         k, v = kv_override
         if rope_theta:
@@ -291,7 +333,9 @@ def attn_qkv(p, x, *, num_heads: int, num_kv: int, head_dim: int, positions,
 
 def attn_forward(p, x, *, num_heads: int, num_kv: int, head_dim: int,
                  positions, rope_theta: float, causal: bool = True,
-                 window: int = 0, kv_override=None, use_kernels: bool = True):
+                 window: int = 0, mrope_sections: Tuple[int, ...] = (),
+                 positions_thw=None, kv_override=None,
+                 use_kernels: bool = True):
     """Full attention over a sequence (train / prefill).  Returns (out,
     (k, v)) so the prefill path can emit the cache.  ``kv_override``: (k, v)
     from an encoder for cross-attention.
@@ -303,7 +347,8 @@ def attn_forward(p, x, *, num_heads: int, num_kv: int, head_dim: int,
     B, S, _ = x.shape
     q, k, v = attn_qkv(p, x, num_heads=num_heads, num_kv=num_kv,
                        head_dim=head_dim, positions=positions,
-                       rope_theta=rope_theta, kv_override=kv_override)
+                       rope_theta=rope_theta, mrope_sections=mrope_sections,
+                       positions_thw=positions_thw, kv_override=kv_override)
     if causal and kv_override is None:
         out = ops.sliding_window_attention(
             q, k, v, window=window if window > 0 else S,
@@ -316,10 +361,12 @@ def attn_forward(p, x, *, num_heads: int, num_kv: int, head_dim: int,
 
 def attn_decode(p, x, cache_k, cache_v, cache_pos, *, num_heads: int,
                 num_kv: int, head_dim: int, rope_theta: float,
-                ring: bool = False):
+                ring: bool = False, mrope_sections: Tuple[int, ...] = (),
+                positions_thw=None):
     """One-token cached decode.  x: (B, 1, d); cache_k/v: (B, C, KV, D),
     written in place (``write_cache``) and returned; cache_pos: (B,)
-    absolute position of the new token.
+    absolute position of the new token; positions_thw: (B, 1, 3) its
+    M-RoPE ids where ``mrope_sections`` is set.
 
     ``ring``: cache is a ring buffer of size C: the write index is
     ``cache_pos % C`` and all C slots attend once full (the window is the
@@ -333,8 +380,8 @@ def attn_decode(p, x, cache_k, cache_v, cache_pos, *, num_heads: int,
     k = (x @ p["wk"]).reshape(B, 1, num_kv, head_dim)
     v = (x @ p["wv"]).reshape(B, 1, num_kv, head_dim)
     if rope_theta:
-        q = apply_rope(q, cache_pos[:, None], rope_theta)
-        k = apply_rope(k, cache_pos[:, None], rope_theta)
+        q, k = _rotate_qk(q, k, cache_pos[:, None], rope_theta,
+                          mrope_sections, positions_thw)
     write_idx = (cache_pos % C) if ring else torch.clamp(cache_pos, max=C - 1)
     cache_k = write_cache(cache_k, k, write_idx)
     cache_v = write_cache(cache_v, v, write_idx)
@@ -357,24 +404,28 @@ def attn_decode(p, x, cache_k, cache_v, cache_pos, *, num_heads: int,
 # ---------------------------------------------------------------------------
 
 
-def _check_act(act: str):
-    if act not in ("silu", "swiglu"):
-        raise NotImplementedError(f"activation {act!r} (whisper's gelu, "
-                                  f"rwkv's relu_sq) {_A4}")
-
-
 def mlp_params(generator: torch.Generator, d_model: int, d_ff: int, act: str,
                dtype=torch.float32, lead: Tuple[int, ...] = ()):
-    """The gated (SwiGLU) MLP of the dense family."""
-    _check_act(act)
-    return {
-        "w_in": dense_init(d_model, d_ff, generator, dtype, lead=lead),
-        "w_gate": dense_init(d_model, d_ff, generator, dtype, lead=lead),
-        "w_out": dense_init(d_ff, d_model, generator, dtype,
-                            scale=1.0 / math.sqrt(d_ff), lead=lead),
-    }
+    """The gated (SwiGLU) MLP for ``silu``/``swiglu``, else the plain
+    two-matrix MLP (``gelu``, ``relu_sq``)."""
+    p = {"w_in": dense_init(d_model, d_ff, generator, dtype, lead=lead)}
+    if act in ("silu", "swiglu"):
+        p["w_gate"] = dense_init(d_model, d_ff, generator, dtype, lead=lead)
+    p["w_out"] = dense_init(d_ff, d_model, generator, dtype,
+                            scale=1.0 / math.sqrt(d_ff), lead=lead)
+    return p
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp_forward(p, x, act: str):
-    _check_act(act)
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
+    if act in ("silu", "swiglu"):
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
+    if act == "gelu":
+        return gelu(x @ p["w_in"]) @ p["w_out"]
+    if act == "relu_sq":
+        return torch.square(torch.relu(x @ p["w_in"])) @ p["w_out"]
+    raise ValueError(act)

@@ -5,9 +5,10 @@ into runs of consecutive equal block kinds; each run's parameters (and
 caches) are stacked along a leading layer axis, as the reference stacks
 them for ``lax.scan``, so the trees are the reference's:
 ``runs.<i>.<name>`` with the layer first.  A Python loop over the layers
-of a run takes the place of the scan.  The dense family is one run of
-``attn`` blocks; the other kinds wait for ROADMAP A4 (``blocks.py``), and
-so does the VLM family's M-RoPE and patch prefix.
+of a run takes the place of the scan.  The dense and VLM families are one
+run of ``attn`` blocks, arctic one of ``gqa_moe``, deepseek-v3 a run of
+``mla_dense`` then one of ``mla_moe``; the recurrent kinds wait for
+ROADMAP A4 (``blocks.py``).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
-from repro_torch.models.common import _A4, dense_init, embed_init, make_norm
+from repro_torch.models.common import dense_init, embed_init, make_norm
 
 
 def layer_runs(cfg: ArchConfig) -> List[Tuple[str, int]]:
@@ -63,16 +64,42 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
 # ---------------------------------------------------------------------------
 
 
+def _mrope_ids(cfg: ArchConfig, idx):
+    """Purely positional M-RoPE ids [arXiv:2409.12191], idx (...) ->
+    (..., 3): the first ``vision_prefix_len`` positions are a (t=0, h, w)
+    grid; text positions continue on all three axes after the largest
+    spatial id.  Shared by the full forward and decode, so the caches
+    agree."""
+    P = cfg.vision_prefix_len
+    side = max(int(P ** 0.5), 1)
+    is_vis = idx < P
+    zero = torch.zeros_like(idx)
+    h_id = torch.where(is_vis, (idx % max(P, 1)) // side, zero)
+    w_id = torch.where(is_vis, (idx % max(P, 1)) % side, zero)
+    t_txt = idx - P + side  # text starts after the largest spatial id
+    return torch.stack([torch.where(is_vis, zero, t_txt),
+                        torch.where(is_vis, h_id, t_txt),
+                        torch.where(is_vis, w_id, t_txt)], dim=-1)
+
+
 def _build_positions(cfg: ArchConfig, batch: int, seq: int, device=None):
-    if cfg.family == "vlm":
-        raise NotImplementedError(f"M-RoPE positions (qwen2-vl) {_A4}")
-    return torch.arange(seq, device=device)[None, :].expand(batch, seq), None
+    """(positions (B, S), M-RoPE ids (B, S, 3) for the VLM family, else
+    None)."""
+    idx = torch.arange(seq, device=device)
+    pos = idx[None, :].expand(batch, seq)
+    if cfg.family != "vlm":
+        return pos, None
+    return pos, _mrope_ids(cfg, idx)[None].expand(batch, seq, 3)
 
 
 def _embed(params, cfg: ArchConfig, tokens, patches=None):
+    """The token embeddings; where ``patches`` (B, P, d) are given (the
+    VLM's stub modality front end), they take the first P positions of the
+    gathered copy (``params["embed"]`` is not written)."""
+    x = params["embed"][tokens.long()]
     if patches is not None and cfg.vision_prefix_len:
-        raise NotImplementedError(f"the VLM patch prefix {_A4}")
-    return params["embed"][tokens.long()]
+        x[:, :patches.shape[1]] = patches.to(x.dtype)
+    return x
 
 
 def _layer(tree, i: int):
@@ -81,8 +108,9 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
-def _run_layers(kind, stacked_p, x, cfg, *, n, mode, positions, caches,
-                cache_pos, window, ring, emit_cache, use_kernels):
+def _run_layers(kind, stacked_p, x, cfg, *, n, mode, positions,
+                positions_thw, caches, cache_pos, window, ring, emit_cache,
+                moe_cap_len, use_kernels):
     """Apply one run of ``n`` layers in order.  Decode writes each layer's
     new key and value into the stacked ``caches`` in place (through the
     layer's views) and returns them.  Prefill writes its caches into one
@@ -93,9 +121,11 @@ def _run_layers(kind, stacked_p, x, cfg, *, n, mode, positions, caches,
     for i in range(n):
         x, new_c, a = B.block_forward(
             kind, _layer(stacked_p, i), x, cfg, mode=mode, positions=positions,
+            positions_thw=positions_thw,
             cache=None if caches is None else _layer(caches, i),
             cache_pos=cache_pos, window=window, ring=ring,
-            emit_cache=emit_cache, use_kernels=use_kernels)
+            emit_cache=emit_cache, moe_cap_len=moe_cap_len,
+            use_kernels=use_kernels)
         aux = aux + a
         if new_c is not None and mode != "decode":
             if out_caches is None:
@@ -109,27 +139,31 @@ def _run_layers(kind, stacked_p, x, cfg, *, n, mode, positions, caches,
 def forward_hidden(params, cfg: ArchConfig, tokens, *, patches=None,
                    caches=None, cache_pos=None, mode="full", window: int = 0,
                    ring: bool = False, emit_cache: bool = False,
-                   use_kernels: bool = True):
-    """Core stack application.  Returns (hidden, new_caches, aux_loss).
-    ``use_kernels``: the full-sequence attention through the kernel.
-    Decode updates ``caches`` in place and returns them."""
+                   moe_cap_len: int = 0, use_kernels: bool = True):
+    """Core stack application.  Returns (hidden, new_caches, aux_loss, the
+    sum over the layers).  ``use_kernels``: the full-sequence attention
+    through the kernel.  Decode updates ``caches`` in place and returns
+    them.  ``moe_cap_len``: the sequence length decode's MoE capacity is
+    computed from (0 = the cache length); pin it to the teacher-forced
+    length when the cache is allocated longer."""
     batch, seq = tokens.shape
     if mode == "decode":
-        if cfg.family == "vlm":
-            raise NotImplementedError(f"M-RoPE positions (qwen2-vl) {_A4}")
         positions = cache_pos[:, None]
+        thw = (_mrope_ids(cfg, cache_pos)[:, None, :]
+               if cfg.family == "vlm" else None)
     else:
-        positions, _ = _build_positions(cfg, batch, seq, device=tokens.device)
+        positions, thw = _build_positions(cfg, batch, seq,
+                                          device=tokens.device)
     x = _embed(params, cfg, tokens, patches)
     new_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, n) in enumerate(layer_runs(cfg)):
         x, nc, aux = _run_layers(
             kind, params["runs"][i], x, cfg, n=n, mode=mode,
-            positions=positions,
+            positions=positions, positions_thw=thw,
             caches=caches[i] if caches is not None else None,
             cache_pos=cache_pos, window=window, ring=ring,
-            emit_cache=emit_cache,
+            emit_cache=emit_cache, moe_cap_len=moe_cap_len,
             use_kernels=use_kernels)
         new_caches.append(nc)
         aux_total = aux_total + aux

@@ -880,11 +880,14 @@ def test_dist_steps_kernel_path_matches_plain(cuda):
 # sliding-window attention
 # ---------------------------------------------------------------------------
 
-# (B, S, H, KV, D, W; None = full causal): chip_smoke.py's phase-3 shapes
+# (B, S, H, KV, D, W; None = full causal): chip_smoke.py's phase-3 shapes,
+# the last three the head shapes of qwen2-vl-7b, arctic-480b and
+# whisper-large-v3's decoder
 SWA_CASES = [(2, 256, 4, 2, 64, 128), (1, 2048, 16, 8, 128, None),
              (1, 4096, 16, 8, 128, 1024), (2, 1000, 16, 8, 128, 300),
              (1, 1, 16, 8, 128, None), (1, 777, 6, 1, 128, 1),
-             (2, 513, 8, 8, 64, 33)]
+             (2, 513, 8, 8, 64, 33), (1, 2048, 28, 4, 128, None),
+             (1, 2048, 56, 8, 128, None), (2, 448, 20, 20, 64, None)]
 
 
 def _swa_inputs(B, S, H, KV, D, seed, cuda):
@@ -997,3 +1000,75 @@ def test_dense_model_kernel_path_matches_plain(cuda, arch, num_kv):
                                plain.forward(params, {"tokens": toks},
                                              window=64),
                                rtol=5e-4, atol=5e-4)
+
+
+def _family_inputs(cfg, B, S, cuda, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), device=cuda,
+                                   generator=g)}
+    if cfg.family == "vlm":
+        out["patches"] = torch.randn(B, cfg.vision_prefix_len, cfg.d_model,
+                                     device=cuda, generator=g)
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.randn(B, cfg.encoder_seq_len, cfg.d_model,
+                                    device=cuda, generator=g)
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.models.common import flatten_tree
+
+    return dict(flatten_tree(tree))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v3-671b",
+                                  "qwen2-vl-7b", "whisper-large-v3"])
+def test_family_model_kernel_path_matches_plain_and_decode(cuda, arch):
+    """The reduced attention families on the card: prefill (last logits,
+    every cache) and encode_segment through the kernel (one launch a
+    causal self-attention layer; none for MLA or whisper's encoder)
+    against the plain path, and the decode loop over the prompt against
+    prefill, at 5e-4."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model, encdec
+
+    cfg = reduced(get_config(arch))
+    kern = build_model(cfg, use_kernels=True, device=cuda)
+    plain = build_model(cfg, use_kernels=False, device=cuda)
+    params = kern.init(torch.Generator(cuda).manual_seed(0))
+    per_pass = 0 if cfg.use_mla else cfg.num_layers
+    inp = _family_inputs(cfg, 2, 100, cuda, 1)
+    ops.reset_kernel_launches()
+    lk, ck = kern.prefill(params, inp)
+    assert ops.kernel_launches()["swa_attention"] == per_pass
+    lp, cp = plain.prefill(params, inp)
+    assert ops.kernel_launches()["swa_attention"] == per_pass
+    torch.testing.assert_close(lk, lp, rtol=5e-4, atol=5e-4)
+    got, want = _leaves(ck), _leaves(cp)
+    assert set(got) == set(want)
+    for name in want:
+        torch.testing.assert_close(got[name], want[name], rtol=5e-4,
+                                   atol=5e-4)
+    torch.testing.assert_close(kern.encode_segment(params, inp)[0],
+                               plain.encode_segment(params, inp)[0],
+                               rtol=5e-4, atol=5e-4)
+
+    # decode over a prompt of 12 (text only) = its prefill
+    B, S = 2, 12
+    inp = _family_inputs(cfg, B, S, cuda, 2)
+    inp.pop("patches", None)
+    lp, cp = kern.prefill(params, inp)
+    caches = kern.init_cache(B, S)
+    if cfg.is_encoder_decoder:
+        caches = {"self": caches, "cross": encdec.cross_kv(
+            params, cfg, encdec.encode(params, cfg, inp["frames"]))}
+    for t in range(S):
+        ld, caches = kern.decode_step(params, inp["tokens"][:, t:t + 1],
+                                      caches, torch.full((B,), t,
+                                                         device=cuda))
+    torch.testing.assert_close(ld, lp, rtol=5e-4, atol=5e-4)
+    got, want = _leaves(caches), _leaves(cp)
+    for name in want:
+        torch.testing.assert_close(got[name], want[name], rtol=5e-4,
+                                   atol=5e-4)

@@ -6,7 +6,6 @@ decode chains at 5e-4 (the reference's forward-vs-decode tolerance,
 tests/test_models.py:40-41), the configs field by field, and the serving
 launcher's logits at each step."""
 import dataclasses
-import types
 
 import pytest
 
@@ -16,9 +15,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from _torch_seq import (CHAIN_TOL, Pair, close, np_tree,  # noqa: E402
+                        serve_logits_match_the_reference)
 from repro import configs as jconfigs  # noqa: E402
-from repro.launch import serve as jserve  # noqa: E402
-from repro.models import build_model as jbuild_model  # noqa: E402
 from repro.models import common as jcommon  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -27,57 +26,21 @@ from repro_torch.models import common  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.common import load_jax_params  # noqa: E402
 
-TOL = dict(rtol=1e-5, atol=1e-5)
-CHAIN_TOL = dict(rtol=5e-4, atol=5e-4)
-
 # reduced olmo-1b (tied embeddings, non-parametric LayerNorm), reduced
 # internlm2-1.8b (MHA once reduced, configs/base.py:141-142) and the same
 # with 2 KV heads, so that GQA stays under test
-CASES = {"olmo-1b": ("olmo-1b", None),
-         "internlm2-1.8b": ("internlm2-1.8b", None),
-         "internlm2-1.8b-gqa": ("internlm2-1.8b", 2)}
-
-
-def np_tree(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
-
-
-class Pair:
-    """The reduced model in both packages, with JAX's weights in both."""
-
-    def __init__(self, arch, num_kv=None):
-        jcfg = jconfigs.reduced(jconfigs.get_config(arch))
-        cfg = configs.reduced(configs.get_config(arch))
-        if num_kv:
-            jcfg = dataclasses.replace(jcfg, num_kv_heads=num_kv)
-            cfg = dataclasses.replace(cfg, num_kv_heads=num_kv)
-        self.cfg = cfg
-        self.jm = jbuild_model(jcfg)
-        self.jp = self.jm.init(jax.random.key(0))
-        self.jdecode = jax.jit(self.jm.decode_step,
-                               static_argnames=("window", "ring"))
-        self.m = build_model(cfg, device="cpu")
-        self.p = load_jax_params(self.m.init(torch.Generator().manual_seed(1)),
-                                 np_tree(self.jp))
-
-    def tokens(self, B, S, seed):
-        toks = np.random.default_rng(seed).integers(0, self.cfg.vocab_size,
-                                                    (B, S))
-        return {"tokens": jnp.asarray(toks, jnp.int32)}, {"tokens": toks}
-
-
+CASES = {"olmo-1b": ("olmo-1b", {}),
+         "internlm2-1.8b": ("internlm2-1.8b", {}),
+         "internlm2-1.8b-gqa": ("internlm2-1.8b", {"num_kv_heads": 2})}
 _PAIRS = {}
 
 
 @pytest.fixture(params=list(CASES))
 def pair(request):
     if request.param not in _PAIRS:
-        _PAIRS[request.param] = Pair(*CASES[request.param])
+        arch, replace = CASES[request.param]
+        _PAIRS[request.param] = Pair(arch, **replace)
     return _PAIRS[request.param]
-
-
-def close(got, want, tol=TOL):
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
 
 
 # ---------------------------------------------------------------------------
@@ -118,7 +81,7 @@ def test_param_trees_match_and_mismatches_raise(pair):
 
 @pytest.mark.parametrize("window", [0, 16])
 def test_forward_and_logits_match_jax(pair, window):
-    jin, tin = pair.tokens(2, 40, seed=window)
+    jin, tin = pair.inputs(2, 40, seed=window)
     jh = pair.jm.forward(pair.jp, jin, window=window)
     h = pair.m.forward(pair.p, tin, window=window)
     close(h, jh)
@@ -130,7 +93,7 @@ def test_forward_and_logits_match_jax(pair, window):
 
 
 def test_kernel_path_equals_plain_path_on_the_cpu(pair):
-    _, tin = pair.tokens(2, 40, seed=3)
+    _, tin = pair.inputs(2, 40, seed=3)
     plain = registry.Model(pair.cfg, use_kernels=False,
                            device=torch.device("cpu"))
     for window in (0, 16):
@@ -139,7 +102,7 @@ def test_kernel_path_equals_plain_path_on_the_cpu(pair):
 
 
 def test_prefill_logits_and_caches_match_jax(pair):
-    jin, tin = pair.tokens(2, 24, seed=4)
+    jin, tin = pair.inputs(2, 24, seed=4)
     jl, jc = pair.jm.prefill(pair.jp, jin)
     lg, c = pair.m.prefill(pair.p, tin)
     close(lg, jl)
@@ -152,7 +115,7 @@ def test_decode_steps_after_prefill_match_jax(pair):
     """Prefill over 16 tokens, its caches padded to 24, then 8 decode
     steps on both sides."""
     B, S, n = 2, 16, 8
-    jin, tin = pair.tokens(B, S + n, seed=5)
+    jin, tin = pair.inputs(B, S + n, seed=5)
     _, jc = pair.jm.prefill(pair.jp, {"tokens": jin["tokens"][:, :S]})
     _, c = pair.m.prefill(pair.p, {"tokens": tin["tokens"][:, :S]})
     pad = [(0, 0), (0, 0), (0, n), (0, 0), (0, 0)]
@@ -172,7 +135,7 @@ def test_decode_steps_after_prefill_match_jax(pair):
 def test_decode_from_empty_cache_equals_forward(pair):
     """The reference's strongest cache property (tests/test_models.py:15),
     on the port."""
-    _, tin = pair.tokens(1, 8, seed=6)
+    _, tin = pair.inputs(1, 8, seed=6)
     full = pair.m.logits(pair.p, pair.m.forward(pair.p, tin))
     caches = pair.m.init_cache(1, 8)
     outs = []
@@ -187,7 +150,7 @@ def test_decode_step_writes_the_caches_in_place(pair):
     """decode_step writes each layer's new key and value into the stacked
     caches it is given, at the slot of cache_pos, and returns them."""
     B, C, t = 2, 6, 3
-    _, tin = pair.tokens(B, 1, seed=9)
+    _, tin = pair.inputs(B, 1, seed=9)
     caches = pair.m.init_cache(B, C)
     _, out = pair.m.decode_step(pair.p, tin["tokens"], caches,
                                 np.full((B,), t))
@@ -201,7 +164,7 @@ def test_ring_buffer_decode_matches_jax(pair):
     """A ring cache of W = 8 slots over 20 tokens (it wraps twice) against
     JAX's, and against the windowed forward."""
     B, total, W = 1, 20, 8
-    jin, tin = pair.tokens(B, total, seed=7)
+    jin, tin = pair.inputs(B, total, seed=7)
     jc = pair.jm.init_cache(B, W, jnp.float32)
     c = pair.m.init_cache(B, W)
     outs = []
@@ -219,7 +182,7 @@ def test_ring_buffer_decode_matches_jax(pair):
 
 def test_encode_segment_matches_jax(pair):
     """GST's segment encoder F: 4 documents x 4 segments of 32 tokens."""
-    jin, tin = pair.tokens(16, 32, seed=8)
+    jin, tin = pair.inputs(16, 32, seed=8)
     je, jaux = pair.jm.encode_segment(pair.jp, jin)
     e, aux = pair.m.encode_segment(pair.p, tin)
     assert tuple(e.shape) == (16, pair.cfg.d_model)
@@ -254,14 +217,16 @@ def test_rope_matches_jax(theta):
 
 
 def test_mlp_matches_jax_and_other_activations_wait():
-    jp = jcommon.mlp_params(jax.random.key(2), 32, 64, "silu")
-    p = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    """The SwiGLU MLP and, ported since, the gelu (tanh approximation)
+    and relu_sq MLPs against JAX's, with the reference's parameter names."""
     x = np.random.default_rng(2).normal(size=(2, 5, 32)).astype(np.float32)
-    close(common.mlp_forward(p, torch.from_numpy(x), "silu"),
-          jcommon.mlp_forward(jp, jnp.asarray(x), "silu"))
-    for act in ("gelu", "relu_sq"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            common.mlp_params(torch.Generator(), 32, 64, act)
+    for act in ("silu", "gelu", "relu_sq"):
+        jp = jcommon.mlp_params(jax.random.key(2), 32, 64, act)
+        assert set(common.mlp_params(torch.Generator(), 32, 64, act)) \
+            == set(jp)
+        p = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+        close(common.mlp_forward(p, torch.from_numpy(x), act),
+              jcommon.mlp_forward(jp, jnp.asarray(x), act))
 
 
 def test_write_cache_matches_jax():
@@ -278,17 +243,10 @@ def test_write_cache_matches_jax():
     assert got is target  # written in place
 
 
-@pytest.mark.parametrize("arch", ["arctic-480b", "zamba2-1.2b", "rwkv6-7b",
-                                  "deepseek-v3-671b", "whisper-large-v3",
-                                  "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
 def test_families_not_ported_yet_raise(arch):
     with pytest.raises(NotImplementedError, match="A4"):
         build_model(configs.reduced(configs.get_config(arch)), device="cpu")
-
-
-def test_mrope_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A4"):
-        common.apply_mrope(torch.zeros(1, 2, 1, 64), None, 1e4, (16, 8, 8))
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
@@ -306,56 +264,10 @@ def test_default_device_is_cuda_and_raises_without_a_card():
 # ---------------------------------------------------------------------------
 
 
-def _jax_serve_logits(model, params, args):
-    """The reference's decode loop (src/repro/launch/serve.py:48-62),
-    recording the logits of every step."""
-    rng = np.random.default_rng(args.seed)
-    cfg = model.cfg
-    tokens = jnp.asarray(rng.integers(0, cfg.vocab_size,
-                                      (args.batch, args.prompt_len)), jnp.int32)
-    total = args.prompt_len + args.gen
-    caches = model.init_cache(args.batch, total, jnp.float32)
-    decode = jax.jit(model.decode_step)
-    cur, out = tokens[:, :1], []
-    for t in range(total - 1):
-        logits, caches = decode(params, cur, caches,
-                                jnp.full((args.batch,), t, jnp.int32))
-        out.append(np.asarray(logits))
-        nxt = jnp.argmax(logits[:, -1], -1)[:, None].astype(jnp.int32)
-        cur = tokens[:, t + 1:t + 2] if t + 1 < args.prompt_len else nxt
-    return out
-
-
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "olmo-1b"])
 def test_serve_gives_the_reference_logits_at_each_step(arch, monkeypatch,
                                                        capsys):
-    args = types.SimpleNamespace(arch=arch, reduced=True, batch=2,
-                                 prompt_len=6, gen=6, seed=0, device="cpu")
-    jcfg = jconfigs.reduced(jconfigs.get_config(arch))
-    jm = jbuild_model(jcfg)
-    jp = jm.init(jax.random.key(args.seed))
-    want = _jax_serve_logits(jm, jp, args)
-    jgen = jserve.serve(args)
-
-    seen = []
-    step = registry.Model.decode_step
-
-    def recording(self, *a, **kw):
-        logits, caches = step(self, *a, **kw)
-        seen.append(logits.numpy().copy())
-        return logits, caches
-
-    monkeypatch.setattr(registry.Model, "decode_step", recording)
-    params = load_jax_params(
-        build_model(configs.reduced(configs.get_config(arch)),
-                    device="cpu").init(torch.Generator().manual_seed(0)),
-        np_tree(jp))
-    gen = serve.serve(args, params=params)
-    assert len(seen) == len(want) == args.prompt_len + args.gen - 1
-    for got, ref_logits in zip(seen, want):
-        np.testing.assert_allclose(got, ref_logits, **CHAIN_TOL)
-    np.testing.assert_array_equal(gen, np.asarray(jgen))
-    assert gen.shape == (2, 6)
+    serve_logits_match_the_reference(arch, monkeypatch, gen=6, prompt=6)
     assert "generated (2, 6)" in capsys.readouterr().out
 
 

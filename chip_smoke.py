@@ -9,10 +9,10 @@ at the repo's full model width
 (GNNConfig / ServeConfig / run_experiment defaults: hidden 64, 2
 message-passing layers, max_seg_nodes 64, batch 8), and the sequence
 track's serving path on internlm2-1.8b at full width and depth and on
-qwen2-vl-7b, arctic-480b, deepseek-v3-671b and whisper-large-v3 at full
-width (the two MoE models cut in depth to fit the card), with random
-weights from a seed, and holds each hand-written kernel against its
-plain PyTorch version.  Phases, in order; an error in any of them
+qwen2-vl-7b, arctic-480b, deepseek-v3-671b, whisper-large-v3,
+zamba2-1.2b and rwkv6-7b at full width (the two MoE models cut in depth
+to fit the card), with random weights from a seed, and holds each
+hand-written kernel against its plain PyTorch version.  Phases, in order; an error in any of them
 fails the run (none catches its own):
 
   1. card       the device name and nvidia-smi's name and power limit
@@ -53,7 +53,8 @@ fails the run (none catches its own):
                 (2, 1000, ..., 300), (1, 1, ..., full), (1, 777, 6, 1, 128,
                 1), (2, 513, 8, 8, 64, 33) and seq_families' head shapes
                 (1, 2048, 28, 4, 128, full), (1, 2048, 56, 8, 128, full),
-                (2, 448, 20, 20, 64, full) against the (B, H, S, S) oracle,
+                (2, 448, 20, 20, 64, full), (1, 2048, 32, 32, 64, full)
+                against the (B, H, S, S) oracle,
                 and (1, 32768, 16, 8, 128, full) against the plain chunked
                 attention, beside scaled_dot_product_attention, with its
                 3xTF32 tensor-core bound and its f32 FMA bound
@@ -116,21 +117,28 @@ fails the run (none catches its own):
                 (f) encode_segment over 8 documents x 8 segments x 512
                 tokens, kernel = plain (5e-4).  24 swa_attention launches
                 in each of (b)-(f); then one profiled prefill of (c)
- 10. seq_families  the attention families at full width, f32, random
+ 10. seq_families  the other families at full width, f32, random
                 weights from seed 0, one at a time (card memory printed
                 before each build): qwen2-vl-7b (M-RoPE, patches),
                 arctic-480b cut to 1 of 35 layers, deepseek-v3-671b cut
                 to 1 dense + 1 MoE layer of 61, whisper-large-v3
-                (encoder-decoder).  Each: (a) launch.serve.serve B 2,
-                prompt 16, 16 generated, ms a token; (b) prefill of that
-                prompt = the decode loop (logits, every cache, 5e-4);
-                (c) prefill B 1, S 2048 (qwen2-vl's first 256 positions
-                patches; whisper: 1500 frames, decoder S 448), kernel path
-                = plain path, seconds and peak memory above the weights;
-                (d) encode_segment 8 x 512 tokens (whisper 8 x 1500
-                frames), kernel = plain; a profiled decode step.
-                swa_attention launches a pass: 28, 1, 0 (MLA), 32
- 11. kernels    one JSON line: per kernel, launches on the main path
+                (encoder-decoder), zamba2-1.2b (32 Mamba2 layers, 6
+                shared attention occurrences) and rwkv6-7b, nothing cut.
+                Each: (a) launch.serve.serve B 2, prompt 16, 16
+                generated, ms a token; (b) prefill of that prompt = the
+                decode loop (logits, every cache, 5e-4); (c) prefill B 1,
+                S 2048 (qwen2-vl's first 256 positions patches; whisper:
+                1500 frames, decoder S 448), kernel path = plain path,
+                seconds and peak memory above the weights (rwkv6's plain
+                path, its kernel path's code, without a warm-up call of
+                its own); (d) encode_segment 8 x 512 tokens (whisper 8 x
+                1500 frames), kernel = plain; a profiled decode step.
+                swa_attention launches a pass: 28, 1, 0 (MLA), 32, 6, 0
+ 11. recurrent  the plain-torch pieces without a kernel in the reference,
+                one layer at full width: zamba2's ssd_chunked and rwkv6's
+                rwkv_timemix at B 1, S 2048, one decode step of each
+                layer at B 2: ms a call, launches, device busy time
+ 12. kernels    one JSON line: per kernel, launches on the main path
                 (serving, training, distributed training, the store's
                 (a), (c) and (d), seq_serve and seq_families),
                 error, times and bound
@@ -243,12 +251,14 @@ SEQ_ARCH = "internlm2-1.8b"
 # visible (S ragged), no GQA at D 64 with a window across a tile edge;
 # the head shapes of seq_families' prefills: qwen2-vl-7b and arctic-480b
 # at 2048 tokens (G 7), whisper-large-v3's decoder at B 2, S 448 (G 1, D
-# 64); then prefill_32k's length at batch 1
+# 64), zamba2-1.2b's shared attention at 2048 tokens (G 1, D 64); then
+# prefill_32k's length at batch 1
 SWA_SHAPES = [(2, 256, 4, 2, 64, 128), (1, 2048, 16, 8, 128, None),
               (1, 4096, 16, 8, 128, 1024), (2, 1000, 16, 8, 128, 300),
               (1, 1, 16, 8, 128, None), (1, 777, 6, 1, 128, 1),
               (2, 513, 8, 8, 64, 33), (1, 2048, 28, 4, 128, None),
-              (1, 2048, 56, 8, 128, None), (2, 448, 20, 20, 64, None)]
+              (1, 2048, 56, 8, 128, None), (2, 448, 20, 20, 64, None),
+              (1, 2048, 32, 32, 64, None)]
 SWA_LONG = (1, 32768, 16, 8, 128, None)
 SWA_HEADLINE = 1
 SEQ_TOL = 5e-4   # forward vs decode, kernel vs plain model (test_models.py:40)
@@ -264,12 +274,18 @@ SEQ_DOCS = (8, 8, 512)
 # seq_families: (arch, layers kept (None: all), swa_attention launches a
 # full-sequence pass).  arctic-480b and deepseek-v3-671b keep their full
 # width and lose depth to fit the card in f32 (1 layer: 52.4 GiB; 1 dense
-# + 1 MoE layer: 51.9 GiB); deepseek-v3's MLA runs no swa_attention
+# + 1 MoE layer: 51.9 GiB); deepseek-v3's MLA runs no swa_attention;
+# zamba2-1.2b's 6 shared attention occurrences each launch it once
+# between its 32 Mamba2 layers; rwkv6-7b is attention-free
 FAMILY_RUNS = [("qwen2-vl-7b", None, 28), ("arctic-480b", 1, 1),
-               ("deepseek-v3-671b", 2, 0), ("whisper-large-v3", None, 32)]
+               ("deepseek-v3-671b", 2, 0), ("whisper-large-v3", None, 32),
+               ("zamba2-1.2b", None, 6), ("rwkv6-7b", None, 0)]
 # (c)'s prefill (B, S): whisper's decoder S is the public model's
 # max_target_positions, over its 1500 frames; (d)'s segments (B, S)
 FAMILY_PREFILL = (1, 2048)
+# the families whose random stacks amplify f32 noise past SEQ_TOL end to end
+# at full depth: (b) and (c) hold them layer by layer (recurrent_check)
+RECURRENT = ("ssm", "hybrid")
 WHISPER_DECODER_S = 448
 FAMILY_DOCS = (8, 512)
 
@@ -2114,6 +2130,21 @@ def family_config(arch, layers):
     return dataclasses.replace(cfg, num_layers=layers)
 
 
+def family_shape(cfg):
+    """The mixing layers' widths, for the model line."""
+    if cfg.attn_free:
+        H = cfg.d_model // cfg.ssm.state_size
+        return f"attention-free, RWKV-6 {H} heads of {cfg.ssm.state_size}"
+    shape = (f"{cfg.num_heads} x {cfg.num_kv_heads} heads of "
+             f"{cfg.resolved_head_dim}")
+    if cfg.family == "hybrid":
+        d_inner = cfg.ssm.expand * cfg.d_model
+        shape += (f"; Mamba2 d_inner {d_inner}, {cfg.ssm.num_ssm_heads} "
+                  f"heads of {d_inner // cfg.ssm.num_ssm_heads}, state "
+                  f"{cfg.ssm.state_size}, chunk {cfg.ssm.chunk_size}")
+    return shape
+
+
 def family_inputs(torch, cfg, B, S, seed, dev, patches=True):
     """Tokens, then the VLM's patches or the encoder-decoder's frames, drawn
     from one numpy generator in the order launch/serve.py draws them."""
@@ -2131,9 +2162,10 @@ def family_inputs(torch, cfg, B, S, seed, dev, patches=True):
     return out
 
 
-def tree_max_diff(torch, a, b):
+def tree_max_diff(torch, a, b, check=True):
     """Max abs diff over the leaves of two cache trees; integer leaves (the
-    MoE counters) must be equal."""
+    MoE counters) must be equal, and with ``check`` the float leaves within
+    SEQ_TOL."""
     from repro_torch.models.common import flatten_tree
 
     fa, fb = dict(flatten_tree(a)), dict(flatten_tree(b))
@@ -2148,23 +2180,120 @@ def tree_max_diff(torch, a, b):
             if not torch.equal(x, fb[name]):
                 raise AssertionError(f"{name} differs")
             continue
-        torch.testing.assert_close(x, fb[name], rtol=SEQ_TOL, atol=SEQ_TOL)
+        if check:
+            torch.testing.assert_close(x, fb[name], rtol=SEQ_TOL,
+                                       atol=SEQ_TOL)
         worst = max(worst, max_diff(torch, x, fb[name]))
     return worst
 
 
+def one_ulp_embedding(torch, params, seed=5):
+    """``params`` with every embedding entry moved by one ulp, up or down
+    at random: a model's own float noise is how far its outputs move."""
+    emb = params["embed"]
+    g = torch.Generator(emb.device).manual_seed(seed)
+    sign = torch.randint(0, 2, emb.shape, generator=g,
+                         device=emb.device).float() * 2 - 1
+    return {**params, "embed": emb * (1 + sign * 2.0 ** -23)}
+
+
+def stack_layers(torch, cfg, params, tokens):
+    """Every layer of a decoder-only stack along its full-sequence pass
+    through the kernel, caches emitted: (kind, layer params, positions,
+    the layer's input, its output, its cache)."""
+    from repro_torch.models import blocks, transformer
+
+    B, S = tokens.shape
+    positions, _ = transformer._build_positions(cfg, B, S,
+                                                device=tokens.device)
+    x = transformer._embed(params, cfg, tokens)
+    for i, (kind, n) in enumerate(transformer.layer_runs(cfg)):
+        for j in range(n):
+            p = (params["shared_attn"] if kind == "shared_attn"
+                 else transformer._layer(params["runs"][i], j))
+            y, cache, _ = blocks.block_forward(
+                kind, p, x, cfg, mode="full", positions=positions,
+                emit_cache=True)
+            yield kind, p, positions, x, y, cache
+            x = y
+
+
+def layerwise(torch, cfg, params, tokens, against):
+    """Every layer held to itself on its own input from the kernel path's
+    full-sequence pass: against its decode loop from a zero cache (each
+    step's output, the final cache) or against its plain path (output,
+    cache), within SEQ_TOL.  Returns (layers, largest output diff,
+    largest cache diff)."""
+    from repro_torch.models import blocks
+
+    B, S = tokens.shape
+    layers, out_diff, cache_diff = 0, 0.0, 0.0
+    for kind, p, positions, x, y, full in stack_layers(torch, cfg, params,
+                                                       tokens):
+        if against == "decode":
+            other = blocks.init_block_cache(kind, cfg, B, S, x.dtype,
+                                            device=x.device)
+            outs = [blocks.block_forward(
+                kind, p, x[:, t:t + 1], cfg, mode="decode", cache=other,
+                cache_pos=torch.full((B,), t, device=x.device))[0]
+                for t in range(S)]
+            got = torch.cat(outs, dim=1)
+        else:
+            got, other, _ = blocks.block_forward(
+                kind, p, x, cfg, mode="full", positions=positions,
+                emit_cache=True, use_kernels=False)
+        torch.testing.assert_close(got, y, rtol=SEQ_TOL, atol=SEQ_TOL)
+        out_diff = max(out_diff, max_diff(torch, got, y))
+        cache_diff = max(cache_diff, tree_max_diff(torch, full, other))
+        layers += 1
+    return layers, out_diff, cache_diff
+
+
+def recurrent_check(torch, cfg, model, params, inp, logits, caches,
+                    other_logits, other_caches, against):
+    """(b) and (c) for the recurrent families.  Their random stacks
+    amplify f32 noise with depth, so at full depth two paths that round
+    differently part end to end by about as much as, or more than, one
+    path moves when its embedding moves by one ulp: the end-to-end logits
+    and caches are reported beside that noise, and every layer is held
+    to its decode loop or its plain path within SEQ_TOL on its own input
+    (``layerwise``)."""
+    noisy, noisy_c = model.prefill(one_ulp_embedding(torch, params), inp)
+    layers, out_diff, cache_diff = layerwise(torch, cfg, params,
+                                             inp["tokens"], against)
+    res = {"max_diff_logits": max_diff(torch, logits, other_logits),
+           "max_diff_caches": tree_max_diff(torch, caches, other_caches,
+                                            check=False),
+           "logits_one_ulp_noise": max_diff(torch, logits, noisy),
+           "caches_one_ulp_noise": tree_max_diff(torch, caches, noisy_c,
+                                                 check=False),
+           "layers": layers, "layer_max_diff_outputs": out_diff,
+           "layer_max_diff_caches": cache_diff}
+    del noisy, noisy_c
+    return res, (f"layer by layer ({layers} layers, each on its own input "
+                 f"from the kernel path's prefill) max diff outputs "
+                 f"{out_diff:.3e}, caches {cache_diff:.3e} (tol {SEQ_TOL}); "
+                 f"end to end logits {res['max_diff_logits']:.3e}, caches "
+                 f"{res['max_diff_caches']:.3e}, beside the prefill's own "
+                 f"one-ulp noise {res['logits_one_ulp_noise']:.3e} / "
+                 f"{res['caches_one_ulp_noise']:.3e}")
+
+
 def phase_seq_families(torch, dev):
-    """Sequence serving of the attention families at full width, f32,
+    """Sequence serving of the other families at full width, f32,
     random weights from seed 0 drawn on the card, one model at a time
     (each freed before the next): qwen2-vl-7b (M-RoPE, patches),
-    arctic-480b (1 layer), deepseek-v3-671b (1 dense + 1 MoE layer) and
-    whisper-large-v3 (encoder-decoder).  For each: (a) launch.serve.serve
-    at B 2, prompt 16, 16 generated; (b) prefill of that prompt = the
-    decode loop (last logits, every cache; 5e-4); (c) prefill at B 1, S
-    2048 (qwen2-vl: its first 256 positions patches; whisper: 1500 frames
-    and a decoder S of 448), kernel path = plain path, seconds of a call
-    after a warm-up call and peak memory above the weights; (d) encode_segment at 8 x 512 tokens
-    (whisper: 8 x 1500 frames), kernel = plain; then one profiled decode
+    arctic-480b (1 layer), deepseek-v3-671b (1 dense + 1 MoE layer),
+    whisper-large-v3 (encoder-decoder), zamba2-1.2b (Mamba2, shared
+    attention) and rwkv6-7b (attention-free).  For each: (a)
+    launch.serve.serve at B 2, prompt 16, 16 generated; (b) prefill of
+    that prompt = the decode loop (last logits, every cache; 5e-4); (c)
+    prefill at B 1, S 2048 (qwen2-vl: its first 256 positions patches;
+    whisper: 1500 frames and a decoder S of 448), kernel path = plain
+    path, seconds of a call after a warm-up call (rwkv6's plain path: the
+    kernel path's code, warmed by its call) and peak memory above the
+    weights; (d) encode_segment at 8 x 512 tokens (whisper: 8 x 1500
+    frames), kernel = plain; then one profiled decode
     step.  swa_attention launches: the table's count a pass in (b)-(d)
     (whisper's encode_segment runs the encoder alone: none); all on the
     main path.  Returns (launches, summary)."""
@@ -2209,8 +2338,7 @@ def phase_seq_families(torch, dev):
         log(f"[seq_families] {arch}: {n_params} parameters, "
             f"{weights / 2**30:.3f} GiB ({cfg.num_layers} of "
             f"{res['full_depth_layers']} layers, d_model {cfg.d_model}, "
-            f"{cfg.num_heads} x {cfg.num_kv_heads} heads of "
-            f"{cfg.resolved_head_dim}), f32, drawn on the card in "
+            f"{family_shape(cfg)}), f32, drawn on the card in "
             f"{init_s:.3f} s")
 
         # (a) the serving launcher
@@ -2246,14 +2374,22 @@ def phase_seq_families(torch, dev):
             ld, caches = kern.decode_step(
                 params, inp["tokens"][:, t:t + 1], caches,
                 torch.full((B,), t, device=dev), moe_cap_len=prompt)
-        torch.testing.assert_close(lp, ld, rtol=SEQ_TOL, atol=SEQ_TOL)
-        res["prefill_vs_decode"] = {"logits": max_diff(torch, lp, ld),
-                                    "caches": tree_max_diff(torch, cp, caches)}
-        log(f"[seq_families] {arch} (b) prefill = decode loop (B {B}, "
-            f"{prompt} tokens): max diff logits "
-            f"{res['prefill_vs_decode']['logits']:.3e}, caches "
-            f"{res['prefill_vs_decode']['caches']:.3e} (tol {SEQ_TOL}); "
-            f"{per_pass} swa_attention launches")
+        if cfg.family in RECURRENT:
+            res["prefill_vs_decode"], held = recurrent_check(
+                torch, cfg, kern, params, inp, lp, cp, ld, caches, "decode")
+            log(f"[seq_families] {arch} (b) prefill = decode loop (B {B}, "
+                f"{prompt} tokens): {held}; {per_pass} swa_attention "
+                "launches")
+        else:
+            torch.testing.assert_close(lp, ld, rtol=SEQ_TOL, atol=SEQ_TOL)
+            res["prefill_vs_decode"] = {
+                "logits": max_diff(torch, lp, ld),
+                "caches": tree_max_diff(torch, cp, caches)}
+            log(f"[seq_families] {arch} (b) prefill = decode loop (B {B}, "
+                f"{prompt} tokens): max diff logits "
+                f"{res['prefill_vs_decode']['logits']:.3e}, caches "
+                f"{res['prefill_vs_decode']['caches']:.3e} (tol {SEQ_TOL}); "
+                f"{per_pass} swa_attention launches")
         del lp, cp, ld, caches
 
         # (c) prefill at full length, kernel path = plain path
@@ -2264,7 +2400,10 @@ def phase_seq_families(torch, dev):
         runs = {}
         for label, model, want in (("kernel", kern, per_pass),
                                    ("plain", plain, 0)):
-            model.prefill(params, inp)  # warm-up, outside the counts
+            # attention-free, the plain path runs the kernel path's code,
+            # which the kernel path's call has warmed
+            if label == "kernel" or not cfg.attn_free:
+                model.prefill(params, inp)  # warm-up, outside the counts
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -2277,12 +2416,21 @@ def phase_seq_families(torch, dev):
         if tuple(lk.shape) != (Bc, 1, cfg.vocab_size) or not bool(
                 torch.isfinite(lk).all()):
             raise AssertionError("prefill: non-finite or misshapen logits")
-        torch.testing.assert_close(lk, lp, rtol=SEQ_TOL, atol=SEQ_TOL)
         res["prefill"] = {
             "B": Bc, "S": S, "kernel_s": k_s, "plain_s": p_s,
-            "kernel_peak_bytes": k_peak, "plain_peak_bytes": p_peak,
-            "max_diff_logits": max_diff(torch, lk, lp),
-            "max_diff_caches": tree_max_diff(torch, ck, cp)}
+            "kernel_peak_bytes": k_peak, "plain_peak_bytes": p_peak}
+        if cfg.family in RECURRENT:
+            diffs, held = recurrent_check(torch, cfg, kern, params, inp, lk,
+                                          ck, lp, cp, "plain")
+            res["prefill"].update(diffs)
+        else:
+            torch.testing.assert_close(lk, lp, rtol=SEQ_TOL, atol=SEQ_TOL)
+            res["prefill"].update(
+                max_diff_logits=max_diff(torch, lk, lp),
+                max_diff_caches=tree_max_diff(torch, ck, cp))
+            held = (f"max diff logits {res['prefill']['max_diff_logits']:.3e}"
+                    f", caches {res['prefill']['max_diff_caches']:.3e} (tol "
+                    f"{SEQ_TOL})")
         if cfg.family == "vlm":
             res["prefill"]["patches"] = cfg.vision_prefix_len
         if cfg.is_encoder_decoder:
@@ -2293,9 +2441,10 @@ def phase_seq_families(torch, dev):
                if cfg.is_encoder_decoder else "")
             + f": kernel path {k_s:.3f} s ({per_pass} swa_attention "
             f"launches), peak {k_peak / 2**30:.3f} GiB above the weights; "
-            f"plain path {p_s:.3f} s, peak {p_peak / 2**30:.3f} GiB; max "
-            f"diff logits {res['prefill']['max_diff_logits']:.3e}, caches "
-            f"{res['prefill']['max_diff_caches']:.3e} (tol {SEQ_TOL})")
+            f"plain path {p_s:.3f} s"
+            + (" (no warm-up call of its own: attention-free, it is the "
+               "kernel path's code)" if cfg.attn_free else "")
+            + f", peak {p_peak / 2**30:.3f} GiB; {held}")
         del runs, lk, ck, lp, cp
 
         # (d) GST's segment encoder
@@ -2341,6 +2490,54 @@ def phase_seq_families(torch, dev):
                                  "allocated after its model was freed")
     return main, out
 
+
+def phase_recurrent_pieces(torch, dev):
+    """The plain-torch pieces of the recurrent families that no kernel of
+    the reference covers, one layer each at full width, f32, weights from
+    seed 0: zamba2-1.2b's ``ssd_chunked`` (on one layer's own projections
+    of random input) and rwkv6-7b's ``rwkv_timemix`` at B 1, S 2048, and
+    one layer's decode step of each (``block_forward``, B 2).  Per piece:
+    ms of a call (CUDA events around it after a warm-up: the host's gaps
+    between launches included), the device events of one call and their
+    summed time under torch.profiler (``profiled``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks, mamba2, rwkv6
+
+    Bp, S = FAMILY_PREFILL
+    B = SEQ_SERVE[0]
+    out = {}
+    for arch, kind in (("zamba2-1.2b", "mamba"), ("rwkv6-7b", "rwkv")):
+        cfg = get_config(arch)
+        gen = torch.Generator(dev).manual_seed(0)
+        p = blocks.block_init(kind, gen, cfg)
+        x = torch.randn(Bp, S, cfg.d_model, device=dev, generator=gen)
+        if kind == "mamba":
+            d_inner, H, P, N = mamba2.mamba2_dims(cfg)
+            mp = p["mamba"]
+            xs, _, Bm, Cm, dt = mamba2._split_in(mp, x, cfg)
+            xs = mamba2._causal_conv(mp, xs)[0].reshape(Bp, S, H, P)
+            A = -torch.exp(mp["A_log"].float())
+            piece = ("ssd_chunked", lambda: mamba2.ssd_chunked(
+                xs, Bm, Cm, dt, A, chunk=cfg.ssm.chunk_size))
+        else:
+            piece = ("rwkv_timemix", lambda: rwkv6.rwkv_timemix(
+                p["tm"], x, cfg))
+        cache = blocks.init_block_cache(kind, cfg, B, 1, torch.float32,
+                                        device=dev)
+        x1 = torch.randn(B, 1, cfg.d_model, device=dev, generator=gen)
+        pos = torch.zeros(B, dtype=torch.int64, device=dev)
+        step = (f"{kind} decode step", lambda: blocks.block_forward(
+            kind, p, x1, cfg, mode="decode", cache=cache, cache_pos=pos))
+        for (name, fn), shape in ((piece, (Bp, S)), (step, (B, 1))):
+            ms = time_long_ms(torch, fn, iters=5)
+            prof = profiled(torch, fn, f"{arch} {name}", tag="recurrent")
+            n, busy = prof["device_events"], prof["busy_ms"]
+            out[f"{arch} {name}"] = {"B": shape[0], "S": shape[1], "ms": ms,
+                                     "launches": n, "device_ms": busy}
+            log(f"[recurrent] {arch} {name} B {shape[0]} S {shape[1]}: "
+                f"{ms:.3f} ms a call (CUDA events), {n} launches, device "
+                f"busy {busy:.3f} ms ({busy / ms:.3f} of the call)")
+    return out
 
 
 def kernel_entry(name, source, replaces, launches, rows, headline):
@@ -2474,6 +2671,7 @@ def main() -> int:
     main_launches["swa_attention"], seq_serve = phase_seq_serve(torch, dev)
     family_launches, seq_families = phase_seq_families(torch, dev)
     main_launches["swa_attention"] += family_launches
+    recurrent = phase_recurrent_pieces(torch, dev)
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -2521,7 +2719,7 @@ def main() -> int:
                     "dist_profile": dist_profile,
                     "dist_scaling_ms": dist_scaling, "seq_serve": seq_serve,
                     "seq_families": seq_families,
-                    "card": smi,
+                    "recurrent_pieces": recurrent, "card": smi,
                     "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,8 +9,7 @@ Counterpart of ``src/repro/launch/serve.py``:
 
     # a reduced model of any ported family on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-        --arch internlm2-1.8b --reduced   # or arctic-480b, deepseek-v3-671b,
-                                          # qwen2-vl-7b, whisper-large-v3
+        --arch internlm2-1.8b --reduced   # or any of the ten configs
 
 Runs on the card (``--device cuda``, the default; it raises where no card
 is visible) unless ``--device cpu`` is given.  As in the reference, the

@@ -1,19 +1,21 @@
-"""Uniform block interface over the layer kinds the port has so far.
+"""Uniform block interface over all layer kinds.
 
 Counterpart of ``src/repro/models/blocks.py``.  Every block kind exposes:
-    block_init(kind, generator, cfg, dtype, n)            -> params tree
-    block_forward(kind, p, x, cfg, mode, ...)             -> (x, new_cache, aux)
-    init_block_cache(kind, cfg, batch, cache_len, dtype)  -> cache tree
+    block_init(kind, generator, cfg, dtype, lead)               -> params tree
+    block_forward(kind, p, x, cfg, mode, ...)                   -> (x, new_cache, aux)
+    init_block_cache(kind, cfg, batch, cache_len, dtype, lead)  -> cache tree
 with a kind-stable tree structure, so a run of equal-kind layers is stored
 stacked along a leading layer axis (see transformer.py).
 
 Kinds:
-    attn       — pre-norm GQA attention + dense MLP (window-maskable)
-    mla_dense  — MLA attention + dense MLP      (DeepSeek-V3 dense layers)
-    mla_moe    — MLA attention + MoE            (DeepSeek-V3 MoE layers)
-    gqa_moe    — GQA attention + MoE (+ dense residual)          (Arctic)
-The Mamba2, RWKV6 and shared attention kinds raise
-``NotImplementedError``: they wait for ROADMAP A4.
+    attn        — pre-norm GQA attention + dense MLP (window-maskable)
+    mla_dense   — MLA attention + dense MLP      (DeepSeek-V3 dense layers)
+    mla_moe     — MLA attention + MoE            (DeepSeek-V3 MoE layers)
+    gqa_moe     — GQA attention + MoE (+ dense residual)          (Arctic)
+    mamba       — Mamba2/SSD block                        (Zamba2 backbone)
+    rwkv        — RWKV6 time-mix + channel-mix
+    shared_attn — the structure of ``attn``; one parameter set shared by
+                  every occurrence (Zamba2), a cache each occurrence.
 """
 from __future__ import annotations
 
@@ -22,10 +24,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.common import (
-    _A4,
     attn_decode,
     attn_forward,
     attn_params,
@@ -34,24 +37,29 @@ from repro_torch.models.common import (
     mlp_params,
 )
 
-KINDS = ("attn", "mla_dense", "mla_moe", "gqa_moe")
-
-
-def _unported(kind: str):
-    return NotImplementedError(f"block kind {kind!r} {_A4}")
+KINDS = ("attn", "mla_dense", "mla_moe", "gqa_moe", "mamba", "rwkv",
+         "shared_attn")
 
 
 def block_init(kind: str, generator: torch.Generator, cfg: ArchConfig,
-               dtype=torch.float32, n: int = 1):
-    """The parameters of ``n`` layers of ``kind``, stacked on a leading
-    axis of length n, drawn on ``generator``'s device."""
+               dtype=torch.float32, lead: Tuple[int, ...] = ()):
+    """The parameters of a layer of ``kind``, drawn on ``generator``'s
+    device; ``lead`` = (n,) stacks n layers on a leading axis."""
     if kind not in KINDS:
-        raise _unported(kind)
+        raise ValueError(kind)
     d = cfg.d_model
     dev = generator.device
-    lead = (n,)
     n1, _ = make_norm(cfg.norm, d, dtype, lead, dev)
+    if kind == "mamba":
+        return {"norm1": n1,
+                "mamba": mamba_mod.mamba2_params(generator, cfg, dtype, lead)}
     n2, _ = make_norm(cfg.norm, d, dtype, lead, dev)
+    if kind == "rwkv":
+        return {"norm1": n1,
+                "tm": rwkv_mod.rwkv_timemix_params(generator, cfg, dtype, lead),
+                "norm2": n2,
+                "cm": rwkv_mod.rwkv_channelmix_params(generator, cfg, dtype,
+                                                      lead)}
     if kind in ("mla_dense", "mla_moe"):
         mixer = {"mla": mla_mod.mla_params(generator, cfg, dtype, lead)}
     else:
@@ -68,16 +76,27 @@ def block_init(kind: str, generator: torch.Generator, cfg: ArchConfig,
 
 
 def init_block_cache(kind: str, cfg: ArchConfig, batch: int, cache_len: int,
-                     dtype, n: int = 1, device=None):
-    """Zero caches of ``n`` layers of ``kind``, stacked on a leading axis.
-    The MoE kinds also carry per-(row, expert) routed-token counters, so
-    decode reproduces the forward's capacity dropping (``moe.moe_decode``)."""
+                     dtype, lead: Tuple[int, ...] = (), device=None):
+    """The zero cache of a layer of ``kind``; ``lead`` = (n,) stacks n
+    layers.  The MoE kinds also carry per-(row, expert) routed-token
+    counters, so decode reproduces the forward's capacity dropping
+    (``moe.moe_decode``); the recurrent kinds carry their states (f32)
+    and their last inputs, and no sequence axis."""
     if kind not in KINDS:
-        raise _unported(kind)
+        raise ValueError(kind)
 
     def zeros(*shape, dt=dtype):
-        return torch.zeros((n,) + shape, dtype=dt, device=device)
+        return torch.zeros(tuple(lead) + shape, dtype=dt, device=device)
 
+    if kind == "mamba":
+        d_inner, H, P, N = mamba_mod.mamba2_dims(cfg)
+        return {"conv": zeros(batch, cfg.ssm.conv_width - 1, d_inner),
+                "ssm": zeros(batch, H, P, N, dt=torch.float32)}
+    if kind == "rwkv":
+        H, N = rwkv_mod.rwkv_dims(cfg)
+        return {"state": zeros(batch, H, N, N, dt=torch.float32),
+                "shift_tm": zeros(batch, cfg.d_model),
+                "shift_cm": zeros(batch, cfg.d_model)}
     if kind in ("mla_dense", "mla_moe"):
         c = {"ckv": zeros(batch, cache_len, cfg.mla_kv_lora_rank),
              "kr": zeros(batch, cache_len, cfg.mla_rope_head_dim)}
@@ -137,13 +156,41 @@ def block_forward(
     use_kernels: bool = True,       # full mode: attention through the kernel
 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """One layer.  ``p`` and ``cache`` are the layer's own (unstacked);
-    decode writes into ``cache`` in place."""
+    decode writes into ``cache`` in place (the recurrent kinds copy their
+    new states and last inputs into it)."""
     if kind not in KINDS:
-        raise _unported(kind)
+        raise ValueError(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     hd = cfg.resolved_head_dim
     mrope = cfg.mrope_sections if cfg.family == "vlm" else ()
     h = _apply_norm(cfg, p["norm1"], x)
+    if kind == "mamba":
+        if mode == "full":
+            o, (conv, ssm) = mamba_mod.mamba2_forward(p["mamba"], h, cfg)
+            new_cache = {"conv": conv, "ssm": ssm} if emit_cache else None
+        else:
+            o, (conv, ssm) = mamba_mod.mamba2_decode(
+                p["mamba"], h, cache["conv"], cache["ssm"], cfg)
+            new_cache = {"conv": cache["conv"].copy_(conv),
+                         "ssm": cache["ssm"].copy_(ssm)}
+        return x + o, new_cache, aux
+    if kind == "rwkv":
+        decode = mode != "full"
+        o, (state, last) = rwkv_mod.rwkv_timemix(
+            p["tm"], h, cfg, state=cache["state"] if decode else None,
+            shift_prev=cache["shift_tm"] if decode else None)
+        x = x + o
+        o, last2 = rwkv_mod.rwkv_channelmix(
+            p["cm"], _apply_norm(cfg, p["norm2"], x),
+            shift_prev=cache["shift_cm"] if decode else None)
+        if decode:
+            new_cache = {"state": cache["state"].copy_(state),
+                         "shift_tm": cache["shift_tm"].copy_(last),
+                         "shift_cm": cache["shift_cm"].copy_(last2)}
+        else:
+            new_cache = ({"state": state, "shift_tm": last, "shift_cm": last2}
+                         if emit_cache else None)
+        return x + o, new_cache, aux
     if kind in ("mla_dense", "mla_moe"):
         if mode == "full":
             o, (ckv, kr) = mla_mod.mla_forward(p["mla"], h, cfg, positions)
@@ -189,5 +236,5 @@ def resolve_kind(cfg: ArchConfig, raw_kind: str) -> str:
     if raw_kind == "moe":
         return "mla_moe" if cfg.use_mla else "gqa_moe"
     if raw_kind in ("mamba", "rwkv", "shared_attn"):
-        raise _unported(raw_kind)
+        return raw_kind
     raise ValueError(raw_kind)

@@ -11,8 +11,7 @@ keeps the values of their defaults ("repeat", "naive", "onehot"; the cache
 write is made in place).  Instead, the causal self-attention of a
 full-sequence forward goes through ``kernels/ops.py::
 sliding_window_attention``: the hand-written kernel when ``use_kernels``
-is set, its plain version otherwise.  M-RoPE (the VLM family) waits for
-ROADMAP A4.
+is set, its plain version otherwise.
 """
 from __future__ import annotations
 
@@ -24,8 +23,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-
-_A4 = "waits for a later slice of the port (ROADMAP A4)"
 
 # ---------------------------------------------------------------------------
 # init

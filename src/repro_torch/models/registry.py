@@ -1,6 +1,6 @@
-"""Model registry — the reference's uniform API over the architectures
-that the port has so far: the dense, MoE, VLM and encoder-decoder
-families.
+"""Model registry — the reference's uniform API over all 10
+architectures: the dense, MoE, VLM, encoder-decoder, ssm (RWKV-6) and
+hybrid (Mamba2 with shared attention) families.
 
 Counterpart of ``src/repro/models/registry.py``.  Model methods:
     init(generator, dtype)                  -> params
@@ -20,9 +20,9 @@ reference.  A ``Model`` runs on its ``device``; with ``use_kernels`` the
 causal self-attention of every full-sequence pass (forward,
 encode_segment, prefill; the encoder-decoder's decoder) launches the
 hand-written sliding-window attention kernel there (its plain version on
-the CPU).  MLA attention, the encoder's and the cross-attention run plain
-torch, as decode does: the reference has no kernel there.  The ssm and
-hybrid families wait for ROADMAP A4 and raise ``NotImplementedError``.
+the CPU).  MLA attention, the encoder's and the cross-attention, the
+Mamba2 scan and the RWKV-6 recurrence run plain torch, as decode does:
+the reference has no kernel there.
 """
 from __future__ import annotations
 
@@ -34,9 +34,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, transformer
-from repro_torch.models.common import _A4
 
-FAMILIES = ("dense", "moe", "vlm", "audio")
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -174,7 +173,7 @@ def _to(tree, device):
 def build_model(cfg: ArchConfig, use_kernels: bool = True,
                 device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (raises for ``cuda`` without a
-    card).  The ssm and hybrid families are not ported yet."""
+    card)."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"the {cfg.family} family ({cfg.name}) {_A4}")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return Model(cfg, use_kernels, resolve_device(device))

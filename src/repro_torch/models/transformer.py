@@ -7,8 +7,12 @@ them for ``lax.scan``, so the trees are the reference's:
 ``runs.<i>.<name>`` with the layer first.  A Python loop over the layers
 of a run takes the place of the scan.  The dense and VLM families are one
 run of ``attn`` blocks, arctic one of ``gqa_moe``, deepseek-v3 a run of
-``mla_dense`` then one of ``mla_moe``; the recurrent kinds wait for
-ROADMAP A4 (``blocks.py``).
+``mla_dense`` then one of ``mla_moe``, rwkv6 one of ``rwkv``; zamba2
+cycles runs of ``mamba`` with a ``shared_attn`` run of one layer.
+
+``shared_attn`` runs apply one shared, unstacked parameter set,
+``params["shared_attn"]`` (their entry in ``params["runs"]`` is ``{}``);
+each occurrence keeps its own unstacked cache.
 """
 from __future__ import annotations
 
@@ -43,7 +47,11 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
     runs = layer_runs(cfg)
     params: dict = {"embed": embed_init(cfg.vocab_size, cfg.d_model, generator,
                                         dtype)}
-    params["runs"] = [B.block_init(kind, generator, cfg, dtype, n)
+    if any(kind == "shared_attn" for kind, _ in runs):
+        params["shared_attn"] = B.block_init("shared_attn", generator, cfg,
+                                             dtype)
+    params["runs"] = [{} if kind == "shared_attn"
+                      else B.block_init(kind, generator, cfg, dtype, (n,))
                       for kind, n in runs]
     params["final_norm"], _ = make_norm(cfg.norm, cfg.d_model, dtype,
                                         device=generator.device)
@@ -55,7 +63,10 @@ def init_params(generator: torch.Generator, cfg: ArchConfig,
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
                device=None):
-    return [B.init_block_cache(kind, cfg, batch, cache_len, dtype, n, device)
+    """A zero cache a run: stacked, but unstacked for a ``shared_attn``
+    occurrence."""
+    return [B.init_block_cache(kind, cfg, batch, cache_len, dtype,
+                               () if kind == "shared_attn" else (n,), device)
             for kind, n in layer_runs(cfg)]
 
 
@@ -112,20 +123,26 @@ def _run_layers(kind, stacked_p, x, cfg, *, n, mode, positions,
                 positions_thw, caches, cache_pos, window, ring, emit_cache,
                 moe_cap_len, use_kernels):
     """Apply one run of ``n`` layers in order.  Decode writes each layer's
-    new key and value into the stacked ``caches`` in place (through the
+    new cache entries into the stacked ``caches`` in place (through the
     layer's views) and returns them.  Prefill writes its caches into one
     stacked buffer a leaf (allocated at the first layer), not stacked
-    afterwards, so a long prefill holds its caches once."""
+    afterwards, so a long prefill holds its caches once.  A
+    ``shared_attn`` run is one layer of the shared parameters
+    (``stacked_p``) with an unstacked cache."""
+    kw = dict(mode=mode, positions=positions, positions_thw=positions_thw,
+              cache_pos=cache_pos, window=window, ring=ring,
+              emit_cache=emit_cache, moe_cap_len=moe_cap_len,
+              use_kernels=use_kernels)
+    if kind == "shared_attn":
+        x, new_c, aux = B.block_forward(kind, stacked_p, x, cfg,
+                                        cache=caches, **kw)
+        return x, caches if mode == "decode" else new_c, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     out_caches = caches if mode == "decode" else None
     for i in range(n):
         x, new_c, a = B.block_forward(
-            kind, _layer(stacked_p, i), x, cfg, mode=mode, positions=positions,
-            positions_thw=positions_thw,
-            cache=None if caches is None else _layer(caches, i),
-            cache_pos=cache_pos, window=window, ring=ring,
-            emit_cache=emit_cache, moe_cap_len=moe_cap_len,
-            use_kernels=use_kernels)
+            kind, _layer(stacked_p, i), x, cfg,
+            cache=None if caches is None else _layer(caches, i), **kw)
         aux = aux + a
         if new_c is not None and mode != "decode":
             if out_caches is None:
@@ -159,7 +176,8 @@ def forward_hidden(params, cfg: ArchConfig, tokens, *, patches=None,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, n) in enumerate(layer_runs(cfg)):
         x, nc, aux = _run_layers(
-            kind, params["runs"][i], x, cfg, n=n, mode=mode,
+            kind, params["shared_attn"] if kind == "shared_attn"
+            else params["runs"][i], x, cfg, n=n, mode=mode,
             positions=positions, positions_thw=thw,
             caches=caches[i] if caches is not None else None,
             cache_pos=cache_pos, window=window, ring=ring,

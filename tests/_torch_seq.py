@@ -20,10 +20,25 @@ from repro_torch.models.common import load_jax_params
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CHAIN_TOL = dict(rtol=5e-4, atol=5e-4)
+# Where the reference's own output moves by more than half of 1e-5 when
+# its input is perturbed by one ulp (``ulp_noise``), 1e-5 is float noise
+# and the port is held at 1e-4: the reduced rwkv6-7b, the reduced
+# zamba2-1.2b at 4 layers and the reduced Mamba2 block over a few chunks
+# (the tests named *noise_floor pin each measurement).
+NOISE_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def ulp_noise(fn, x, seed=5):
+    """How far ``fn(x)`` moves (max abs) when each element of the float32
+    array ``x`` moves by one ulp, up or down at random: the float noise of
+    ``fn`` at ``x``."""
+    sign = np.random.default_rng(seed).choice([-1.0, 1.0], x.shape)
+    moved = (x * (1 + sign * 2.0 ** -23)).astype(np.float32)
+    return float(np.abs(np.asarray(fn(moved)) - np.asarray(fn(x))).max())
 
 
 def close(got, want, tol=TOL):
@@ -58,6 +73,8 @@ class Pair:
             jcfg = dataclasses.replace(jcfg, **replace)
             cfg = dataclasses.replace(cfg, **replace)
         self.cfg, self.jcfg = cfg, jcfg
+        self.tol = (NOISE_TOL if cfg.family == "ssm" or cfg.num_layers > 2
+                    else TOL)
         self.jm = jbuild_model(jcfg)
         self.jp = self.jm.init(jax.random.key(0))
         self.jdecode = jax.jit(self.jm.decode_step,
@@ -89,11 +106,21 @@ class Pair:
 _PAIRS = {}
 
 
-def pair_of(arch):
-    """The Pair of ``arch``, built once a process."""
-    if arch not in _PAIRS:
-        _PAIRS[arch] = Pair(arch)
-    return _PAIRS[arch]
+def pair_of(arch, **replace):
+    """The Pair of ``arch`` (its reduced config changed by ``replace``),
+    built once a process."""
+    key = (arch, tuple(sorted(replace.items())))
+    if key not in _PAIRS:
+        _PAIRS[key] = Pair(arch, **replace)
+    return _PAIRS[key]
+
+
+def pair_param(name):
+    """The Pair of a test id: an arch, or "<arch>/<n>L" for its reduced
+    config at n layers."""
+    arch, _, layers = name.partition("/")
+    return pair_of(arch, **({"num_layers": int(layers[:-1])} if layers
+                            else {}))
 
 
 def serve_logits_match_the_reference(arch, monkeypatch, gen=5, prompt=5):

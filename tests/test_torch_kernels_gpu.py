@@ -881,13 +881,14 @@ def test_dist_steps_kernel_path_matches_plain(cuda):
 # ---------------------------------------------------------------------------
 
 # (B, S, H, KV, D, W; None = full causal): chip_smoke.py's phase-3 shapes,
-# the last three the head shapes of qwen2-vl-7b, arctic-480b and
-# whisper-large-v3's decoder
+# the last four the head shapes of qwen2-vl-7b, arctic-480b,
+# whisper-large-v3's decoder and zamba2-1.2b's shared attention
 SWA_CASES = [(2, 256, 4, 2, 64, 128), (1, 2048, 16, 8, 128, None),
              (1, 4096, 16, 8, 128, 1024), (2, 1000, 16, 8, 128, 300),
              (1, 1, 16, 8, 128, None), (1, 777, 6, 1, 128, 1),
              (2, 513, 8, 8, 64, 33), (1, 2048, 28, 4, 128, None),
-             (1, 2048, 56, 8, 128, None), (2, 448, 20, 20, 64, None)]
+             (1, 2048, 56, 8, 128, None), (2, 448, 20, 20, 64, None),
+             (1, 2048, 32, 32, 64, None)]
 
 
 def _swa_inputs(B, S, H, KV, D, seed, cuda):
@@ -1023,13 +1024,14 @@ def _leaves(tree):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v3-671b",
-                                  "qwen2-vl-7b", "whisper-large-v3"])
+                                  "qwen2-vl-7b", "whisper-large-v3",
+                                  "zamba2-1.2b", "rwkv6-7b"])
 def test_family_model_kernel_path_matches_plain_and_decode(cuda, arch):
-    """The reduced attention families on the card: prefill (last logits,
-    every cache) and encode_segment through the kernel (one launch a
-    causal self-attention layer; none for MLA or whisper's encoder)
+    """The reduced families on the card: prefill (last logits, every
+    cache) and encode_segment through the kernel (one launch a causal
+    self-attention layer; none for MLA, whisper's encoder, mamba or rwkv)
     against the plain path, and the decode loop over the prompt against
-    prefill, at 5e-4."""
+    prefill, at 5e-4.  zamba2's prefill spans two SSD chunks."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import build_model, encdec
 
@@ -1037,8 +1039,10 @@ def test_family_model_kernel_path_matches_plain_and_decode(cuda, arch):
     kern = build_model(cfg, use_kernels=True, device=cuda)
     plain = build_model(cfg, use_kernels=False, device=cuda)
     params = kern.init(torch.Generator(cuda).manual_seed(0))
-    per_pass = 0 if cfg.use_mla else cfg.num_layers
-    inp = _family_inputs(cfg, 2, 100, cuda, 1)
+    per_pass = 0 if cfg.use_mla or cfg.attn_free else sum(
+        kind != "mamba" for kind in cfg.layer_kinds())
+    inp = _family_inputs(cfg, 2, 128 if cfg.family == "hybrid" else 100,
+                         cuda, 1)
     ops.reset_kernel_launches()
     lk, ck = kern.prefill(params, inp)
     assert ops.kernel_launches()["swa_attention"] == per_pass

@@ -243,12 +243,6 @@ def test_write_cache_matches_jax():
     assert got is target  # written in place
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
-def test_families_not_ported_yet_raise(arch):
-    with pytest.raises(NotImplementedError, match="A4"):
-        build_model(configs.reduced(configs.get_config(arch)), device="cpu")
-
-
 def test_default_device_is_cuda_and_raises_without_a_card():
     assert registry.Model(configs.get_config("olmo-1b")).device.type == "cuda"
     if torch.cuda.is_available():

@@ -1,7 +1,9 @@
 """The decode paths of the port's decoder-only families beyond the dense
 one — arctic-480b (gqa_moe), deepseek-v3-671b (mla_dense + mla_moe: the
-absorbed MLA decode, the MoE's routed-token counters) and qwen2-vl-7b
-(M-RoPE ids at the decode position) — against the JAX package's, reduced,
+absorbed MLA decode, the MoE's routed-token counters), qwen2-vl-7b
+(M-RoPE ids at the decode position), zamba2-1.2b (the Mamba2 conv and
+SSM states, the shared attention's caches; also at 4 layers) and rwkv6-7b
+(the RWKV state and token shifts) — against the JAX package's, reduced,
 with JAX's weights and inputs made from a numpy seed, on the CPU: the
 decode chains at 5e-4 (tests/test_models.py), with the cache exactly the
 sequence's length and over-allocated with ``moe_cap_len`` pinned, and the
@@ -14,15 +16,20 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from _torch_seq import (CHAIN_TOL, close, close_trees, pair_of,  # noqa: E402
-                        serve_logits_match_the_reference)
+                        pair_param, serve_logits_match_the_reference)
 from repro_torch.models import transformer  # noqa: E402
 
-ARCHS = ["arctic-480b", "deepseek-v3-671b", "qwen2-vl-7b"]
+SERVED = ["arctic-480b", "deepseek-v3-671b", "qwen2-vl-7b", "zamba2-1.2b",
+          "rwkv6-7b"]
+ARCHS = SERVED + ["zamba2-1.2b/4L"]
+# the sequence axis of the cache leaves that have one (stacked or not);
+# the recurrent states, token shifts and MoE counters have none
+SEQ_AXIS = {"k": -3, "v": -3, "ckv": -2, "kr": -2}
 
 
 @pytest.fixture(params=ARCHS)
 def pair(request):
-    return pair_of(request.param)
+    return pair_param(request.param)
 
 
 def _slice(inputs, S):
@@ -31,23 +38,29 @@ def _slice(inputs, S):
 
 def test_decode_steps_after_prefill_match_jax(pair):
     """Prefill over 12 tokens (text only: decode has no patch prefix), the
-    caches padded to 18 (counters as they are), then 6 decode steps on
-    both sides with the MoE capacity of the cache length."""
+    K/V caches padded to 18 along their sequence axis (states and
+    counters as they are), then 6 decode steps on both sides with the MoE
+    capacity of the cache length."""
     B, S, n = 2, 12, 6
     jin, tin = pair.inputs(B, S + n, seed=4, patches=False)
     _, jc = pair.jm.prefill(pair.jp, _slice(jin, S))
     _, c = pair.m.prefill(pair.p, _slice(tin, S))
 
-    def jpad(v):
-        return v if v.ndim < 4 else jnp.pad(
-            v, [(0, 0), (0, 0), (0, n)] + [(0, 0)] * (v.ndim - 3))
+    def jpad(name, v):
+        if name not in SEQ_AXIS:
+            return v
+        widths = [(0, 0)] * v.ndim
+        widths[SEQ_AXIS[name]] = (0, n)
+        return jnp.pad(v, widths)
 
-    def pad(v):
-        return v if v.dim() < 4 else torch.nn.functional.pad(
-            v, (0, 0) * (v.dim() - 3) + (0, n))
+    def pad(name, v):
+        if name not in SEQ_AXIS:
+            return v
+        return torch.nn.functional.pad(v, (0, 0) * (-SEQ_AXIS[name] - 1)
+                                       + (0, n))
 
-    jc = [{k: jpad(v) for k, v in run.items()} for run in jc]
-    c = [{k: pad(v) for k, v in run.items()} for run in c]
+    jc = [{k: jpad(k, v) for k, v in run.items()} for run in jc]
+    c = [{k: pad(k, v) for k, v in run.items()} for run in c]
     for t in range(S, S + n):
         jl, jc = pair.jdecode(pair.jp, jin["tokens"][:, t:t + 1], jc,
                               jnp.full((B,), t, jnp.int32))
@@ -98,7 +111,8 @@ def test_moe_decode_counters_continue_the_prefill(arch):
     assert held.sum(-1).eq((S + 1) * pair.cfg.moe.top_k).all()
 
 
-def test_serve_gives_the_reference_logits_at_each_step(pair, monkeypatch,
+@pytest.mark.parametrize("arch", SERVED)
+def test_serve_gives_the_reference_logits_at_each_step(arch, monkeypatch,
                                                        capsys):
-    serve_logits_match_the_reference(pair.cfg.name, monkeypatch)
-    assert f"[{pair.cfg.name}] generated (2, 5)" in capsys.readouterr().out
+    serve_logits_match_the_reference(arch, monkeypatch)
+    assert f"[{arch}] generated (2, 5)" in capsys.readouterr().out

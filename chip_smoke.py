@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Drives the port's serving path, its graph-track training path and its
-distributed training path on the card, each also over the tiered store,
-at the repo's full model width
+distributed training path (inline and through the prefetch lane) on the
+card, each also over the tiered store, at the repo's full model width
 (GNNConfig / ServeConfig / run_experiment defaults: hidden 64, 2
 message-passing layers, max_seg_nodes 64, batch 8), and the sequence
-track's serving path on internlm2-1.8b at full width and depth and on
+track's training (GST and LM) and serving paths on internlm2-1.8b at
+full width and depth, and its serving path on
 qwen2-vl-7b, arctic-480b, deepseek-v3-671b, whisper-large-v3,
 zamba2-1.2b and rwkv6-7b at full width (the two MoE models cut in depth
 to fit the card), with random weights from a seed, and holds each
@@ -30,7 +31,8 @@ fails the run (none catches its own):
                 to 128, bf16, inf under a weight-0 edge); its backward
                 (dh by the same kernel with src and dst swapped, dw in
                 torch) against plain autograd (1e-4); sed_pool and
-                sed_pool_aged at the two training shapes and a 64 MiB
+                sed_pool_aged at the two training shapes, the sequence track's
+                (8, 8, 2048) and a 64 MiB
                 stress shape (1e-5), beside torch.bmm and a launch floor
                 (one torch.cuda._sleep(0) in the same timer); the six
                 pack / unpack kernels of the
@@ -89,6 +91,24 @@ fails the run (none catches its own):
                 identical per-epoch losses.  Then 5 ring / int8 steps
                 under torch.profiler (device busy share), and the wall
                 time of a step at 1, 2 and 4 shards
+ 7b. dist_prefetch  train_dist --prefetch-lookups, the same 4 shards and
+                width, epochs cut to 2 and finetune epochs to 1 (as the
+                f32 strategy runs): (d') ring / f32: per-epoch losses,
+                parameters and final table bitwise the inline ring / f32
+                run; (e') alltoall / bf16 and (f') bucketed / int8 λ 0.05:
+                finite, launches as Exchange.codec_launches predicts with
+                "prefetch_lookup" and "update_sampled_patch", exchange
+                bytes a step a shard = prefetch_train_step_bytes (+ the
+                age plane at λ > 0), bucketed's patch bytes and planned
+                patch_cap printed; (g') ring / f32 on 2 shards, sync
+                feeder, --table-device-rows 32 (the lane's window, 2
+                batches a shard, of 64 rows): bitwise the uncapped
+                prefetched run, rows evicted under the pins, no pin
+                exhaustion; (h') ring, alltoall, bucketed / f32: 4
+                batches of one row set through the launcher's lane,
+                every row of the first 3 patched, bitwise the inline
+                loop; then 5 ring / f32 steps inline and through the
+                lane under torch.profiler (busy share)
   8. store      the tiered embedding store: (a) training run (a) again with
                 max(10% of its 60 training graphs, a batch) = 8 rows on the
                 card: per-epoch losses, metrics and final table bitwise the
@@ -106,7 +126,19 @@ fails the run (none catches its own):
                 begin + commit and the write-back's landing for 8, 64 and
                 1,024 misses with as many evictions, as GB/s each way;
                 then 200 random batches: snapshot bitwise a DeviceStore's
-  9. seq_serve  internlm2-1.8b (1.9 B parameters, f32) on the card: (a)
+  8b. seq_train  internlm2-1.8b at full width and depth (f32, random),
+                launch.train: (a) --track seq gst_efd, kernels, batch 8
+                x J 8 x 64 tokens, 64 documents, 3 steps: sed_pool once
+                a step at (8, 8, 2048), the attention kernel never (the
+                encode that trains runs the plain attention); (b)
+                --no-use-kernels: losses and parameters within 1e-4; (c)
+                --table-device-rows 16: bitwise (a); (d) --variant gst,
+                2 steps: the attention kernel 24 times a step (the
+                no-grad re-encode, one call a layer); (e) --track lm, 8
+                steps: finite, loss falling; ms a step, peak memory
+                above the weights, one profiled gst_efd step; every
+                state freed (1 GiB at most stays)
+ 9. seq_serve  internlm2-1.8b (1.9 B parameters, f32) on the card: (a)
                 launch.serve.serve, B 2, prompt 16, 16 generated tokens,
                 ms a token; (b) Model.prefill of that prompt = the decode
                 loop (5e-4); (c) prefill B 2, S 2048, kernel path = plain
@@ -139,8 +171,9 @@ fails the run (none catches its own):
                 rwkv_timemix at B 1, S 2048, one decode step of each
                 layer at B 2: ms a call, launches, device busy time
  12. kernels    one JSON line: per kernel, launches on the main path
-                (serving, training, distributed training, the store's
-                (a), (c) and (d), seq_serve and seq_families),
+                (serving, training, distributed training, dist_prefetch,
+                the store's (a), (c) and (d), seq_train, seq_serve and
+                seq_families),
                 error, times and bound
 
     python3 chip_smoke.py --turns PARENT_DIR
@@ -192,7 +225,7 @@ HEADLINE_SHAPE = (8, 64, 512, 64)   # the catch-all serving bucket
 TRAIN_SHAPES = [(8, 64, 382, 64), (160, 64, 382, 64)]
 # (B, J, d): the mlp head's pooling (J_max 20, hidden 64), the segment_sum
 # head's (J_max 16, one scalar a segment), and a 64 MiB stress shape
-SED_SHAPES = [(8, 20, 64), (8, 16, 1), (1024, 64, 256)]
+SED_SHAPES = [(8, 20, 64), (8, 16, 1), (8, 8, 2048), (1024, 64, 256)]
 # (dataset, backbone, SED age weighting λ); epochs cut for time
 TRAIN_RUNS = [("malnet", "sage", 0.0), ("tpugraphs", "gcn", 0.0),
               ("malnet", "sage", 0.05)]
@@ -210,6 +243,16 @@ DIST_ARGS = ["--device", "cuda", "--devices", str(DIST_SHARDS),
              "--finetune-epochs", str(DIST_FINETUNE_EPOCHS)]
 DIST_RUNS = [("ring", "int8", 0.0), ("alltoall", "bf16", 0.0),
              ("bucketed", "int8", 0.05)]
+# the prefetch lane (dist_prefetch): the distributed run's shape with
+# epochs cut to 2 and finetune epochs to 1 (as the f32 strategy runs);
+# (d') ring / f32 against the inline ring / f32 run, (e') alltoall / bf16,
+# (f') bucketed / int8 λ 0.05, then (g') ring / f32 under a capped table
+PREFETCH_EPOCHS = ["--epochs", "2", "--finetune-epochs", "1"]
+PREFETCH_RUNS = [("ring", "f32", 0.0), ("alltoall", "bf16", 0.0),
+                 ("bucketed", "int8", 0.05)]
+PREFETCH_DEVICE_ROWS = 32
+PREFETCH_CAPPED_SHARDS = 2            # (g'): 32 of 64 rows are the window
+PREFETCH_OVERLAP_STEPS = 4            # (h'): batches of one row set
 QUANT_STRESS = (8192, 1280)             # 40 MiB of f32 rows
 # (R, N, element offset of x and v in their buffers) edge cases: one row,
 # N not a multiple of 32, a wide ragged row, rows with NaN of both signs,
@@ -245,6 +288,15 @@ MIGRATION_STEPS = 200
 # the sequence track: internlm2-1.8b at full width and depth (24 layers,
 # d_model 2048, 16 query and 8 KV heads of 128, d_ff 8192, vocab 92,544)
 SEQ_ARCH = "internlm2-1.8b"
+# seq_train: the sequence track's GST training (--track seq, gst_efd) of
+# SEQ_ARCH at full width and depth: batch 8 of J 8 segments of 64 tokens,
+# 64 documents, 3 steps a run; the capped run keeps 16 of the 64 rows on
+# the card; --track lm takes SEQ_LM_STEPS steps
+SEQ_TRAIN = ["--track", "seq", "--arch", SEQ_ARCH, "--batch-size", "8",
+             "--seg-len", "64", "--n-docs", "64", "--steps", "3",
+             "--log-every", "1"]
+SEQ_TRAIN_ROWS = 16
+SEQ_LM_STEPS = 8
 # (B, S, H, KV, D, W; None = full causal): the reduced model's width, the
 # full model at 2048 tokens, a windowed 4096, S and W not multiples of a
 # tile, one token, a GQA ratio of 6 on one KV head with only the diagonal
@@ -1333,17 +1385,294 @@ def phase_dist_f32_strategies(torch):
     reference's bit-exact exchange contract)."""
     from repro_torch.launch.train_dist import run
 
-    out = {}
+    out, runs = {}, {}
     for exchange in ("ring", "alltoall", "bucketed"):
-        r = run(dist_args(exchange, "f32", 0.0, "--epochs", "2",
-                          "--finetune-epochs", "1"), log=lambda *a, **k: None)
+        r = run(dist_args(exchange, "f32", 0.0, *PREFETCH_EPOCHS),
+                log=lambda *a, **k: None)
         out[exchange] = (r.epoch_losses, r.train_metric)
+        runs[exchange] = r
     if not out["ring"] == out["alltoall"] == out["bucketed"]:
         raise AssertionError(f"f32 strategies differ: {out}")
     log(f"[dist] f32, 2 epochs: per-epoch losses {out['ring'][0]} and train "
         f"metric {out['ring'][1]} identical through ring, alltoall and "
         "bucketed")
-    return out["ring"][0]
+    return out["ring"][0], runs["ring"]
+
+
+def bitwise_run(torch, a, b):
+    """Two DistResults: per-epoch losses, train metric, shard 0's
+    parameters and the final table (emb, age, init) bit for bit."""
+    return (a.epoch_losses == b.epoch_losses
+            and a.train_metric == b.train_metric
+            and all(torch.equal(x, y)
+                    for x, y in zip(a.host_params(), b.host_params()))
+            and all(torch.equal(x, y)
+                    for x, y in zip(a.host_table(), b.host_table())))
+
+
+def prefetch_launches(ex, r, decay, D):
+    """The kernels a prefetched train_dist run launches, all D shards: per
+    train step n_mp SpMM forward and backward, one pooling, the lookup of
+    the next item and the fused write-back and patch (every item is
+    looked up once); refresh, finetune and eval inline."""
+    n_mp, evals = 2, 64 // 8
+    steps, ft, refresh = r.train_steps, r.finetune_steps, r.refresh_steps
+    want = {"segment_spmm_batched": D * n_mp * (steps + refresh + evals),
+            "segment_spmm_batched_bwd": D * n_mp * steps,
+            "sed_pool": D * (steps * (decay == 0) + ft + evals),
+            "sed_pool_aged": D * steps * (decay > 0)}
+    for op, calls in (("prefetch_lookup", steps),
+                      ("update_sampled_patch", steps), ("lookup", ft),
+                      ("update_all", refresh)):
+        for k, v in ex.codec_launches(op).items():
+            want[k] = want.get(k, 0) + D * calls * v
+    return want
+
+
+def age_plane_bytes(exchange, cap, b_local, j_max, D):
+    """Bytes a shard sends a step reading the age plane (lookup_ages, λ >
+    0), which the reference's bytes models leave out: bucketed sends its
+    (D, cap) int32 id buckets and receives the (D, cap, J) int32 ages back,
+    (D-1)/D of each; ring D hops of (ids, ages); alltoall the ids'
+    all_gather and the ages' all_to_all."""
+    if exchange == "bucketed":
+        return (D - 1) * cap * 4 * (1 + j_max)
+    if exchange == "ring":
+        return D * b_local * 4 * (1 + j_max)
+    return (D - 1) * b_local * 4 * (1 + j_max)
+
+
+def lane_profile(torch, prefetch, n_steps=5):
+    """Device busy share of ring / f32 train steps, inline or through the
+    prefetch lane: 3 warm-up steps, then ``n_steps`` under torch.profiler
+    (sync feeder; the lane's dispatch of each next item is in the window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist import pipeline as DP
+    from repro_torch.graphs.experiment import epoch_generator
+    from repro_torch.launch.train_dist import run_epoch_prefetch, setup
+
+    s = setup(dist_args("ring", "f32", 0.0, *(["--prefetch-lookups"]
+                                              if prefetch else [])))
+    gens = [epoch_generator(0, 0) for _ in range(DIST_SHARDS)]
+    sched = s.train_scheds[0]
+
+    def steps(states, ids):
+        if prefetch:
+            feeder = DP.make_feeder("sync", s.ds, ids, s.put_pinned)
+            return run_epoch_prefetch(s, states, feeder, gens,
+                                      torch.cuda.synchronize, [])[0]
+        for item in DP.make_feeder("sync", s.ds, ids, s.put_writing):
+            states, batches = s.commit(states, item)
+            states, _ = s.step(states, batches, gens)
+        return states
+
+    states = steps(s.states, sched[:3])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(states, sched[3:3 + n_steps])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    s.store.close()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    return {"device_events_per_step": len(events) / n_steps,
+            "device_busy_ms_per_step": busy_us / n_steps / 1e3,
+            "wall_ms_per_step": wall_us / n_steps / 1e3,
+            "busy_share": busy_us / wall_us}
+
+
+def overlap_lane(torch, exchange, prefetch):
+    """(h'): one epoch of PREFETCH_OVERLAP_STEPS batches, each a
+    permutation of one set of 8 rows, through train_dist's own epoch loop
+    (``run_epoch_prefetch`` under --prefetch-lookups, else commit + step)
+    at f32 on DIST_SHARDS shards: every row of every batch but the last is
+    patched.  Launcher epochs hold disjoint batches and patch nothing.
+    Returns (the last loss, shard 0's parameters, the table, the rows
+    patched) on the host."""
+    import numpy as np
+
+    from repro_torch.core import gst as G
+    from repro_torch.dist import pipeline as DP
+    from repro_torch.dist.train import host_table
+    from repro_torch.graphs.experiment import epoch_generator
+    from repro_torch.launch.train_dist import run_epoch_prefetch, setup
+
+    s = setup(dist_args(exchange, "f32", 0.0, "--exchange-cap", "2",
+                        "--patch-cap", "2",
+                        *(["--prefetch-lookups"] if prefetch else [])))
+    try:
+        rng = np.random.default_rng(1)
+        base = rng.permutation(s.ds.n)[:8]
+        sched = [rng.permutation(base).astype(np.int64)
+                 for _ in range(PREFETCH_OVERLAP_STEPS)]
+        gens = [epoch_generator(0, 0) for _ in range(DIST_SHARDS)]
+        rows = 0
+        if prefetch:
+            feeder = DP.make_feeder("sync", s.ds, sched, s.put_pinned)
+            states, loss, _, rows = run_epoch_prefetch(
+                s, s.states, feeder, gens, torch.cuda.synchronize, [])
+        else:
+            states = s.states
+            for item in DP.make_feeder("sync", s.ds, sched, s.put_writing):
+                states, batches = s.commit(states, item)
+                states, m = s.step(states, batches, gens)
+                loss = m["loss"]
+        return (float(loss),
+                [p.detach().cpu() for p in G.train_params(states[0])],
+                tuple(host_table(s.ctx, states, s.store)), rows)
+    finally:
+        s.store.close()
+
+
+def phase_dist_prefetch(torch, inline_f32):
+    """train_dist --prefetch-lookups on 4 shards of the card at the
+    distributed run's width (the main path, launches counted from 0):
+    (d') ring / f32 bitwise ``inline_f32`` (the inline ring / f32 run of
+    phase_dist_f32_strategies: losses, parameters, final table); (e')
+    alltoall / bf16 and (f') bucketed / int8 λ 0.05: finite, launches as
+    ``codec_launches`` predicts with "update_sampled_patch", bytes a step
+    a shard the prefetched model (with the age plane at λ > 0); (g') ring
+    / f32 on 2 shards under --table-device-rows 32 with the sync feeder:
+    bitwise the uncapped prefetched run, rows evicted.  Then (h'), the
+    patch on the card: all-overlap batches through the launcher's lane
+    (``overlap_lane``), and the lane's busy share beside the inline
+    steps'."""
+    from repro_torch.dist.exchange import make_exchange
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train_dist import run
+
+    D = DIST_SHARDS
+    launches, out = {}, {}
+    for exchange, dtype, decay in PREFETCH_RUNS:
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        r = run(dist_args(exchange, dtype, decay, "--prefetch-lookups",
+                          *PREFETCH_EPOCHS), log=lambda *a, **k: None)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = ops.kernel_launches()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        if not (r.finetuned and all(map(math.isfinite, (
+                r.train_metric, r.finetune_loss, r.ms_per_iter,
+                *r.epoch_losses)))):
+            raise AssertionError(f"prefetch {exchange}/{dtype}: bad result "
+                                 f"{r}")
+        ex = make_exchange(exchange, num_shards=D, rows=1, cap=r.cap,
+                           payload_dtype=dtype, patch_cap=r.patch_cap)
+        want = prefetch_launches(ex, r, decay, D)
+        if launched(got) != launched(want):
+            raise AssertionError(f"prefetch {exchange}/{dtype}: launches "
+                                 f"{launched(got)}, want {launched(want)}")
+        b_local = 8 // D
+        j_max = r.states[0].table.emb.shape[1]
+        ages = age_plane_bytes(exchange, r.cap, b_local, j_max, D) \
+            if decay > 0 else 0
+        per_epoch = r.train_steps // len(r.epoch_losses)
+        step_bytes = [b / per_epoch for b in r.epoch_exchange_bytes]
+        if any(b != r.step_bytes_model + ages for b in step_bytes):
+            raise AssertionError(f"prefetch {exchange}/{dtype}: {step_bytes} "
+                                 f"bytes a step, model {r.step_bytes_model}"
+                                 f" + age plane {ages}")
+        patch = ex.patch_bytes(b_local, 1, 64)
+        if (patch > 0) != (exchange == "bucketed"):
+            raise AssertionError(f"{exchange}: patch bytes {patch}")
+        if exchange == "ring":
+            if not bitwise_run(torch, r, inline_f32):
+                raise AssertionError(
+                    f"(d') prefetched ring / f32 {r.epoch_losses} is not "
+                    f"bitwise the inline run {inline_f32.epoch_losses}")
+        label = {"ring": "(d')", "alltoall": "(e')",
+                 "bucketed": "(f')"}[exchange]
+        log(f"[dist_prefetch] {label} {exchange}/{dtype} λ={decay}: "
+            + ("per-epoch losses, parameters and final table bitwise the "
+               "inline ring / f32 run; " if exchange == "ring" else "")
+            + f"{r.train_steps} train steps in {seconds:.3f} s, "
+            f"{r.ms_per_iter:.6f} ms/iter, exch {step_bytes[-1]:.1f} B a "
+            f"step a shard = prefetched model {r.step_bytes_model}"
+            + (f" + age plane {ages}" if ages else "")
+            + f" (patch bytes {patch}"
+            + (f", planned patch_cap {r.patch_cap}, cap {r.cap}"
+               if exchange == "bucketed" else "")
+            + f"), patched rows {r.patched_rows}; launches {launched(got)}")
+        out[label] = {"exchange": exchange, "payload_dtype": dtype,
+                      "sed_age_weighting": decay,
+                      "ms_per_iter": r.ms_per_iter, "seconds": seconds,
+                      "epoch_losses": r.epoch_losses,
+                      "exch_bytes_per_step_per_shard": step_bytes[-1],
+                      "exch_bytes_model": r.step_bytes_model,
+                      "age_plane_bytes": ages, "patch_bytes": patch,
+                      "patch_cap": r.patch_cap, "cap": r.cap,
+                      "patched_rows": r.patched_rows,
+                      "launches": launched(got)}
+    # (g') at 2 shards: the lane's window (2 batches a shard) is 32 of the
+    # 64 rows, so rows are evicted while others stay pinned
+    g_args = ("ring", "f32", 0.0, "--prefetch-lookups", *PREFETCH_EPOCHS,
+              "--feeder", "sync")
+    uncapped = run(dist_args(*g_args, shards=PREFETCH_CAPPED_SHARDS),
+                   log=lambda *a, **k: None)
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    r = run(dist_args(*g_args, "--table-device-rows",
+                      str(PREFETCH_DEVICE_ROWS),
+                      shards=PREFETCH_CAPPED_SHARDS),
+            log=lambda *a, **k: None)
+    torch.cuda.synchronize()
+    for k, v in ops.kernel_launches().items():
+        launches[k] = launches.get(k, 0) + v
+    st = r.store_stats
+    if st["backend"] != "TieredStore" or st["evictions"] <= 0 \
+            or st["device_rows"] >= st["n_rows"] \
+            or not bitwise_run(torch, r, uncapped):
+        raise AssertionError(f"(g') capped prefetched ring / f32 "
+                             f"{r.epoch_losses} {st} is not bitwise the "
+                             f"uncapped {uncapped.epoch_losses}, or evicted "
+                             "nothing")
+    log(f"[dist_prefetch] (g') ring / f32, {PREFETCH_CAPPED_SHARDS} shards, "
+        f"sync feeder, --table-device-rows {PREFETCH_DEVICE_ROWS} (the "
+        f"lane's window of 2 batches a shard: {st['device_rows']} of "
+        f"{st['n_rows']} rows on the card): losses, parameters, final table "
+        f"bitwise the uncapped prefetched run, {st['evictions']} evictions "
+        f"under the pins, no pin exhaustion; {r.ms_per_iter:.6f} ms/iter "
+        f"(uncapped {uncapped.ms_per_iter:.6f}); {store_line(st)}")
+    out["(g')"] = {"shards": PREFETCH_CAPPED_SHARDS,
+                   "ms_per_iter": r.ms_per_iter,
+                   "uncapped_ms_per_iter": uncapped.ms_per_iter, "store": st}
+    del uncapped, r
+    out["(h')"] = {}
+    for exchange in ("ring", "alltoall", "bucketed"):
+        (la, pa, ta, rows_a), (lb, pb, tb, rows_b) = (
+            overlap_lane(torch, exchange, p) for p in (False, True))
+        want_rows = (PREFETCH_OVERLAP_STEPS - 1) * 8
+        if not (rows_a == 0 and rows_b == want_rows and la == lb
+                and tables_equal(torch, pa, pb)
+                and tables_equal(torch, ta, tb)):
+            raise AssertionError(
+                f"(h') {exchange} / f32 all-overlap: prefetched loss {lb}, "
+                f"{rows_b} rows patched (want {want_rows}) against inline "
+                f"{la}, or the parameters or table differ")
+        log(f"[dist_prefetch] (h') {exchange} / f32, {DIST_SHARDS} shards, "
+            f"{PREFETCH_OVERLAP_STEPS} all-overlap batches through the "
+            f"launcher's lane: {rows_b} rows patched, loss {lb}, parameters "
+            "and table bitwise the inline loop's")
+        out["(h')"][exchange] = {"patched_rows": rows_b, "loss": lb}
+    prof = {"inline": lane_profile(torch, False),
+            "prefetch": lane_profile(torch, True)}
+    log("[dist_prefetch] ring / f32 steps, 4 shards, 5 after 3 warm-up, "
+        "under torch.profiler: " + "; ".join(
+            f"{k}: {v['wall_ms_per_step']:.3f} ms wall, device busy "
+            f"{v['device_busy_ms_per_step']:.4f} ms "
+            f"({v['device_events_per_step']:.0f} events), busy share "
+            f"{v['busy_share']:.4f}" for k, v in prof.items())
+        + f"; inline ring / f32 run {inline_f32.ms_per_iter:.6f} ms/iter")
+    out["profile"] = prof
+    out["inline_f32_ms_per_iter"] = inline_f32.ms_per_iter
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -2065,6 +2394,185 @@ def phase_seq_serve(torch, dev):
     return main, out
 
 
+def seq_train_args(*extra):
+    from repro_torch.launch.train import build_parser
+
+    return build_parser().parse_args(SEQ_TRAIN + ["--device", "cuda",
+                                                  *extra])
+
+
+def free_card(torch, base, label):
+    """Collect, empty the cache, and fail when more than 1 GiB above
+    ``base`` stays allocated (a model's state kept alive)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base
+    if left > 2 ** 30:
+        raise AssertionError(f"{label}: {left} B still allocated")
+
+
+def phase_seq_train(torch, dev):
+    """The sequence track's training on SEQ_ARCH at full width and depth
+    (f32, random weights from seed 0), through launch.train's entry points
+    (the main path, launches counted from 0): (a) --track seq gst_efd with
+    the kernels, 3 steps: sed_pool once a step at (8, 8, 2048), the
+    attention kernel never (the encode that trains runs the plain
+    attention: the kernel has no backward); (b) the same
+    with --no-use-kernels: losses and parameters within GRAD_TOL of (a);
+    (c) (a) with --table-device-rows 16: losses and parameters bitwise
+    (a); (d) --track seq gst, 2 steps: the attention kernel once a layer
+    a step (the no-grad re-encode of all B·J segments is one call a
+    layer), sed_pool never; (e) --track lm, SEQ_LM_STEPS steps: finite,
+    loss falling; then one gst_efd step profiled.  ms a step, peak memory
+    above the weights; every state freed before the phase returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as T
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    launches = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = ops.kernel_launches()
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return r, launched(got), seconds, torch.cuda.max_memory_allocated()
+
+    quiet = lambda *a, **k: None     # noqa: E731
+    out = {}
+    r, got, seconds, peak = counted(lambda: T.train_seq(seq_train_args(),
+                                                        log=quiet))
+    n_params = sum(p.numel() for p in r.state.backbone.parameters())
+    weights = sum(p.numel() * p.element_size()
+                  for p in r.state.backbone.parameters())
+    want = {"sed_pool": 3}
+    if got != launched(want):
+        raise AssertionError(f"seq_train (a): launches {got}, want {want}")
+    if not all(map(math.isfinite, r.losses)):
+        raise AssertionError(f"seq_train (a): losses {r.losses}")
+    # parameters and moments: 4x the weights; the rest is activations,
+    # gradients' transients and the table
+    state_bytes = 4 * weights
+    out["a"] = {"losses": r.losses, "ms_per_step": r.step_ms,
+                "seconds": seconds, "launches": got, "params": n_params,
+                "weights_bytes": weights,
+                "peak_above_weights_bytes": peak - base - weights,
+                "peak_above_state_bytes": peak - base - state_bytes}
+    log(f"[seq_train] (a) {SEQ_ARCH} ({n_params} parameters, {weights} B "
+        f"f32), --track seq gst_efd, kernels, B 8 x J 8 x 64 tokens, 3 "
+        f"steps: losses {r.losses}, ms a step {r.step_ms}, {seconds:.3f} s "
+        f"with the build; peak {peak - base} B above the phase's start: "
+        f"{peak - base - weights} B above the weights, "
+        f"{peak - base - state_bytes} B above weights, gradients and the two "
+        f"AdamW moments; launches {got}")
+    kern_losses = r.losses
+    kern_params = [p.detach() for p in r.state.backbone.parameters()] + \
+        [p.detach() for p in r.state.head.parameters()]
+    del r
+    free_card(torch, base + weights, "seq_train (a)")
+
+    r, got, seconds, _ = counted(lambda: T.train_seq(seq_train_args(
+        "--no-use-kernels"), log=quiet))
+    params = [p.detach() for p in list(r.state.backbone.parameters())
+              + list(r.state.head.parameters())]
+    worst = max(float((a - b).abs().max()) for a, b in zip(kern_params,
+                                                          params))
+    loss_diff = max(abs(a - b) for a, b in zip(kern_losses, r.losses))
+    if got or worst > GRAD_TOL or loss_diff > GRAD_TOL * max(
+            1.0, max(map(abs, r.losses))):
+        raise AssertionError(f"seq_train (b): plain path launches {got}, "
+                             f"max param diff {worst}, loss diff {loss_diff}")
+    log(f"[seq_train] (b) --no-use-kernels: losses {r.losses}, max |loss "
+        f"diff| {loss_diff:.3e}, max |param diff| {worst:.3e} after 3 steps "
+        f"(tolerance {GRAD_TOL}); ms a step {r.step_ms}")
+    out["b"] = {"losses": r.losses, "ms_per_step": r.step_ms,
+                "max_param_diff": worst, "max_loss_diff": loss_diff}
+    del r, params
+    free_card(torch, base + weights, "seq_train (b)")
+
+    r, got, seconds, _ = counted(lambda: T.train_seq(seq_train_args(
+        "--table-device-rows", str(SEQ_TRAIN_ROWS)), log=quiet))
+    params = [p.detach() for p in list(r.state.backbone.parameters())
+              + list(r.state.head.parameters())]
+    st = r.store_stats
+    if r.losses != kern_losses or not all(
+            torch.equal(a, b) for a, b in zip(kern_params, params)) \
+            or st["evictions"] <= 0:
+        raise AssertionError(f"seq_train (c): capped {r.losses} {st} is not "
+                             f"bitwise the uncapped {kern_losses}")
+    log(f"[seq_train] (c) --table-device-rows {SEQ_TRAIN_ROWS}: losses and "
+        f"parameters bitwise (a); ms a step {r.step_ms}; {store_line(st)}")
+    out["c"] = {"ms_per_step": r.step_ms, "store": st}
+    del r, params, kern_params
+    free_card(torch, base, "seq_train (c)")
+
+    r, got, seconds, _ = counted(lambda: T.train_seq(seq_train_args(
+        "--variant", "gst", "--steps", "2"), log=quiet))
+    layers = get_config(SEQ_ARCH).num_layers
+    want = {"swa_attention": 2 * layers}
+    if got != launched(want) or not all(map(math.isfinite, r.losses)):
+        raise AssertionError(f"seq_train (d) gst: launches {got}, want "
+                             f"{want}; losses {r.losses}")
+    log(f"[seq_train] (d) --variant gst, 2 steps: losses {r.losses}, ms a "
+        f"step {r.step_ms}; launches {got}: the no-grad re-encode of all "
+        f"8 x 8 segments is one attention call a layer ({layers} a step), "
+        "the sampled encode that trains runs the plain attention")
+    out["d"] = {"losses": r.losses, "ms_per_step": r.step_ms,
+                "launches": got}
+    del r
+    free_card(torch, base, "seq_train (d)")
+
+    r, got, seconds, peak = counted(lambda: T.train_lm(seq_train_args(
+        "--track", "lm", "--steps", str(SEQ_LM_STEPS)), log=quiet))
+    if got or not all(map(math.isfinite, r.losses)) \
+            or not r.losses[-1] < r.losses[0]:
+        raise AssertionError(f"seq_train (e) lm: launches {got}, losses "
+                             f"{r.losses}")
+    log(f"[seq_train] (e) --track lm, {SEQ_LM_STEPS} steps: losses "
+        f"{r.losses} (falling), ms a step {r.step_ms}, peak "
+        f"{peak - base - weights} B above the weights")
+    out["e"] = {"losses": r.losses, "ms_per_step": r.step_ms,
+                "peak_above_weights_bytes": peak - base - weights}
+    del r
+    free_card(torch, base, "seq_train (e)")
+
+    # one gst_efd step under the profiler (not on the main path)
+    from repro_torch.data.tokens import doc_batch_iterator
+    from repro_torch.graphs.experiment import epoch_generator
+    import numpy as np
+
+    model, docs, state, step, store = T.seq_setup(seq_train_args())
+    tups = list(doc_batch_iterator(docs, 8, rng=np.random.default_rng(0)))
+    box = {"state": state, "i": 0}
+
+    def one_step():
+        tup = tups[box["i"] % len(tups)]
+        box["state"], m = step(box["state"], T.seq_batch(model, tup, tup[2],
+                                                         0, box["i"]),
+                               epoch_generator(0, box["i"]))
+        box["i"] += 1
+        return float(m["loss"])
+
+    one_step()
+    out["profile"] = profiled(torch, one_step, "gst_efd train step",
+                              tag="seq_train")
+    store.close()
+    del model, state, step, store, box
+    free_card(torch, base, "seq_train profile")
+    return launches, out
+
+
 def prefill_gemm_flops(params, cfg, batch, seq):
     """The matmul operations of ``Model.prefill``: every layer's
     projections and MLP (the stacked (L, in, out) weights) over all
@@ -2654,7 +3162,10 @@ def main() -> int:
         for k, v in launches.items():
             main_launches[k] = main_launches.get(k, 0) + v
         dist.append(summary)
-    f32_losses = phase_dist_f32_strategies(torch)
+    f32_losses, inline_f32 = phase_dist_f32_strategies(torch)
+    launches, dist_prefetch = phase_dist_prefetch(torch, inline_f32)
+    for k, v in launches.items():
+        main_launches[k] = main_launches.get(k, 0) + v
 
     store = {}
     for part, phase in (("training", lambda: phase_store_training(torch)),
@@ -2668,7 +3179,12 @@ def main() -> int:
     profile = phase_profile(torch, dev)
     dist_profile = phase_dist_profile(torch)
     dist_scaling = phase_dist_scaling(torch)
-    main_launches["swa_attention"], seq_serve = phase_seq_serve(torch, dev)
+    train_launches, seq_train = phase_seq_train(torch, dev)
+    for k, v in train_launches.items():
+        main_launches[k] = main_launches.get(k, 0) + v
+    serve_launches, seq_serve = phase_seq_serve(torch, dev)
+    main_launches["swa_attention"] = main_launches.get(
+        "swa_attention", 0) + serve_launches
     family_launches, seq_families = phase_seq_families(torch, dev)
     main_launches["swa_attention"] += family_launches
     recurrent = phase_recurrent_pieces(torch, dev)
@@ -2705,8 +3221,8 @@ def main() -> int:
         main_launches["swa_attention"], swa_rows, SWA_HEADLINE))
     kernels[-1].update(
         launches_by_path={
-            "seq_serve": main_launches["swa_attention"] - family_launches,
-            "seq_families": family_launches},
+            "seq_train": train_launches.get("swa_attention", 0),
+            "seq_serve": serve_launches, "seq_families": family_launches},
         tc_bound_ms=swa_rows[SWA_HEADLINE]["tc_bound_ms"],
         fma_bound_ms=swa_rows[SWA_HEADLINE]["fma_bound_ms"],
         build=swa_build)
@@ -2715,7 +3231,9 @@ def main() -> int:
             raise AssertionError(f"{k['name']}: no launch on the main path")
     log(json.dumps({"serving": serving, "training": training,
                     "profile": profile, "dist": dist,
-                    "dist_f32_epoch_losses": f32_losses, "store": store,
+                    "dist_f32_epoch_losses": f32_losses,
+                    "dist_prefetch": dist_prefetch, "seq_train": seq_train,
+                    "store": store,
                     "dist_profile": dist_profile,
                     "dist_scaling_ms": dist_scaling, "seq_serve": seq_serve,
                     "seq_families": seq_families,

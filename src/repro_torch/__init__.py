@@ -12,7 +12,10 @@ kernel, src and dst swapped) and the fused SED pooling
 (``launch/train_dist.py``, the codec kernels ``kernels/csrc/quant.cu``).
 Slice 4 is sequence-track serving of the dense transformers:
 ``launch/serve.py`` and ``models/registry.py::Model``, whose full-sequence
-passes run the attention kernel ``kernels/csrc/swa_attention.cu``.
+passes run the attention kernel ``kernels/csrc/swa_attention.cu``; later
+slices serve the other families, add the tiered store, the prefetch lane
+of distributed training (``--prefetch-lookups``) and sequence-track
+training (``launch/train.py --track seq|lm``).
 
 Device rule: entry points run on ``cuda`` unless the caller asks for the
 CPU; asking for ``cuda`` where no card is visible raises.  TF32 is switched

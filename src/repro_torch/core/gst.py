@@ -264,10 +264,16 @@ def make_train_step(
     table_lookup_age: Optional[Callable] = None,
     sed_decay: float = 0.0,
     comm=None,
+    recompute_fn: Optional[Callable] = None,
 ):
     """Returns ``step(state, batch, generator=None, draws=None) -> (state,
     metrics)`` implementing Algorithm 1 (gst*) / Algorithm 2 lines 1-10
     (e-variants).
+
+    recompute_fn: the encode of the ``gst`` variant's stale re-encode of
+    every segment, run without a gradient (default ``encode_fn``); a
+    backbone whose kernels have no backward encodes there through them
+    and through their plain versions in ``encode_fn``.
 
     use_kernels: for the SED variants (gst_ed / gst_efd) the Eq.-1
     η-weighting and the ⊕ pooling run as ONE fused sed_pool launch over
@@ -298,6 +304,7 @@ def make_train_step(
     use_age = variant.use_sed and variant.use_table and sed_decay > 0.0
     t_age = table_lookup_age or (lambda table, ids: table.age[ids])
     n_shards = 1 if comm is None else comm.size
+    recompute = recompute_fn or encode_fn
 
     def step(state: TrainState, batch: GSTBatch, generator=None, draws=None):
         B, J = batch.seg_valid.shape
@@ -331,7 +338,7 @@ def make_train_step(
                     min=0).float()
         elif variant.recompute_stale:
             with torch.no_grad():
-                h_all, _ = encode_fn(state.backbone,
+                h_all, _ = recompute(state.backbone,
                                      _flatten_bs(batch.seg_inputs))
             h_stale = h_all.reshape(B, J, -1)
             stale_valid = batch.seg_valid

@@ -1,6 +1,8 @@
 """Table-exchange strategies for the row-sharded historical table.
 
-Counterpart of ``src/repro/dist/exchange.py:1-1025``.  Shard k owns rows
+Counterpart of ``src/repro/dist/exchange.py`` (all but
+``measured_exchange_bytes``, which reads a jaxpr: the comm's byte counters
+take its place).  Shard k owns rows
 [k·R, (k+1)·R) of the table (``dist/table.py``); a strategy answers a
 shard's lookups and applies its write-backs on GLOBAL row ids against the
 shard's local (R, J, d) table, through the shard's ``Comm``
@@ -37,9 +39,17 @@ cross the collectives as bf16 or int8 with a per-row scale
 write-backs round stochastically with bits drawn per (seed, step, shard).
 At one shard nothing crosses a wire and the codec is the f32 identity.
 
-The prefetch lane of the reference (``prefetch_lookup``,
-``update_sampled_patch``, ``consumer_shards``, the patch planners and
-bytes) is not ported yet.
+The prefetch lane (``--prefetch-lookups``): ``prefetch_lookup`` is the
+lookup for batch k+1, issued before step k runs, so it reads the table
+before step k writes it; ``update_sampled_patch`` is step k's write-back
+fused with a patch of that prefetched buffer by the rows it writes.  Ring
+and alltoall patch from the write payload that already visits every
+shard (no added bytes); bucketed sends each written row whose id
+reappears in the next batch one more hop, to the shard that prefetched it
+(``next_dest``, planned on the host by ``consumer_shards`` in buckets of
+``patch_cap``, ``plan_patch_capacity``).  At f32 the patched buffer is
+bitwise a lookup of the written table; at bf16/int8 it holds the table's
+stored (write-rounded) value, without the read path's re-rounding.
 """
 from __future__ import annotations
 
@@ -172,6 +182,10 @@ class Exchange:
     ``payload_dtype``: the wire format (``PayloadCodec``), forced to the
     f32 identity at one shard (``src/repro/dist/exchange.py:233``).
     ``use_kernels``/``bits_fn``: passed to the codec.
+
+    ``patch_cap`` (bucketed only): per-(shard, consumer) bucket capacity
+    of the prefetch patch hop; None falls back to the local batch size.
+    Validate a planned one with ``required_patch_capacity``.
     """
 
     name = "?"
@@ -179,13 +193,15 @@ class Exchange:
     def __init__(self, *, comm=None, num_shards: int, rows: int,
                  cap: Optional[int] = None, payload_dtype: str = "f32",
                  use_kernels: bool = True,
-                 bits_fn: Optional[Callable] = None):
+                 bits_fn: Optional[Callable] = None,
+                 patch_cap: Optional[int] = None):
         if comm is not None and comm.size != num_shards:
             raise ValueError(f"comm has {comm.size} shards, not {num_shards}")
         self.comm = comm
         self.num_shards = num_shards
         self.rows = rows
         self.cap = cap
+        self.patch_cap = patch_cap
         self.payload_dtype = "f32" if num_shards <= 1 else payload_dtype
         self.codec = PayloadCodec(self.payload_dtype,
                                   shard=comm.rank if comm else 0,
@@ -222,6 +238,66 @@ class Exchange:
                    seg_valid, step) -> tbl.EmbeddingTable:
         raise NotImplementedError
 
+    # -- the prefetch lane (lookahead lookup + fused write-back patch) --------
+
+    def prefetch_lookup(self, table: tbl.EmbeddingTable, graph_ids
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The lookup of the NEXT batch, issued before the current step:
+        the same collectives and bytes as ``lookup``, earlier.  The answer
+        is stale by the rows the current step writes back, which
+        ``update_sampled_patch`` repairs."""
+        return self.lookup(table, graph_ids)
+
+    def update_sampled_patch(self, table: tbl.EmbeddingTable, graph_ids,
+                             seg_idx, h_new, step, pref, next_ids,
+                             next_dest=None):
+        """``update_sampled`` fused with a patch of ``pref``, the next
+        batch's prefetched ``(emb (B, J, d), initialized (B, J))``, read
+        before this write.  ``next_ids``: this shard's (B,) slice of the
+        next batch's ids (sentinel slots are never patched).
+        ``next_dest`` (bucketed only): the host-planned (B_local,)
+        consumer shard of each write row (``consumer_shards``;
+        ``num_shards`` = none).  Returns ``(table, (emb, init))``: at f32
+        the pair is bitwise ``lookup(table, next_ids)``; at bf16/int8 it
+        holds the stored (write-rounded) values without the read-side
+        re-rounding (``src/repro/dist/exchange.py:280-302``)."""
+        raise NotImplementedError
+
+    def _local_update_patch(self, table, graph_ids, seg_idx, h_new, step,
+                            pref, next_ids):
+        """One shard: the local write and the local patch."""
+        table = self._local_update_sampled(table, graph_ids, seg_idx, h_new,
+                                           step)
+        return table, self._apply_patch(pref[0], pref[1], next_ids,
+                                        graph_ids, seg_idx, h_new)
+
+    def _apply_patch(self, pref_emb, pref_init, next_ids, g_ids, g_sidx,
+                     g_h):
+        """Write the decoded rows ``(g_ids (G,), g_sidx (G, S), g_h (G, S,
+        d))`` into the prefetched ``(B, J, d)`` buffer wherever their id
+        appears in ``next_ids`` (B,); local, no collectives.  Write-side
+        sentinels are masked and a sentinel in ``next_ids`` exceeds every
+        real id, so padding never matches.  Ids are unique within a batch,
+        so a next-batch row matches at most one write row (the reference's
+        ``argmax`` over the bool match matrix: here over its int8 copy).
+        The reference's ``mode="drop"`` column J becomes a spare column,
+        written by the rows without a match and cut off."""
+        B, J = pref_init.shape[:2]
+        match = ((g_ids[:, None] == next_ids[None, :])
+                 & (g_ids[:, None] < self.sentinel))          # (G, B)
+        has = match.any(dim=0)
+        g_of = torch.argmax(match.to(torch.int8), dim=0)       # (B,)
+        idx_j = torch.where(has[:, None], g_sidx[g_of].long(),
+                            torch.full_like(g_sidx[g_of].long(), J))
+        b_idx = torch.arange(B, device=idx_j.device)[:, None].expand(
+            idx_j.shape)
+        emb = torch.cat([pref_emb, pref_emb.new_zeros(
+            (B, 1) + tuple(pref_emb.shape[2:]))], dim=1)
+        emb[b_idx, idx_j] = g_h[g_of].to(emb.dtype)
+        init = torch.cat([pref_init, pref_init.new_zeros((B, 1))], dim=1)
+        init[b_idx, idx_j] = True
+        return emb[:, :J], init[:, :J]
+
     # -- analytic per-shard bytes (the comm's counting conventions) -----------
 
     def lookup_bytes(self, b_local: int, j_max: int, d_h: int) -> int:
@@ -241,10 +317,13 @@ class Exchange:
 
     def codec_launches(self, op: str) -> Dict[str, int]:
         """The payload kernels one call of ``op`` ("lookup",
-        "update_sampled", "update_all") launches on this shard, by name
+        "prefetch_lookup", "update_sampled", "update_sampled_patch",
+        "update_all") launches on this shard, by name
         (``kernels/quant.py``); none at f32 and for ``lookup_ages``."""
         if self.payload_dtype == "f32" or op == "lookup_ages":
             return {}
+        if op == "prefetch_lookup":
+            op = "lookup"
         packs, unpacks = self._codec_calls(op)
         bf16 = self.payload_dtype == "bf16"
         if op == "lookup":
@@ -261,6 +340,33 @@ class Exchange:
             return 0
         return (self.lookup_bytes(b_local, j_max, d_h)
                 + self.update_sampled_bytes(b_local, s, d_h))
+
+    def prefetch_lookup_bytes(self, b_local: int, j_max: int,
+                              d_h: int) -> int:
+        """The lookup's collectives: prefetch moves bytes earlier, it adds
+        none."""
+        return self.lookup_bytes(b_local, j_max, d_h)
+
+    def patch_bytes(self, b_local: int, s: int, d_h: int) -> int:
+        """Bytes ``update_sampled_patch`` sends beyond ``update_sampled``:
+        0 where the write payload already visits every shard (ring,
+        alltoall); bucketed overrides."""
+        return 0
+
+    def update_sampled_patch_bytes(self, b_local: int, s: int,
+                                   d_h: int) -> int:
+        return (self.update_sampled_bytes(b_local, s, d_h)
+                + self.patch_bytes(b_local, s, d_h))
+
+    def prefetch_train_step_bytes(self, b_local: int, j_max: int, s: int,
+                                  d_h: int, *, use_table: bool) -> int:
+        """Per-shard exchange traffic of one PREFETCHED train step: the next
+        batch's lookup and the fused write-back and patch; ``patch_bytes``
+        more than ``train_step_bytes``."""
+        if not use_table:
+            return 0
+        return (self.prefetch_lookup_bytes(b_local, j_max, d_h)
+                + self.update_sampled_patch_bytes(b_local, s, d_h))
 
     # -- local fallbacks (one shard: no collectives) --------------------------
 
@@ -377,6 +483,29 @@ class RingExchange(Exchange):
                 ids, sidx, *parts = self.comm.ppermute((ids, sidx, *parts))
         return table
 
+    def update_sampled_patch(self, table, graph_ids, seg_idx, h_new, step,
+                             pref, next_ids, next_dest=None):
+        """The write-back and the patch on the SAME D-1 hops
+        (``src/repro/dist/exchange.py:499-521``): each shard decodes the
+        passing buffer once, applies the rows it owns and patches its
+        prefetched buffer with all of them; no added bytes."""
+        D = self.num_shards
+        if D == 1:
+            return self._local_update_patch(table, graph_ids, seg_idx,
+                                            h_new, step, pref, next_ids)
+        emb, init = pref
+        ids, sidx = _wire_ids(graph_ids), _wire_ids(seg_idx)
+        parts = self.codec.encode_write(h_new, step)
+        for t in range(D):
+            h_dec = self.codec.decode(parts)
+            table = tbl.update_sampled(table, self._write_rows(ids), sidx,
+                                       h_dec, step, mode="drop")
+            emb, init = self._apply_patch(emb, init, next_ids, ids, sidx,
+                                          h_dec)
+            if t < D - 1:
+                ids, sidx, *parts = self.comm.ppermute((ids, sidx, *parts))
+        return table, (emb, init)
+
     def update_all(self, table, graph_ids, h_all, seg_valid, step):
         D = self.num_shards
         if D == 1:
@@ -464,29 +593,49 @@ class AllToAllExchange(Exchange):
         return self._answer_home((a,), owner, B)[0]
 
     def _gathered_writes(self, graph_ids, *payloads):
-        """all_gather the write buffers: (local write rows, *flat payloads)."""
+        """all_gather the write buffers: (the gathered ids, their local
+        write rows, *flat payloads); the fused patch reuses the ids."""
         ids, *flat = self.comm.all_gather((_wire_ids(graph_ids), *payloads))
+        ids = ids.reshape(-1)
         flat = [p.reshape((-1,) + tuple(p.shape[2:])) for p in flat]
-        return (self._write_rows(ids.reshape(-1)), *flat)
+        return (ids, self._write_rows(ids), *flat)
 
     def update_sampled(self, table, graph_ids, seg_idx, h_new, step):
         if self.num_shards == 1:
             return self._local_update_sampled(table, graph_ids, seg_idx,
                                               h_new, step)
         parts = self.codec.encode_write(h_new, step)
-        local_row, sidx, *eparts = self._gathered_writes(
+        _, local_row, sidx, *eparts = self._gathered_writes(
             graph_ids, _wire_ids(seg_idx), *parts)
         return tbl.update_sampled(table, local_row, sidx,
                                   self.codec.decode(eparts), step,
                                   mode="drop")
+
+    def update_sampled_patch(self, table, graph_ids, seg_idx, h_new, step,
+                             pref, next_ids, next_dest=None):
+        """The write-back and the patch on the SAME all_gathers
+        (``src/repro/dist/exchange.py:653-671``): every shard receives the
+        whole write buffer, so the patch is a local scatter over it; no
+        added bytes."""
+        if self.num_shards == 1:
+            return self._local_update_patch(table, graph_ids, seg_idx,
+                                            h_new, step, pref, next_ids)
+        parts = self.codec.encode_write(h_new, step)
+        ids, local_row, sidx, *eparts = self._gathered_writes(
+            graph_ids, _wire_ids(seg_idx), *parts)
+        h_dec = self.codec.decode(eparts)
+        table = tbl.update_sampled(table, local_row, sidx, h_dec, step,
+                                   mode="drop")
+        return table, self._apply_patch(pref[0], pref[1], next_ids, ids,
+                                        sidx, h_dec)
 
     def update_all(self, table, graph_ids, h_all, seg_valid, step):
         if self.num_shards == 1:
             return self._local_update_all(table, graph_ids, h_all, seg_valid,
                                           step)
         parts = self.codec.encode_write(h_all, step)
-        local_row, sv, *eparts = self._gathered_writes(graph_ids, seg_valid,
-                                                       *parts)
+        _, local_row, sv, *eparts = self._gathered_writes(graph_ids,
+                                                          seg_valid, *parts)
         return tbl.update_all(table, local_row, self.codec.decode(eparts),
                               sv, step, mode="drop")
 
@@ -526,22 +675,32 @@ class BucketedExchange(Exchange):
 
     name = "bucketed"
 
+    def _codec_calls(self, op):
+        # the fused patch decodes its patch buckets once more
+        return (1, 2) if op == "update_sampled_patch" else (1, 1)
+
+    def _plan_by(self, key):
+        """(order, sorted key, rank within key) of a (B,) routing key
+        (``src/repro/dist/exchange.py:731``).  A key may be num_shards
+        (the patch's "no consumer"): ``_bucket`` drops those rows."""
+        key = key.long()
+        order = torch.argsort(key, stable=True)
+        sk = key[order]
+        pos = torch.arange(sk.shape[0], device=sk.device) \
+            - torch.searchsorted(sk, sk, side="left")
+        return order, sk, pos
+
     def _plan(self, graph_ids):
         """(order, sorted owner, rank within owner) of the local rows."""
-        owner = torch.clamp(graph_ids // self.rows, 0,
-                            self.num_shards - 1).long()
-        order = torch.argsort(owner, stable=True)
-        so = owner[order]
-        pos = torch.arange(so.shape[0], device=so.device) \
-            - torch.searchsorted(so, so, side="left")
-        return order, so, pos
+        return self._plan_by(torch.clamp(graph_ids // self.rows, 0,
+                                         self.num_shards - 1))
 
     def _bucket(self, cap, so, pos, x_sorted, fill):
-        """(D, cap, ...) buckets of x_sorted at [owner, rank]; a rank at or
-        beyond ``cap`` (JAX's mode="drop") lands in one spare slot past the
-        buckets, which is cut off."""
+        """(D, cap, ...) buckets of x_sorted at [key, rank]; a rank at or
+        beyond ``cap`` or a key past the last shard (JAX's mode="drop")
+        lands in one spare slot past the buckets, which is cut off."""
         D = self.num_shards
-        flat = torch.where(pos < cap, so * cap + pos,
+        flat = torch.where((pos < cap) & (so < D), so * cap + pos,
                            torch.full_like(pos, D * cap))
         b = torch.full((D * cap + 1,) + tuple(x_sorted.shape[1:]), fill,
                        dtype=x_sorted.dtype, device=x_sorted.device)
@@ -609,6 +768,42 @@ class BucketedExchange(Exchange):
                                   self.codec.decode(eparts), step,
                                   mode="drop")
 
+    def update_sampled_patch(self, table, graph_ids, seg_idx, h_new, step,
+                             pref, next_ids, next_dest=None):
+        """The owner-direct write-back, then the patch hop
+        (``src/repro/dist/exchange.py:824-863``): owner-direct writes never
+        reach the shards that prefetched the rows, so each write row with
+        a consumer in the next batch (``next_dest``, planned on the host)
+        travels once more, consumer-direct, in (D, patch_cap) buckets of
+        its encoded payload, decoded again for the patch.  Rows without a
+        consumer (``next_dest == num_shards``) never travel."""
+        if self.num_shards == 1:
+            return self._local_update_patch(table, graph_ids, seg_idx,
+                                            h_new, step, pref, next_ids)
+        if next_dest is None:
+            raise ValueError(
+                "bucketed update_sampled_patch needs next_dest: the "
+                "host-planned consumer shard of each write row "
+                "(consumer_shards)")
+        sidx = _wire_ids(seg_idx)
+        parts = self.codec.encode_write(h_new, step)
+        local_row, w_sidx, *eparts = self._bucketed_writes(graph_ids, sidx,
+                                                           *parts)
+        table = tbl.update_sampled(table, local_row, w_sidx,
+                                   self.codec.decode(eparts), step,
+                                   mode="drop")
+        cap = self.patch_cap or graph_ids.shape[0]
+        order, sd, pos = self._plan_by(next_dest)
+        bufs = [self._bucket(cap, sd, pos, _wire_ids(graph_ids)[order],
+                             self.sentinel),
+                self._bucket(cap, sd, pos, sidx[order], 0)]
+        bufs += [self._bucket(cap, sd, pos, p[order], 0) for p in parts]
+        q_ids, q_sidx, *q_parts = [
+            b.reshape((-1,) + tuple(b.shape[2:]))
+            for b in self.comm.all_to_all(tuple(bufs))]
+        return table, self._apply_patch(pref[0], pref[1], next_ids, q_ids,
+                                        q_sidx, self.codec.decode(q_parts))
+
     def update_all(self, table, graph_ids, h_all, seg_valid, step):
         if self.num_shards == 1:
             return self._local_update_all(table, graph_ids, h_all, seg_valid,
@@ -641,6 +836,15 @@ class BucketedExchange(Exchange):
         return (self.num_shards - 1) * self._cap(b_local) * (
             4 + self.codec.row_bytes(j_max * d_h) + j_max * 4)
 
+    def patch_bytes(self, b_local, s, d_h):
+        # one consumer-direct all_to_all of (ids, seg_idx, payload)
+        # patch_cap-sized buckets
+        if self.num_shards <= 1:
+            return 0
+        c = self.patch_cap if self.patch_cap is not None else b_local
+        return (self.num_shards - 1) * c * (
+            4 + s * 4 + self.codec.row_bytes(s * d_h))
+
 
 # ---------------------------------------------------------------------------
 # construction / auto selection
@@ -653,7 +857,8 @@ _STRATEGIES = {cls.name: cls
 def make_exchange(name: str, *, comm=None, num_shards: int, rows: int,
                   cap: Optional[int] = None, payload_dtype: str = "f32",
                   use_kernels: bool = True,
-                  bits_fn: Optional[Callable] = None) -> Exchange:
+                  bits_fn: Optional[Callable] = None,
+                  patch_cap: Optional[int] = None) -> Exchange:
     """Strategy by name.  "auto" is the launcher's policy: resolve it with
     ``select_exchange`` (it needs the batch geometry) first."""
     if name == "auto":
@@ -666,7 +871,8 @@ def make_exchange(name: str, *, comm=None, num_shards: int, rows: int,
                          f"one of {EXCHANGES} or 'auto'")
     return _STRATEGIES[name](comm=comm, num_shards=num_shards, rows=rows,
                              cap=cap, payload_dtype=payload_dtype,
-                             use_kernels=use_kernels, bits_fn=bits_fn)
+                             use_kernels=use_kernels, bits_fn=bits_fn,
+                             patch_cap=patch_cap)
 
 
 def select_exchange(num_shards: int, b_local: int, j_max: int, s: int,
@@ -738,4 +944,52 @@ def plan_capacity(id_batches: Iterable, *, num_shards: int,
     for ids in id_batches:
         cap = max(cap, required_capacity(ids, num_shards=num_shards,
                                          rows=rows))
+    return cap
+
+
+def consumer_shards(cur_ids, next_ids, *, num_shards: int,
+                    rows: int) -> np.ndarray:
+    """For each row of the CURRENT global batch, the shard whose slice of
+    the NEXT global batch holds the same id (the bucketed patch's
+    ``next_dest``), under the contiguous batch split; ``num_shards`` where
+    no shard does.  Sentinel rows on either side never match; ragged
+    batches are sentinel-padded first, as on the device."""
+    sent = num_shards * rows
+    cur = np.asarray(cur_ids).ravel()
+    if cur.size % num_shards:
+        cur = pad_ragged(num_shards, rows, cur)[0]
+    nxt = np.asarray(next_ids).ravel()
+    if nxt.size % num_shards:
+        nxt = pad_ragged(num_shards, rows, nxt)[0]
+    b_next = nxt.size // num_shards
+    shard_of = {int(r): i // b_next for i, r in enumerate(nxt)
+                if int(r) != sent}
+    return np.asarray([shard_of.get(int(r), num_shards) for r in cur],
+                      np.int32)
+
+
+def required_patch_capacity(cur_ids, next_ids, *, num_shards: int,
+                            rows: int) -> int:
+    """Smallest per-(shard, consumer) patch bucket capacity for ONE
+    (batch k, batch k+1) pair: how many of one shard's write rows reappear
+    in one consumer shard's slice of the next batch."""
+    dest = consumer_shards(cur_ids, next_ids, num_shards=num_shards,
+                           rows=rows)
+    cap = 1
+    for per_dev in dest.reshape(num_shards, -1):
+        real = per_dev[per_dev < num_shards]
+        if real.size:
+            cap = max(cap, int(np.bincount(real).max()))
+    return cap
+
+
+def plan_patch_capacity(id_batches: Iterable, *, num_shards: int,
+                        rows: int) -> int:
+    """Patch bucket capacity covering every CONSECUTIVE pair of an id
+    schedule (step k patches batch k+1's buffer)."""
+    cap = 1
+    batches = [np.asarray(b) for b in id_batches]
+    for a, b in zip(batches, batches[1:]):
+        cap = max(cap, required_patch_capacity(a, b, num_shards=num_shards,
+                                               rows=rows))
     return cap

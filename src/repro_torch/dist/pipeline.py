@@ -1,12 +1,14 @@
 """Host-to-device segment pipeline of the distributed trainer.
 
-Counterpart of ``src/repro/dist/pipeline.py:57-266`` (the prefetch lane,
-``PrefetchLane``, is not ported yet).  The synchronous loop does ``gather
-batch -> copy to the device -> step`` in series; ``AsyncSegmentFeeder``
-moves the gather and the copy to a background thread, keeping up to
-``depth`` batches ready while the current step runs.  Both feeders replay
-one precomputed id schedule (``epoch_ids``), so they deliver the same
-batches, and count the milliseconds ``next()`` waits (``FeederStats``).
+Counterpart of ``src/repro/dist/pipeline.py``.  The synchronous loop does
+``gather batch -> copy to the device -> step`` in series;
+``AsyncSegmentFeeder`` moves the gather and the copy to a background
+thread, keeping up to ``depth`` batches ready while the current step runs.
+Both feeders replay one precomputed id schedule (``epoch_ids``), so they
+deliver the same batches, and count the milliseconds ``next()`` waits
+(``FeederStats``).  ``PrefetchLane`` wraps either with a one-item
+lookahead that issues the next batch's table lookup before the current
+step (the ``--prefetch-lookups`` lane).
 
 ``put_fn`` owns what a delivered item is: the trainer's routes the
 batch's ids through the store and splits it over the shards
@@ -28,6 +30,7 @@ import numpy as np
 
 from repro_torch.core import gst as G
 from repro_torch.graphs import batching as Bt
+from repro_torch.obs.metrics import get_registry
 from repro_torch.obs.trace import span
 from repro_torch.serve.buckets import BucketSpec, choose_bucket, default_ladder
 
@@ -219,3 +222,80 @@ def make_feeder(kind: str, ds: Bt.SegmentedDataset,
     if kind == "sync":
         return SyncSegmentFeeder(ds, id_schedule, put_fn)
     raise ValueError(f"unknown feeder kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# the prefetch lane (lookahead lookup dispatch)
+# ---------------------------------------------------------------------------
+
+
+class PrefetchLane:
+    """A one-item lookahead over a feeder that calls ``dispatch_fn(item)``
+    exactly once per item, at pull time: for item k+1 right BEFORE the
+    training loop runs step k, so the lookup it issues
+    (``dist/train.py::make_prefetch_lookup``) is enqueued ahead of the step
+    that writes the table in place.  The JAX lane relies on the same
+    dispatch order, with the table donated (``src/repro/dist/pipeline.py:
+    273-346``); here stream order alone keeps the lookup before the write.
+    The dispatch is also where the next item's store migration is
+    committed (the lookup must read the committed table).
+
+    Yields ``(item, handle, next_item, next_handle)``: the current item,
+    what ``dispatch_fn`` returned for it (the loop reads it for the
+    first item only; later the step's patched buffer takes its place) and
+    the next pair, ``None``/``None`` on the last item.
+
+    A ``dispatch_fn`` error (or an abandoned iteration) closes the wrapped
+    feeder before the exception surfaces, so its producer thread never
+    blocks on a dead consumer.  ``feeder.prefetch_batches`` and
+    ``feeder.prefetch_dispatch_ms`` go to the metrics registry, the span
+    ``feeder.prefetch_dispatch`` to the tracer."""
+
+    def __init__(self, feeder, dispatch_fn: Callable[[Any], Any]):
+        self._feeder = feeder
+        self._dispatch = dispatch_fn
+        self.prefetch_batches = 0
+        self.dispatch_ms = 0.0
+
+    @property
+    def stats(self) -> FeederStats:
+        return self._feeder.stats
+
+    def _dispatch_timed(self, item):
+        t0 = time.perf_counter()
+        with span("feeder.prefetch_dispatch"):
+            handle = self._dispatch(item)
+        dt = (time.perf_counter() - t0) * 1e3
+        self.prefetch_batches += 1
+        self.dispatch_ms += dt
+        reg = get_registry()
+        reg.inc("feeder.prefetch_batches")
+        reg.inc("feeder.prefetch_dispatch_ms", dt, unit="ms")
+        return handle
+
+    def close(self) -> None:
+        close = getattr(self._feeder, "close", None)
+        if close is not None:
+            close()
+
+    def __iter__(self):
+        it = iter(self._feeder)
+        try:
+            try:
+                cur = next(it)
+            except StopIteration:
+                return
+            cur_h = self._dispatch_timed(cur)
+            while True:
+                try:
+                    nxt = next(it)
+                except StopIteration:
+                    nxt, nxt_h = None, None
+                else:
+                    nxt_h = self._dispatch_timed(nxt)
+                yield cur, cur_h, nxt, nxt_h
+                if nxt is None:
+                    return
+                cur, cur_h = nxt, nxt_h
+        finally:
+            self.close()

@@ -1,7 +1,6 @@
 """Data-parallel GST training with the row-sharded table.
 
-Counterpart of ``src/repro/dist/train.py:54-391`` (without the prefetch
-lane).  Where the JAX package wraps the unchanged step functions of
+Counterpart of ``src/repro/dist/train.py``.  Where the JAX package wraps the unchanged step functions of
 ``core/gst.py`` in ``shard_map``, the port runs one step per shard, each
 in its own thread (``LocalGroup``) or process (``ProcessGroup``), with:
 
@@ -21,7 +20,16 @@ in its own thread (``LocalGroup``) or process (``ProcessGroup``), with:
 
 A distributed state is the list of the shards' ``TrainState``s held by
 this process, in local order; a distributed batch the list of their
-batches.  The kernels run per shard unchanged: each shard hands them its
+batches.
+
+The prefetch lane (``ctx.prefetch``): the next batch's lookup runs as its
+own collective (``make_prefetch_lookup``) before the current step, which
+reads its own (already patched) prefetched pair instead of looking up,
+and writes back through ``update_sampled_patch``, handing out the next
+batch's pair patched.  Where the JAX step donates the table and relies on
+dispatch order, the port keeps one stream a card: the lookup is enqueued
+after the next batch's migration commit and before the step's in-place
+write.  The kernels run per shard unchanged: each shard hands them its
 (B/D)·S segments and they never see the other shards.
 """
 from __future__ import annotations
@@ -68,6 +76,13 @@ class DistContext:
     payload_dtype: str = "f32"
     # pack/unpack through the kernels (False: their plain versions)
     use_kernels: bool = True
+    # the prefetch lane (--prefetch-lookups): the train step consumes a
+    # prefetched lookup of its batch and patches the next batch's
+    # (make_prefetch_lookup, exchange.update_sampled_patch)
+    prefetch: bool = False
+    # bucketed only: host-planned per-(shard, consumer) patch bucket
+    # capacity (exchange.plan_patch_capacity); None = the local batch
+    patch_cap: Optional[int] = None
 
     @property
     def device(self) -> torch.device:
@@ -88,9 +103,12 @@ def make_context(group, n_rows: int, device_rows: Optional[int] = None, *,
                  exchange: str = "ring",
                  exchange_cap: Optional[int] = None,
                  payload_dtype: str = "f32",
-                 use_kernels: bool = True) -> DistContext:
+                 use_kernels: bool = True,
+                 prefetch: bool = False,
+                 patch_cap: Optional[int] = None) -> DistContext:
     """``device_rows``: the total device-resident row cap (the
-    --table-device-rows knob); None keeps the whole table on the device."""
+    --table-device-rows knob); None keeps the whole table on the device.
+    ``prefetch``/``patch_cap``: the prefetch lane (see DistContext)."""
     if exchange not in EXCHANGES:
         raise ValueError(
             f"unknown exchange strategy {exchange!r}: expected one of "
@@ -106,7 +124,8 @@ def make_context(group, n_rows: int, device_rows: Optional[int] = None, *,
                        rows_per_shard=dtbl.rows_per_shard(n_rows, d),
                        device_rows_per_shard=per_shard,
                        exchange=exchange, exchange_cap=exchange_cap,
-                       payload_dtype=payload_dtype, use_kernels=use_kernels)
+                       payload_dtype=payload_dtype, use_kernels=use_kernels,
+                       prefetch=prefetch, patch_cap=patch_cap)
 
 
 def make_dist_store(ctx: DistContext, j_max: int, d_h: int,
@@ -133,7 +152,8 @@ def make_shard_exchange(ctx: DistContext, comm) -> Exchange:
     return make_exchange(ctx.exchange, comm=comm, num_shards=ctx.num_shards,
                          rows=ctx.table_rows, cap=ctx.exchange_cap,
                          payload_dtype=ctx.payload_dtype,
-                         use_kernels=ctx.use_kernels)
+                         use_kernels=ctx.use_kernels,
+                         patch_cap=ctx.patch_cap)
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +230,16 @@ def shard_batch(ctx: DistContext, batch: G.GSTBatch) -> List[G.GSTBatch]:
     return out
 
 
+def shard_rows(ctx: DistContext, x, dtype=np.int64) -> List[torch.Tensor]:
+    """A host array over the GLOBAL batch's rows -> this process's shards'
+    slices on the device (e.g. the bucketed patch's ``next_dest``)."""
+    x = np.asarray(x)
+    b = x.shape[0] // ctx.num_shards
+    return [torch.from_numpy(np.ascontiguousarray(
+        x[k * b:(k + 1) * b]).astype(dtype)).to(ctx.device)
+        for k in ctx.local_ranks]
+
+
 def _shard_draws(draws, batch: G.GSTBatch):
     """The shard's rows of the GLOBAL batch's injected (idx, u) draws."""
     if draws is None:
@@ -244,7 +274,23 @@ def make_dist_train_step(encode_fn, optimizer, variant: G.GSTVariant, *,
     generators=None, draws=None) -> (states, metrics)``, states from
     ``device_state``, batches from ``shard_batch``, one generator per
     local shard (all in the same state), ``draws`` the GLOBAL batch's
-    (idx (B, S), u (B, J)).  The metrics are the shards' means."""
+    (idx (B, S), u (B, J)).  The metrics are the shards' means.
+
+    With ``ctx.prefetch`` the step is the prefetched one
+    (``src/repro/dist/train.py:262-341``):
+
+      step(states, batches, generators, draws, pref, nxt, next_ids,
+           next_dest) -> (states, metrics, patched)
+
+    each of the last four a list over the local shards: ``pref`` this
+    batch's prefetched ``(emb, init)`` pair (already patched by the
+    previous step), read in place of the lookup; ``nxt`` the next batch's
+    pair (``make_prefetch_lookup``, issued before this call);
+    ``next_ids``/``next_dest`` route the fused write-back patch
+    (``next_dest`` None except for bucketed, ``shard_rows`` of
+    ``exchange.consumer_shards``); ``patched`` is ``nxt`` with this
+    step's write-back in it, the ``pref`` of the next call.  A variant
+    without a table hands ``nxt`` back unpatched."""
     decay = kwargs.get("sed_decay", 0.0)
 
     def build(ex, comm):
@@ -256,6 +302,37 @@ def make_dist_train_step(encode_fn, optimizer, variant: G.GSTVariant, *,
                                  table_update=ex.update_sampled,
                                  table_lookup_age=age, comm=comm, **kwargs)
 
+    def build_prefetched(ex, comm):
+        # the injected table ops read this call's buffers from ``io``: the
+        # lookup answers from ``pref`` without a collective, the update
+        # runs the fused write-back and patch and leaves the patched pair
+        io = {}
+
+        def t_lookup(table, graph_ids):
+            return io["pref"]
+
+        def t_update(table, graph_ids, seg_idx, h_new, step):
+            table, io["patched"] = ex.update_sampled_patch(
+                table, graph_ids, seg_idx, h_new, step, io["nxt"],
+                io["next_ids"], io["next_dest"])
+            return table
+
+        age = ex.lookup_ages if decay > 0.0 else None
+        inner = G.make_train_step(encode_fn, optimizer, variant,
+                                  table_lookup=t_lookup,
+                                  table_update=t_update,
+                                  table_lookup_age=age, comm=comm, **kwargs)
+
+        def step(state, batch, generator, draws, pref, nxt, next_ids,
+                 next_dest):
+            io.clear()
+            io.update(pref=pref, nxt=nxt, next_ids=next_ids,
+                      next_dest=next_dest)
+            state, metrics = inner(state, batch, generator, draws)
+            return state, metrics, io.pop("patched", nxt)
+
+        return step
+
     class TrainStep(_DistStep):
         def __call__(self, states, batches, generators=None, draws=None):
             out = self._run(lambda i, step: step(
@@ -264,7 +341,35 @@ def make_dist_train_step(encode_fn, optimizer, variant: G.GSTVariant, *,
                 _shard_draws(draws, batches[i])))
             return [s for s, _ in out], out[0][1]
 
+    class PrefetchedTrainStep(_DistStep):
+        def __call__(self, states, batches, generators, draws, pref, nxt,
+                     next_ids, next_dest=None):
+            out = self._run(lambda i, step: step(
+                states[i], batches[i],
+                None if generators is None else generators[i],
+                _shard_draws(draws, batches[i]), pref[i], nxt[i],
+                next_ids[i], None if next_dest is None else next_dest[i]))
+            return [s for s, _, _ in out], out[0][1], [p for _, _, p in out]
+
+    if ctx.prefetch:
+        return PrefetchedTrainStep(ctx, build_prefetched)
     return TrainStep(ctx, build)
+
+
+def make_prefetch_lookup(ctx: DistContext):
+    """The prefetch lane's own collective (``src/repro/dist/train.py:
+    343-360``): ``fn(tables, ids) -> [(emb, init)]``, one lookup per local
+    shard through ``ctx.group``, every shard issuing the same collectives
+    in the same order; ``ids`` the shards' slices of the next batch.  The
+    tables are read, not written: the loop issues it after the next
+    batch's migration commit and before the current step."""
+    exchanges = [make_shard_exchange(ctx, c) for c in ctx.group.comms]
+
+    def fn(tables, ids):
+        return ctx.group.run(lambda i, comm: exchanges[i].prefetch_lookup(
+            tables[i], ids[i]))
+
+    return fn
 
 
 def make_dist_eval_step(encode_fn, *, ctx: DistContext, **kwargs):

@@ -158,7 +158,12 @@ def sliding_window_attention(q, k, v, *, window: int,
     -> (B, S, H, D); key j visible to query i iff i - window < j <= i, so
     ``window`` >= S is full causal attention.  ``window`` is taken
     literally, as the reference's op takes it.  ``use_kernels`` False takes
-    the plain version on any device."""
+    the plain version on any device.
+
+    The kernel has no backward: with ``use_kernels`` a call that autograd
+    records raises.  The caller that trains picks the plain version
+    (``use_kernels`` False), as the reference's models train through jnp
+    and never call its Pallas attention."""
     if use_kernels:
         return _swa.swa_attention(q, k, v, window=window)
     return ref.swa_attention_ref(q, k, v, window)

@@ -74,9 +74,18 @@ def _check(q, k, v):
             raise ValueError(f"{name} must have a contiguous last dimension, "
                              "strides in multiples of 4 elements and a "
                              "16-byte aligned start")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(f"{name} requires grad: swa_attention has no "
-                               "backward")
+    _refuse_grad(q, k, v)
+
+
+def _refuse_grad(q, k, v):
+    """The kernel has no backward: a call that autograd records raises, on
+    the CPU too, so a training path that reaches the kernel's route fails
+    there as it would on the card."""
+    if torch.is_grad_enabled():
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.requires_grad:
+                raise RuntimeError(f"{name} requires grad: swa_attention "
+                                   "has no backward")
 
 
 def _launch(q, k, v, window: int) -> torch.Tensor:
@@ -110,6 +119,7 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int) -> torch.Tensor:
     """q (B, S, H, D), k/v (B, S, KV, D) -> (B, S, H, D): one kernel launch
     on CUDA.  ``window`` >= S is full causal attention."""
+    _refuse_grad(q, k, v)
     if q.device.type == "cpu":
         return ref.swa_attention_ref(q, k, v, window)
     if q.device.type != "cuda":

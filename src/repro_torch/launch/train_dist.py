@@ -15,6 +15,11 @@ Counterpart of ``src/repro/launch/train_dist.py``:
     torchrun --nproc-per-node 4 -m repro_torch.launch.train_dist \
         --exchange alltoall --payload-dtype bf16
 
+    # the prefetch lane: batch k+1's lookup issued before step k, the
+    # write-back patched into it (bitwise the inline run at f32)
+    PYTHONPATH=src python -m repro_torch.launch.train_dist \
+        --devices 4 --prefetch-lookups --exchange bucketed --epochs 5
+
 Started by ``torchrun`` (``WORLD_SIZE`` set), each process is one shard
 (``ProcessGroup``: NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device
 cpu``); otherwise ``--devices D`` runs D shards as threads of this process
@@ -33,10 +38,20 @@ that tier).  The feeder begins each batch's migration (host bookkeeping,
 staging copies) ahead of its step; the consumer commits it into the
 shards' tables right before the step.
 
+``--prefetch-lookups`` runs the train loop through the prefetch lane
+(``dist/pipeline.py::PrefetchLane``): the lane pulls batch k+1 before
+step k, commits its migration and issues its lookup; step k reads its own
+prefetched pair and patches batch k+1's with its write-back.  Under a
+capped table the lane keeps its batches pinned on the device tier until
+their step ran (``store.begin(pin=True)``, ``store.release``), so the cap
+is raised to hold the in-flight window: 2 batches with the sync feeder,
+``--depth`` + 2 with the async one.  ``--patch-cap`` sizes bucketed's
+patch buckets (default: planned over the train schedules).  Refresh,
+finetune and eval stay inline.
+
 Each epoch prints its last loss, the feeder's host-blocked time and the
-exchange traffic one shard sent, from the comm's counters.  Not ported
-yet, and raising ``NotImplementedError``: ``--prefetch-lookups`` and
-``--patch-cap`` (the prefetch lane); the telemetry flags are not parsed.
+exchange traffic one shard sent, from the comm's counters.  The telemetry
+flags are not parsed.
 """
 from __future__ import annotations
 
@@ -78,6 +93,19 @@ class DistResult:
     step_bytes_model: int             # analytic exchange bytes a train step
     epoch_exchange_bytes: List[int]   # one shard's counted bytes an epoch
     store_stats: Optional[dict] = None  # residency counters (store/)
+    patch_cap: Optional[int] = None   # bucketed prefetch: patch buckets
+    patched_rows: int = 0             # prefetch: write rows with a consumer
+    states: Optional[List] = None     # the local shards' final TrainStates
+    store: object = None              # their store (closed)
+
+    def host_table(self) -> tuple:
+        """The final table (emb, age, init), copied to the host on demand
+        from every shard's tiers (every shard must be in this process)."""
+        return tuple(self.store.snapshot([st.table for st in self.states]))
+
+    def host_params(self) -> list:
+        """Shard 0's final parameters, copied to the host on demand."""
+        return [p.detach().cpu() for p in G.train_params(self.states[0])]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -129,9 +157,20 @@ def build_parser() -> argparse.ArgumentParser:
                          "branch of Eq.-1 η (ages read exactly through the "
                          "exchange). 0 = off")
     ap.add_argument("--prefetch-lookups", action="store_true",
-                    help="the prefetch lane (not ported yet: raises)")
+                    help="hide the exchange: issue batch k+1's table lookup "
+                         "as its own collective before step k "
+                         "(dist.make_prefetch_lookup), and restore "
+                         "read-after-write correctness with the fused "
+                         "write-back patch (exchange.update_sampled_patch). "
+                         "Bitwise the inline exchange at --payload-dtype "
+                         "f32; bounded error under bf16/int8 like the "
+                         "inline path.  Train loop only: refresh, finetune "
+                         "and eval stay inline")
     ap.add_argument("--patch-cap", type=int, default=None,
-                    help="the prefetch lane's patch buckets (not ported yet)")
+                    help="bucketed + --prefetch-lookups only: per-(shard, "
+                         "consumer) bucket capacity of the patch hop; "
+                         "default planned over the train schedules "
+                         "(exchange.plan_patch_capacity)")
     ap.add_argument("--table-device-rows", type=int, default=None,
                     help="cap the table's device-resident rows (total over "
                          "the shards, at least shards x batch) over a "
@@ -149,14 +188,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="extrapolate stale host-tier rows on fault-in "
                          "under --table-device-rows (store/forecast.py)")
     return ap
-
-
-def _not_ported(args) -> None:
-    if args.prefetch_lookups or args.patch_cap is not None:
-        raise NotImplementedError(
-            "--prefetch-lookups/--patch-cap need the prefetch lane "
-            "(PrefetchLane, update_sampled_patch), which lands with the "
-            "next slice of the port")
 
 
 def _make_group(args):
@@ -197,23 +228,31 @@ class DistSetup:
     ft_scheds: list
     eval_sched: list
     cap: Optional[int]
-    xbytes: int
+    xbytes: int             # modelled exchange bytes a train step a shard
+    pxbytes: int = 0        # the same of a prefetched step
     hint: int = 0           # the next train/refresh step's number
 
-    def put(self, b, step: Optional[int] = None):
+    def put(self, b, step: Optional[int] = None, pin: bool = False):
         """A host batch -> (its store migration, its shards' device
         batches), the ids routed through the store (the identity for the
         device-resident store).  ``step``: the step about to WRITE these
-        rows, the stale-first eviction's hint.  Safe on the feeder thread;
-        ``commit`` applies the migration."""
-        prep = self.store.begin(np.asarray(b.graph_ids), step=step)
+        rows, the stale-first eviction's hint.  ``pin``: the rows stay on
+        the device tier until ``store.release`` (the prefetch lane's
+        lookahead).  Safe on the feeder thread; ``commit`` applies the
+        migration."""
+        prep = self.store.begin(np.asarray(b.graph_ids), step=step, pin=pin)
         return prep, DT.shard_batch(self.ctx,
                                     b._replace(graph_ids=prep.slots))
 
-    def put_writing(self, b):
+    def put_writing(self, b, pin: bool = False):
         """``put`` for a train or refresh batch: the hint counts up."""
         self.hint += 1
-        return self.put(b, step=self.hint - 1)
+        return self.put(b, step=self.hint - 1, pin=pin)
+
+    def put_pinned(self, b):
+        """``put_writing`` for the prefetch lane: the batch stays pinned
+        until its step ran (``src/repro/launch/train_dist.py:305-323``)."""
+        return self.put_writing(b, pin=True)
 
     def commit(self, states, item):
         """Apply an item of ``put`` to the shards' tables, in put order:
@@ -227,7 +266,6 @@ class DistSetup:
 def setup(args) -> DistSetup:
     """The run's model, data, schedules and steps (``run`` drives them;
     ``chip_smoke.py`` and the card's tests drive their steps directly)."""
-    _not_ported(args)
     group = _make_group(args)
     n_dev = group.size
     if args.batch_size % n_dev:
@@ -265,10 +303,10 @@ def setup(args) -> DistSetup:
         if var.finetune_head else []
     eval_sched = DP.epoch_ids(ds, args.batch_size, rng=rng, shuffle=False)
 
+    rows = rows_per_shard(ds.n, n_dev)
     need_cap = EXC.plan_capacity(
         [ids for sched in (*train_scheds, refresh_sched, *ft_scheds)
-         for ids in sched], num_shards=n_dev,
-        rows=rows_per_shard(ds.n, n_dev))
+         for ids in sched], num_shards=n_dev, rows=rows)
     cap = args.exchange_cap
     if cap is None:
         cap = need_cap
@@ -284,14 +322,36 @@ def setup(args) -> DistSetup:
                                        cap=cap,
                                        payload_dtype=args.payload_dtype)
     cap = cap if exchange == "bucketed" else None
-    # every shard must be able to hold one batch's rows at once: owner
-    # histograms are the same in graph-row and slot space (a row's slot
-    # stays on its owner shard), so the capacity planned above holds too
+    patch_cap = None
+    if args.prefetch_lookups and exchange == "bucketed":
+        # the patch hop routes a batch's write-backs to the shards holding
+        # the NEXT batch: plan its buckets over consecutive pairs of each
+        # train epoch (slot space as graph space, as for the cap above)
+        need_patch = max(EXC.plan_patch_capacity(sched, num_shards=n_dev,
+                                                 rows=rows)
+                         for sched in train_scheds)
+        patch_cap = args.patch_cap
+        if patch_cap is None:
+            patch_cap = need_patch
+        elif patch_cap < need_patch:
+            raise ValueError(f"--patch-cap {patch_cap} is below the "
+                             f"{need_patch} rows one consumer bucket needs "
+                             "for this run's schedules: the patch hop would "
+                             "drop write-back repairs")
+    # every shard must be able to hold one batch's rows at once (owner
+    # histograms are the same in graph-row and slot space: a row's slot
+    # stays on its owner shard, so the capacity planned above holds too);
+    # the prefetch lane keeps its in-flight window pinned: the running
+    # step, the prefetched next batch and up to --depth feeder batches
+    window = 1 if not args.prefetch_lookups else (
+        2 if args.feeder == "sync" else args.depth + 2)
     device_rows = (None if args.table_device_rows is None
-                   else max(args.table_device_rows, n_dev * args.batch_size))
+                   else max(args.table_device_rows,
+                            window * n_dev * args.batch_size))
     ctx = DT.make_context(group, ds.n, device_rows, exchange=exchange,
                           exchange_cap=cap, payload_dtype=args.payload_dtype,
-                          use_kernels=args.use_kernels)
+                          use_kernels=args.use_kernels,
+                          prefetch=args.prefetch_lookups, patch_cap=patch_cap)
     store = DT.make_dist_store(ctx, ds.j_max, args.hidden,
                                evict_policy=args.evict_policy,
                                wb_threshold=args.wb_threshold,
@@ -301,16 +361,19 @@ def setup(args) -> DistSetup:
                                    num_sampled=args.num_sampled,
                                    sed_decay=args.sed_age_weighting,
                                    use_kernels=args.use_kernels)
-    xbytes = step.exchanges[0].train_step_bytes(
-        b_local, ds.j_max, args.num_sampled, args.hidden,
-        use_table=var.use_table)
+    geom = (b_local, ds.j_max, args.num_sampled, args.hidden)
+    xbytes = step.exchanges[0].train_step_bytes(*geom,
+                                                use_table=var.use_table)
+    pxbytes = step.exchanges[0].prefetch_train_step_bytes(
+        *geom, use_table=var.use_table)
     return DistSetup(
         args=args, ctx=ctx, ds=ds, spec=spec, variant=var, enc=enc,
         store=store, states=DT.device_state(ctx, state, store=store),
         step=step, eval_step=DT.make_dist_eval_step(
             enc, ctx=ctx, use_kernels=args.use_kernels),
         train_scheds=train_scheds, refresh_sched=refresh_sched,
-        ft_scheds=ft_scheds, eval_sched=eval_sched, cap=cap, xbytes=xbytes)
+        ft_scheds=ft_scheds, eval_sched=eval_sched, cap=cap, xbytes=xbytes,
+        pxbytes=pxbytes)
 
 
 def run(args, log=print) -> DistResult:
@@ -338,12 +401,17 @@ def _run(s: DistSetup, log) -> DistResult:
     if ctx.local_ranks[0] != 0:
         log = lambda *a, **k: None            # noqa: E731  (rank 0 prints)
     ex = step.exchanges[0]
+    prefetch = ctx.prefetch
+    step_bytes = s.pxbytes if prefetch else s.xbytes
     log(f"[dist] devices={ctx.num_shards} rows/shard={ctx.rows_per_shard} "
         f"device-rows/shard={ctx.table_rows} "
         f"bucket={s.spec.key} feeder={args.feeder} device={ctx.device} "
         f"exchange={ctx.exchange} (payload={ex.payload_dtype}, "
         f"{s.xbytes / 1024:.1f} KiB/step/shard"
-        + (f", cap={s.cap}" if s.cap is not None else "") + ")", flush=True)
+        + (f", cap={s.cap}" if s.cap is not None else "")
+        + (f", prefetch {s.pxbytes / 1024:.1f} KiB"
+           + (f", patch-cap={ctx.patch_cap}" if ctx.exchange == "bucketed"
+              else "") if prefetch else "") + ")", flush=True)
     tiered = ctx.device_rows_per_shard is not None
 
     def sync():
@@ -357,28 +425,35 @@ def _run(s: DistSetup, log) -> DistResult:
     t_start = time.perf_counter()
     iter_times, epoch_losses, epoch_bytes = [], [], []
     stats = None
+    patched_rows = 0
     for epoch, sched in enumerate(s.train_scheds):
         gens = [epoch_generator(args.seed, epoch) for _ in ctx.local_ranks]
-        feeder = DP.make_feeder(args.feeder, ds, sched, s.put_writing,
+        feeder = DP.make_feeder(args.feeder, ds, sched,
+                                s.put_pinned if prefetch else s.put_writing,
                                 depth=args.depth)
         sent0 = comm0.exchange_bytes
-        loss = None
-        for item in feeder:
-            # the timed region includes the tier migration's commit: it
-            # is part of a capped table's step cost
-            t0 = time.perf_counter()
-            states, batches = s.commit(states, item)
-            states, m = step(states, batches, gens)
-            sync()
-            iter_times.append(time.perf_counter() - t0)
-            loss = m["loss"]
-        stats = feeder.stats
+        if prefetch:
+            states, loss, stats, rows = run_epoch_prefetch(
+                s, states, feeder, gens, sync, iter_times)
+            patched_rows += rows
+        else:
+            loss = None
+            for item in feeder:
+                # the timed region includes the tier migration's commit:
+                # it is part of a capped table's step cost
+                t0 = time.perf_counter()
+                states, batches = s.commit(states, item)
+                states, m = step(states, batches, gens)
+                sync()
+                iter_times.append(time.perf_counter() - t0)
+                loss = m["loss"]
+            stats = feeder.stats
         epoch_losses.append(float(loss))
         epoch_bytes.append(comm0.exchange_bytes - sent0)
         log(f"epoch {epoch}: loss={epoch_losses[-1]:.4f} "
             f"host_blocked={stats.host_blocked_ms_per_batch:.2f} ms/batch "
             f"exch KiB {epoch_bytes[-1] / 1024:.1f} "
-            f"({stats.batches} steps, {s.xbytes / 1024:.1f} KiB/step/shard "
+            f"({stats.batches} steps, {step_bytes / 1024:.1f} KiB/step/shard "
             "modelled)", flush=True)
         # resident rows rewritten this epoch re-report their device ages to
         # the eviction bookkeeping (no-op under plain LRU)
@@ -431,9 +506,79 @@ def _run(s: DistSetup, log) -> DistResult:
                       finetuned=finetuned, finetune_loss=ft_loss,
                       train_steps=train_steps, finetune_steps=ft_steps,
                       refresh_steps=len(s.refresh_sched) if finetuned else 0,
-                      ms_per_iter=ms, step_bytes_model=s.xbytes,
+                      ms_per_iter=ms, step_bytes_model=step_bytes,
                       epoch_exchange_bytes=epoch_bytes,
-                      store_stats=s.store.stats())
+                      store_stats=s.store.stats(), patch_cap=ctx.patch_cap,
+                      patched_rows=patched_rows, states=states,
+                      store=s.store)
+
+
+def run_epoch_prefetch(s: DistSetup, states, feeder, gens, sync,
+                       iter_times):
+    """One train epoch through the prefetch lane
+    (``src/repro/launch/train_dist.py:340-410``): the lane pulls item k+1
+    before step k and dispatches it (commit its migration, then issue its
+    lookup); step k reads its own prefetched pair and patches item k+1's,
+    the bucketed patch routed by consumer shards planned from the two
+    batches' slots (the other strategies need no plan); the last step
+    patches a throwaway zero pair addressed by sentinels.  ``feeder``
+    yields items of ``s.put_pinned``.  Each step's pins are released after
+    it.  A variant without the table issues no lookup (the reference's lane
+    issues one that its step never reads; its bytes model counts none).
+    Returns (states, the last loss, the feeder's stats, the write rows with
+    a consumer)."""
+    ctx, args = s.ctx, s.args
+    D, dev = ctx.num_shards, ctx.device
+    bucketed = ctx.exchange == "bucketed"
+    box = {"states": states}
+    lookup = DT.make_prefetch_lookup(ctx)
+
+    def dispatch(item):
+        box["states"], batches = s.commit(box["states"], item)
+        if not s.variant.use_table:
+            return [None] * len(batches)
+        return lookup([st.table for st in box["states"]],
+                      [b.graph_ids for b in batches])
+
+    lane = DP.PrefetchLane(feeder, dispatch)
+    b_local = args.batch_size // D
+    shape = (b_local, s.ds.j_max, args.hidden)
+    pref, loss, rows = None, None, 0
+    t0 = time.perf_counter()
+    for (prep, batches), cur_h, nxt, nxt_h in lane:
+        if pref is None:
+            pref = cur_h         # the first batch: nothing patched it yet
+        dest = None
+        if nxt is not None:
+            nprep, nbatches = nxt
+            next_ids, next_pair = [b.graph_ids for b in nbatches], nxt_h
+            rows += int(np.isin(prep.slots, nprep.slots).sum())
+            if bucketed:
+                dest = EXC.consumer_shards(prep.slots, nprep.slots,
+                                           num_shards=D, rows=ctx.table_rows)
+        else:
+            # the epoch's tail: sentinel consumers patch nothing into a
+            # throwaway zero pair
+            sent = D * ctx.table_rows
+            next_ids = [torch.full((b_local,), sent, dtype=torch.int64,
+                                   device=dev) for _ in ctx.local_ranks]
+            next_pair = [(torch.zeros(shape, device=dev),
+                          torch.zeros(shape[:2], dtype=torch.bool,
+                                      device=dev)) for _ in ctx.local_ranks]
+            if bucketed:
+                dest = np.full((args.batch_size,), D, np.int32)
+        states, m, pref = s.step(box["states"], batches, gens, None, pref,
+                                 next_pair, next_ids,
+                                 None if dest is None
+                                 else DT.shard_rows(ctx, dest))
+        box["states"] = states
+        s.store.release(prep)
+        sync()
+        t1 = time.perf_counter()
+        iter_times.append(t1 - t0)      # the step and the next dispatch
+        t0 = t1
+        loss = m["loss"]
+    return box["states"], loss, lane.stats, rows
 
 
 def main(argv=None) -> DistResult:

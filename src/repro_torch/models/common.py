@@ -66,6 +66,37 @@ def flatten_tree(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
+class ParamTree(torch.nn.Module):
+    """A model's parameter tree (nested dicts and lists of tensors) as an
+    ``nn.Module``, the form the GST train step trains (``parameters()``):
+    each leaf becomes an ``nn.Parameter`` on the leaf's storage, named by
+    its dotted path as ``flatten_tree`` names it, so ``load_jax_params``
+    and the JAX package's tree paths agree.  ``tree`` is the same nesting
+    over those parameters, what the model functions take."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._seq = isinstance(tree, (list, tuple))
+        self._keys = []
+        for k, v in (enumerate(tree) if self._seq else tree.items()):
+            name = str(k)
+            if hasattr(torch.nn.Module, name):
+                raise KeyError(f"parameter tree key {name!r} shadows an "
+                               "nn.Module attribute")
+            self._keys.append(name)
+            if isinstance(v, (dict, list, tuple)):
+                self.add_module(name, ParamTree(v))
+            else:
+                self.register_parameter(name, torch.nn.Parameter(
+                    v, requires_grad=v.is_floating_point()))
+
+    @property
+    def tree(self):
+        kids = [getattr(self, k) for k in self._keys]
+        kids = [c.tree if isinstance(c, ParamTree) else c for c in kids]
+        return kids if self._seq else dict(zip(self._keys, kids))
+
+
 def load_jax_params(target, np_tree):
     """Fill ``target``'s parameters from the JAX package's parameter tree
     (nested dicts and lists of numpy arrays), matched by path name, in

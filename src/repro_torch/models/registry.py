@@ -20,9 +20,12 @@ reference.  A ``Model`` runs on its ``device``; with ``use_kernels`` the
 causal self-attention of every full-sequence pass (forward,
 encode_segment, prefill; the encoder-decoder's decoder) launches the
 hand-written sliding-window attention kernel there (its plain version on
-the CPU).  MLA attention, the encoder's and the cross-attention, the
-Mamba2 scan and the RWKV-6 recurrence run plain torch, as decode does:
-the reference has no kernel there.
+the CPU).  The kernel has no backward: a pass that autograd records
+raises under ``use_kernels``, so a model whose pass trains is built with
+``use_kernels`` False (``launch/train.py``).  MLA attention, the
+encoder's and the cross-attention, the Mamba2 scan and the RWKV-6
+recurrence run plain torch, as decode does: the reference has no kernel
+there.
 """
 from __future__ import annotations
 

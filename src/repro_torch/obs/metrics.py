@@ -3,7 +3,9 @@
 Counterpart of ``src/repro/obs/metrics.py``, cut to what the serving engine
 uses: ``Histogram``, ``summarize``, the bucket ladders, and the process-wide
 registry (a no-op ``NullRegistry`` until someone enables metrics) that the
-engine, the cache and the store publish to.  Host-side only; every
+engine, the cache, the store and the distributed trainer's prefetch lane
+(the counters ``feeder.prefetch_batches`` and
+``feeder.prefetch_dispatch_ms``) publish to.  Host-side only; every
 mutation takes the registry's lock.  Gauges, ``delta()`` and the JSONL
 export land with the telemetry slice.
 """

@@ -2,7 +2,9 @@
 
 Counterpart of ``src/repro/obs/trace.py``, cut to the spans the serving
 engine records (``serve.window`` -> ``serve.partition`` -> ``serve.encode`` ->
-``serve.insert`` -> ``serve.gather`` -> ``serve.head``).  Spans are complete
+``serve.insert`` -> ``serve.gather`` -> ``serve.head``) and the
+distributed trainer's feeders record (``feeder.assemble``, ``feeder.put``,
+``feeder.wait``, and the prefetch lane's ``feeder.prefetch_dispatch``).  Spans are complete
 ("X") events with ``ts``/``dur`` in microseconds on one monotonic clock.
 Host-side only: a span around a launch measures its dispatch, not the
 card.  The disabled path is free: the process-wide tracer defaults to

@@ -506,19 +506,26 @@ def test_cli_strategies_print_identical_losses_at_f32(capsys):
                                   ["--wb-threshold", "0.1"],
                                   ["--stale-forecast"]])
 def test_cli_flags_of_later_slices_raise(flag):
-    """The prefetch lane still raises.  The tiered-store flags, which
-    raised until the store was ported, now run (the name is kept): 2
-    shards, 32 graphs, 16 device rows (the two shards' batch) under the
-    flag; ``--table-device-rows`` alone and with stale-first eviction
-    print the uncapped run's losses bitwise, the gate skips write-backs,
-    the forecaster observes evictions."""
+    """Every flag of the later slices now runs (the name is kept): the
+    prefetch lane prints the inline run's per-epoch losses bitwise, with
+    its parameters and final table, and counts its modelled bytes.  The
+    tiered-store flags: 2 shards, 32 graphs, 16 device rows (the two
+    shards' batch) under the flag; ``--table-device-rows`` alone and with
+    stale-first eviction print the uncapped run's losses bitwise, the
+    gate skips write-backs, the forecaster observes evictions."""
     from repro_torch.launch.train_dist import main
 
     base = ["--device", "cpu", "--devices", "2", "--n-graphs", "32",
             "--epochs", "2", "--finetune-epochs", "1", "--feeder", "sync"]
     if flag == ["--prefetch-lookups"]:
-        with pytest.raises(NotImplementedError):
-            main(base + flag)
+        inline, r = main(base), main(base + flag)
+        assert r.finetuned and r.epoch_losses == inline.epoch_losses
+        assert r.train_metric == inline.train_metric
+        assert all(torch.equal(a, b) for a, b in zip(r.host_params(),
+                                                     inline.host_params()))
+        assert all(torch.equal(a, b) for a, b in zip(r.host_table(),
+                                                     inline.host_table()))
+        assert r.epoch_exchange_bytes == [r.step_bytes_model * 4] * 2
         return
     capped = flag if flag[0] == "--table-device-rows" else \
         ["--table-device-rows", "16"] + flag

@@ -1,5 +1,7 @@
 """The port's example scripts run on the CPU and import no JAX:
-examples/serve_batched_torch.py serves the five reduced families."""
+examples/serve_batched_torch.py serves the five reduced families;
+examples/llm_segment_training_torch.py trains the ~27M-parameter
+internlm2-family backbone with GST+EFD."""
 import os
 import runpy
 import subprocess
@@ -12,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 SERVE_BATCHED = ROOT / "examples" / "serve_batched_torch.py"
+LLM_TRAINING = ROOT / "examples" / "llm_segment_training_torch.py"
 
 
 def _env():
@@ -51,3 +54,26 @@ def test_serve_batched_cli_runs_and_defaults_to_the_card():
     main = runpy.run_path(str(SERVE_BATCHED))["main"]
     with pytest.raises(RuntimeError, match="is_available"):
         main([])
+
+
+def test_llm_segment_training_runs_two_steps_on_the_cpu_without_jax():
+    code = (
+        "import runpy, sys\n"
+        f"g = runpy.run_path({str(LLM_TRAINING)!r})\n"
+        "acc = g['main'](2, 'cpu', 1)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('ACC', acc)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert "27M params on cpu" in lines[0]
+    assert sum(line.startswith("step ") for line in lines) == 2
+    acc = float(lines[-1].split()[1])
+    assert 0.0 <= acc <= 1.0
+    if not torch.cuda.is_available():
+        main = runpy.run_path(str(LLM_TRAINING))["main"]
+        with pytest.raises(RuntimeError, match="is_available"):
+            main(1)

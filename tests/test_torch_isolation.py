@@ -36,7 +36,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
             "repro_torch.kernels.swa_attention", "repro_torch.models",
             "repro_torch.models.common", "repro_torch.models.blocks",
             "repro_torch.models.transformer", "repro_torch.models.registry",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.data",
+            "repro_torch.data.tokens"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -53,9 +54,9 @@ def test_importing_every_port_module_pulls_in_no_jax():
 
 
 def test_no_jax_or_repro_import_in_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "examples" /
-                                          "serve_batched_torch.py"]
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "examples" / "serve_batched_torch.py",
+        ROOT / "examples" / "llm_segment_training_torch.py"]
     assert len(files) > 10
     offenders = {str(f.relative_to(ROOT)): IMPORT_RE.findall(f.read_text())
                  for f in files if IMPORT_RE.search(f.read_text())}

@@ -4,8 +4,9 @@ compressed exchange, and the sliding-window attention), against their
 plain versions (kernels/ref.py): within rtol = atol = 1e-5 in f32 forward
 (6e-2 in bf16) and 1e-4 for gradients, the pack and unpack kernels
 BITWISE, bitwise equal from launch to launch, refusing what they cannot
-do; a few GST train steps through them, single-device and distributed,
-against the plain path; the tiered store's migrations on the card against
+do; a few GST train steps through them, single-device (graph and
+sequence track) and distributed, against the plain path; the prefetched
+distributed run against the inline one; the tiered store's migrations on the card against
 the device-resident store; and the reduced dense transformer's kernel path
 against its plain path.
 
@@ -265,6 +266,34 @@ def test_sed_pool_matches_plain(cuda, B, J, d, agg, decay):
     want = ref.sed_pool_ref(hr, valid, fresh, drop, 0.5, 1, agg, ages, decay)
     torch.sum(want * g).backward()
     torch.testing.assert_close(b, want.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hh.grad, hr.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decay", [0.0, 0.05])
+def test_sed_pool_at_the_seq_train_shape(cuda, decay):
+    """(B, J, d) = (8, 8, 2048), the sequence track's Eq.-1 pooling of
+    internlm2-1.8b's segment embeddings: one launch, 1e-5 of the plain
+    version, its gradient 1e-4, bitwise the same from launch to launch."""
+    B, J, d = 8, 8, 2048
+    assert sp.plan(J, d, 4, 0) == sp.Plan(16, 32, 1, 16)
+    h, valid, fresh, drop, ages = _sed_inputs(B, J, d, seed=7, cuda=cuda)
+    kw = dict(keep_prob=0.5, num_sampled=1, agg="mean", ages=ages,
+              decay=decay)
+    g = torch.randn(B, d, generator=torch.Generator().manual_seed(3)).to(cuda)
+    ops.reset_kernel_launches()
+    hh = h.clone().requires_grad_()
+    a = sp.sed_pool(hh, valid, fresh, drop, **kw)
+    torch.sum(a * g).backward()
+    assert ops.kernel_launches()["sed_pool_aged" if decay else
+                                 "sed_pool"] == 1
+    assert torch.equal(a.detach(), sp.sed_pool(h, valid, fresh, drop, **kw))
+    hr = h.clone().requires_grad_()
+    want = ref.sed_pool_ref(hr, valid, fresh, drop, 0.5, 1, "mean", ages,
+                            decay)
+    torch.sum(want * g).backward()
+    torch.testing.assert_close(a.detach(), want.detach(), rtol=1e-5,
+                               atol=1e-5)
     torch.testing.assert_close(hh.grad, hr.grad, rtol=1e-4, atol=1e-4)
 
 
@@ -966,6 +995,118 @@ def test_swa_kernel_refuses_what_it_cannot_do(cuda):
         swa.swa_attention(q, k.cpu(), v, window=64)
     with pytest.raises(ValueError, match="window"):
         swa.swa_attention(q, k, v, window=0)
+
+
+@pytest.mark.gpu
+def test_swa_kernel_refuses_grad_inputs_through_the_op(cuda):
+    """The kernel refuses inputs that need a gradient, through the op too
+    (no launch, nothing falls back); a no-grad call launches once and
+    agrees with the plain version, which trains."""
+    from repro_torch.kernels import swa_attention as swa
+
+    q, k, v = _swa_inputs(1, 64, 4, 2, 64, seed=0, cuda=cuda)
+    qg = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        swa.swa_attention(qg, k, v, window=64)
+    ops.reset_kernel_launches()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.sliding_window_attention(qg, k, v, window=64)
+    assert ops.kernel_launches()["swa_attention"] == 0
+    with torch.no_grad():
+        kern = ops.sliding_window_attention(qg, k, v, window=64)
+    assert ops.kernel_launches()["swa_attention"] == 1
+    out = ops.sliding_window_attention(qg, k, v, window=64,
+                                       use_kernels=False)
+    assert out.requires_grad
+    torch.testing.assert_close(kern, out.detach(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["gst", "gst_efd"])
+def test_seq_train_steps_kernel_path_matches_plain(cuda, variant):
+    """Two sequence-track GST steps of the reduced internlm2-1.8b (head dim
+    64) on the card, kernels on against off, given the same draws: the
+    kernel path launches sed_pool once a step for gst_efd and the
+    attention kernel once a layer for gst's no-grad re-encode, and its
+    loss and parameters stay within 1e-4 of the plain path."""
+    from repro_torch.data.tokens import doc_batch_iterator
+    from repro_torch.graphs.experiment import epoch_generator
+    from repro_torch.launch import train as T
+
+    runs = []
+    for flag in ("--use-kernels", "--no-use-kernels"):
+        args = T.build_parser().parse_args([
+            "--track", "seq", "--reduced", "--n-docs", "8", "--batch-size",
+            "4", "--seg-len", "16", "--variant", variant, flag])
+        runs.append(T.seq_setup(args))
+    tups = list(doc_batch_iterator(runs[0][1], 4,
+                                   rng=np.random.default_rng(0)))
+    states = [r[2] for r in runs]
+    L = runs[0][0].cfg.num_layers
+    for i, tup in enumerate(tups):
+        losses = []
+        for j, (model, _, _, step, _) in enumerate(runs):
+            ops.reset_kernel_launches()
+            states[j], m = step(states[j], T.seq_batch(model, tup, tup[2],
+                                                       0, i),
+                                epoch_generator(0, i))
+            losses.append(float(m["loss"]))
+            got = ops.kernel_launches()
+            if j == 0:
+                assert got["sed_pool"] == (variant == "gst_efd")
+                assert got["swa_attention"] == (L if variant == "gst" else 0)
+            else:
+                assert sum(got.values()) == 0
+        np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4, atol=1e-4)
+        for a, b in zip(_seq_params(states[0]), _seq_params(states[1])):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for r in runs:
+        r[4].close()
+
+
+def _seq_params(state):
+    return [p.detach() for p in list(state.backbone.parameters())
+            + list(state.head.parameters())]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exchange", ["ring", "alltoall", "bucketed"])
+def test_lane_patches_an_all_overlap_schedule_on_card(cuda, exchange):
+    """The launcher's lane on 4 shards of the card at f32, over 4 batches
+    of one row set (every row of the first 3 patched; launcher epochs
+    patch none): loss, parameters and table bitwise the inline loop."""
+    from _torch_lane import all_overlap_run
+
+    argv = ["--device", "cuda", "--devices", "4", "--n-graphs", "64",
+            "--hidden", "64", "--max-seg-nodes", "64", "--exchange",
+            exchange, "--exchange-cap", "2", "--patch-cap", "2"]
+    loss_a, params_a, table_a, rows_a = all_overlap_run(argv)
+    loss_b, params_b, table_b, rows_b = all_overlap_run(
+        argv + ["--prefetch-lookups"])
+    assert (rows_a, rows_b) == (0, 3 * 8)
+    assert loss_a == loss_b
+    assert all(torch.equal(x, y) for x, y in zip(params_a, params_b))
+    assert all(torch.equal(x, y) for x, y in zip(table_a, table_b))
+
+
+@pytest.mark.gpu
+def test_prefetched_dist_run_is_bitwise_inline_on_card(cuda):
+    """train_dist --prefetch-lookups on 2 shards of the card, f32, through
+    the three strategies: per-epoch losses, parameters and the final
+    table bitwise the inline run."""
+    from repro_torch.launch.train_dist import main
+
+    base = ["--device", "cuda", "--devices", "2", "--n-graphs", "32",
+            "--epochs", "2", "--finetune-epochs", "1", "--hidden", "64",
+            "--max-seg-nodes", "64"]
+    for exchange in ("ring", "alltoall", "bucketed"):
+        a = main(base + ["--exchange", exchange])
+        b = main(base + ["--exchange", exchange, "--prefetch-lookups"])
+        assert a.epoch_losses == b.epoch_losses, exchange
+        assert all(torch.equal(x, y)
+                   for x, y in zip(a.host_params(), b.host_params()))
+        assert all(torch.equal(x, y)
+                   for x, y in zip(a.host_table(), b.host_table()))
 
 
 @pytest.mark.gpu

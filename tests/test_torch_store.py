@@ -144,6 +144,22 @@ def test_run_experiment_capped_is_bitwise_uncapped(variant):
     assert st["hits"] + st["misses"] == st["lookups"]
 
 
+@pytest.mark.parametrize("policy", ["lru", "stale-first"])
+def test_run_experiment_capped_aged_is_bitwise_uncapped(policy):
+    """Aged SED (λ 0.05, the ages read from the capped table) with 4 of 36
+    training rows on the device, under either eviction policy: per-epoch
+    losses, metrics and the final table bitwise the uncapped aged run."""
+    kw = dict(variant="gst_efd", sed_age_weighting=0.05, **RUN)
+    a = run_experiment(**kw)
+    b = run_experiment(table_device_rows=4, evict_policy=policy, **kw)
+    assert (a.epoch_losses, a.train_metric, a.test_metric, a.finetuned) == \
+        (b.epoch_losses, b.train_metric, b.test_metric, b.finetuned)
+    assert _bitwise(a.table, b.table)
+    st = b.store_stats
+    assert st["evict_policy"] == policy and st["evictions"] > 0
+    assert int(a.table.age.max()) > 0
+
+
 @pytest.mark.parametrize("variant", list(G.VARIANTS))
 def test_tiered_train_steps_bitwise_all_variants(dataset, variant):
     ds = dataset

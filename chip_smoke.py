@@ -126,7 +126,23 @@ fails the run (none catches its own):
                 begin + commit and the write-back's landing for 8, 64 and
                 1,024 misses with as many evictions, as GB/s each way;
                 then 200 random batches: snapshot bitwise a DeviceStore's
-  8b. seq_train  internlm2-1.8b at full width and depth (f32, random),
+  8a. telemetry  the obs spine (repro_torch.obs) on the graph paths,
+                kernels on, each path four times in turns: telemetry off,
+                on (a JSONL stream and a Chrome trace), on, off; every run
+                bitwise the first, launches equal, and
+                repro_torch.obs.gate passes the stream and the trace:
+                (1) run_experiment (a) (losses, metrics, final table; the
+                row-age p99 under the SED bound); (2) serve_graphs' replay
+                (sage; p99 budget 3x the slowest run without, encode
+                launches under windows x buckets + segments / the smallest
+                bucket batch); (3) train_dist ring / int8, 4 shards, 2
+                epochs, inline and --prefetch-lookups (--expect-dist,
+                --expect-prefetch; exchange.bytes.ring.int8 = shard 0's
+                counted bytes); (4) an epoch of (a) under torch.profiler
+                with --torch-trace-annotations: a train.step range a
+                step.  ms_per_iter and p50 / p99 of every turn.  Streams
+                and traces under chiprun_out/telemetry/
+ 8b. seq_train  internlm2-1.8b at full width and depth (f32, random),
                 launch.train: (a) --track seq gst_efd, kernels, batch 8
                 x J 8 x 64 tokens, 64 documents, 3 steps: sed_pool once
                 a step at (8, 8, 2048), the attention kernel never (the
@@ -172,8 +188,8 @@ fails the run (none catches its own):
                 layer at B 2: ms a call, launches, device busy time
  12. kernels    one JSON line: per kernel, launches on the main path
                 (serving, training, distributed training, dist_prefetch,
-                the store's (a), (c) and (d), seq_train, seq_serve and
-                seq_families),
+                the store's (a), (c) and (d), telemetry, seq_train,
+                seq_serve and seq_families),
                 error, times and bound
 
     python3 chip_smoke.py --turns PARENT_DIR
@@ -253,6 +269,9 @@ PREFETCH_RUNS = [("ring", "f32", 0.0), ("alltoall", "bf16", 0.0),
 PREFETCH_DEVICE_ROWS = 32
 PREFETCH_CAPPED_SHARDS = 2            # (g'): 32 of 64 rows are the window
 PREFETCH_OVERLAP_STEPS = 4            # (h'): batches of one row set
+# the telemetry phase's streams and traces (inside the checkout, ignored
+# by git)
+TELEMETRY_DIR = ROOT / "chiprun_out" / "telemetry"
 QUANT_STRESS = (8192, 1280)             # 40 MiB of f32 rows
 # (R, N, element offset of x and v in their buffers) edge cases: one row,
 # N not a multiple of 32, a wide ragged row, rows with NaN of both signs,
@@ -1857,6 +1876,215 @@ def phase_store_dist(torch, uncapped):
                       "launches": launched(launches)}
 
 
+def telemetry_obs(tag, annotations=False):
+    """A live telemetry bundle (repro_torch.obs.Obs, installed) writing
+    ``tag``.jsonl and ``tag``_trace.json under TELEMETRY_DIR."""
+    from repro_torch.obs import Obs
+
+    TELEMETRY_DIR.mkdir(parents=True, exist_ok=True)
+    return Obs(metrics_out=str(TELEMETRY_DIR / f"{tag}.jsonl"),
+               trace_out=str(TELEMETRY_DIR / f"{tag}_trace.json"),
+               annotations=annotations)
+
+
+def telemetry_argv(tag):
+    return ["--metrics-out", str(TELEMETRY_DIR / f"{tag}.jsonl"),
+            "--trace-out", str(TELEMETRY_DIR / f"{tag}_trace.json")]
+
+
+def telemetry_gate(tag, *argv, stream="--train-jsonl"):
+    """repro_torch.obs.gate over ``tag``'s stream and trace; fails the run
+    unless it exits 0.  Returns the stream's summary record."""
+    from repro_torch.obs import gate
+
+    path = TELEMETRY_DIR / f"{tag}.jsonl"
+    rc = gate.main([stream, str(path), *argv, "--trace",
+                    str(TELEMETRY_DIR / f"{tag}_trace.json")])
+    if rc != 0:
+        raise AssertionError(f"[telemetry] {tag}: the gate exited {rc}")
+    return json.loads(path.read_text().splitlines()[-1])
+
+
+TELEMETRY_TURNS = (False, True, True, False)   # telemetry off, on, on, off
+
+
+def phase_telemetry(torch, dev):
+    """The telemetry spine (repro_torch.obs) on the graph paths, kernels on.
+    Each path runs four times in turns, telemetry off, on, on, off (the
+    first run of a path in a call is slower than the rest, so the order
+    would bias one side): every run's results bitwise the first's and its
+    launches equal; the telemetry runs write a JSONL stream and a Chrome
+    trace, and repro_torch.obs.gate must exit 0 on the last.
+
+    (1) run_experiment (a): per-epoch losses, metrics and final table;
+    the gate also bounds the row-age p99 by the SED bound of its geometry.
+    (2) serve_graphs' replay (sage): predictions' summary and launches;
+    the gate with a p99 budget of 3x the slowest run without telemetry
+    and an encode-launch budget from the replay's geometry.  (3)
+    train_dist ring / int8 on 4 shards, inline and --prefetch-lookups:
+    losses, parameters and table; the gate with --expect-dist (and
+    --expect-prefetch); exchange.bytes.ring.int8 = the bytes shard 0's
+    comm counted over the train epochs.  (4) one epoch of (a) under
+    torch.profiler with --torch-trace-annotations: a train.step range a
+    step.  ms_per_iter (p50 / p99 of the replay) of each turn.  Returns
+    the telemetry runs' launches (each counted from 0) and a summary."""
+    from repro_torch.graphs.experiment import load_datasets, run_experiment
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_graphs, train_dist
+    from repro_torch.serve.engine import ServeConfig
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    main_launches, out = {}, {}
+
+    def in_turns(label, run, same):
+        """``run(on)`` in TELEMETRY_TURNS, launches counted from 0 each;
+        every run ``same`` as the first and with its launches.  Returns
+        [(on, result)]."""
+        turns = []
+        for on in TELEMETRY_TURNS:
+            sync()
+            ops.reset_kernel_launches()
+            r = run(on)
+            sync()
+            turns.append((on, r, launched(ops.kernel_launches())))
+        first, first_l = turns[0][1], turns[0][2]
+        for on, r, launches in turns[1:]:
+            if not (same(r, first) and launches == first_l):
+                raise AssertionError(f"[telemetry] {label}: a run with "
+                                     f"telemetry {'on' if on else 'off'} "
+                                     f"differs from the first ({launches} "
+                                     f"vs {first_l} launches)")
+            if on:
+                for k, v in launches.items():
+                    main_launches[k] = main_launches.get(k, 0) + v
+        return [(on, r) for on, r, _ in turns]
+
+    def turns_line(values):
+        return ", ".join(f"{'on' if on else 'off'} {v:.6f}"
+                         for on, v in values)
+
+    # (1) graph training (a)
+    train_kw = dict(dataset="malnet", backbone="sage", variant="gst_efd",
+                    epochs=TRAIN_EPOCHS, finetune_epochs=FINETUNE_EPOCHS,
+                    device=dev.type)
+
+    def train_run(on):
+        obs = telemetry_obs("train") if on else None
+        try:
+            return run_experiment(obs=obs, **train_kw)
+        finally:
+            if obs is not None:
+                obs.close()
+
+    runs = in_turns("training (a)", train_run, lambda a, b: (
+        a.epoch_losses == b.epoch_losses
+        and (a.train_metric, a.test_metric) == (b.train_metric,
+                                                b.test_metric)
+        and all(torch.equal(x, y) for x, y in zip(a.table, b.table))))
+    _, ds, _ = load_datasets("malnet", 80, 64)
+    summary = telemetry_gate(
+        "train", "--j-max", str(ds.j_max), "--num-sampled", "1",
+        "--steps-per-epoch", str(runs[0][1].train_steps // TRAIN_EPOCHS))
+    row_age = summary["metrics"]["staleness.row_age"]
+    ms = [(on, r.ms_per_iter) for on, r in runs]
+    log(f"[telemetry] training (a): losses, metrics, final table bitwise "
+        f"and launches equal in every turn; gate passed (row-age p99 "
+        f"{row_age['p99']:.3f} steps, j_max {ds.j_max}); ms_per_iter "
+        f"{turns_line(ms)}")
+    out["training"] = {"ms_per_iter_turns": ms,
+                       "row_age_p99": row_age["p99"], "j_max": ds.j_max}
+
+    # (2) serving replay (sage)
+    def serve_run(on):
+        return serve_graphs.main(["--device", dev.type] + (
+            telemetry_argv("serve") if on else []))
+
+    keys = ("n_requests", "n_segments", "encode_launches",
+            "encoded_segments", "kernel_launches", "cache")
+    runs = in_turns("serving (sage)", serve_run, lambda a, b: all(
+        a[k] == b[k] for k in keys))
+    s_on = runs[-2][1]
+    ladder = ServeConfig().resolved_ladder()
+    windows = math.ceil(s_on["n_requests"] / 8)
+    max_launches = windows * len(ladder) + math.ceil(
+        s_on["n_segments"] / min(spec.batch for spec in ladder))
+    budget = 3 * max(r["latency_p99_ms"] for on, r in runs if not on)
+    telemetry_gate("serve", "--serve-p99-ms", str(budget),
+                   "--max-encode-launches", str(max_launches),
+                   stream="--serve-jsonl")
+    lat = [(on, r["latency_p50_ms"], r["latency_p99_ms"]) for on, r in runs]
+    log(f"[telemetry] serving (sage): summaries and launches equal in every "
+        f"turn; gate passed (p99 budget {budget:.3f} ms = 3x the slowest "
+        f"run without telemetry, encode launches "
+        f"{s_on['encode_launches']} <= {max_launches} = {windows} windows x "
+        f"{len(ladder)} buckets + {s_on['n_segments']} segments / the "
+        f"smallest bucket batch); p50 / p99 ms " + ", ".join(
+            f"{'on' if on else 'off'} {p50:.6f} / {p99:.6f}"
+            for on, p50, p99 in lat))
+    out["serving"] = {"p50_p99_turns": lat, "p99_budget_ms": budget}
+
+    # (3) distributed training, 4 shards, ring / int8
+    base = [dev.type if a == "cuda" else a for a in DIST_ARGS]
+    dist_base = base[:base.index("--epochs")] + PREFETCH_EPOCHS + [
+        "--exchange", "ring", "--payload-dtype", "int8"]
+    out["dist"] = {}
+    for lane in ("inline", "prefetch"):
+        flags = dist_base + (["--prefetch-lookups"] if lane == "prefetch"
+                             else [])
+
+        def dist_run(on):
+            args = train_dist.build_parser().parse_args(
+                flags + (telemetry_argv("dist_" + lane) if on else []))
+            return train_dist.run(args, log=lambda *a, **k: None)
+
+        runs = in_turns(f"dist {lane}", dist_run,
+                        lambda a, b: bitwise_run(torch, a, b))
+        summary = telemetry_gate("dist_" + lane, "--expect-dist", *(
+            ["--expect-prefetch"] if lane == "prefetch" else []))
+        total = summary["metrics"]["exchange.bytes.ring.int8"]
+        counted = sum(runs[-2][1].epoch_exchange_bytes)
+        if total != counted:
+            raise AssertionError(f"[telemetry] dist {lane}: registry "
+                                 f"{total} exchange bytes, comm {counted}")
+        ms = [(on, r.ms_per_iter) for on, r in runs]
+        log(f"[telemetry] dist ring / int8 {lane}, {DIST_SHARDS} shards: "
+            f"losses, parameters, table bitwise and launches equal in every "
+            f"turn; gate passed; exchange.bytes.ring.int8 {total:.0f} = "
+            f"shard 0's counted bytes; ms_per_iter {turns_line(ms)}")
+        out["dist"][lane] = {"ms_per_iter_turns": ms,
+                             "exchange_bytes": total}
+
+    # (4) span names as ranges in a torch.profiler trace
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    obs = telemetry_obs("profiled", annotations=True)
+    try:
+        with profile(activities=activities) as prof:
+            r = run_experiment(obs=obs, **dict(train_kw, epochs=1,
+                                               finetune_epochs=1))
+            sync()
+    finally:
+        obs.close()
+    host = torch.autograd.DeviceType.CPU
+    ranges = sum(1 for e in prof.events()
+                 if e.name == "train.step" and e.device_type == host)
+    on_card = sum(1 for e in prof.events()
+                  if e.name == "train.step" and e.device_type != host)
+    if ranges != r.train_steps:
+        raise AssertionError(f"[telemetry] {ranges} train.step ranges in "
+                             f"the profile for {r.train_steps} steps")
+    log(f"[telemetry] profiled epoch with --torch-trace-annotations: "
+        f"{ranges} train.step ranges for {r.train_steps} steps ({on_card} "
+        "more on the device's timeline)")
+    out["annotated_train_step_ranges"] = ranges
+    return main_launches, out
+
+
 def phase_store_migration(torch, dev):
     """(e) migrations at a table size users hold: MIGRATION_TABLE in a
     TieredStore with 10% of the rows on the card (host tier pinned).
@@ -3175,6 +3403,9 @@ def main() -> int:
         for k, v in launches.items():
             main_launches[k] = main_launches.get(k, 0) + v
     store["migration"] = phase_store_migration(torch, dev)
+    launches, telemetry = phase_telemetry(torch, dev)
+    for k, v in launches.items():
+        main_launches[k] = main_launches.get(k, 0) + v
 
     profile = phase_profile(torch, dev)
     dist_profile = phase_dist_profile(torch)
@@ -3233,7 +3464,7 @@ def main() -> int:
                     "profile": profile, "dist": dist,
                     "dist_f32_epoch_losses": f32_losses,
                     "dist_prefetch": dist_prefetch, "seq_train": seq_train,
-                    "store": store,
+                    "store": store, "telemetry": telemetry,
                     "dist_profile": dist_profile,
                     "dist_scaling_ms": dist_scaling, "seq_serve": seq_serve,
                     "seq_families": seq_families,

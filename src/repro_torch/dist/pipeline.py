@@ -76,9 +76,15 @@ class FeederStats:
         return self.host_blocked_ms / max(self.batches, 1)
 
     def record_batch(self, blocked_ms: float) -> None:
+        """One delivered batch: local stats + the registry mirror
+        (``feeder.batches``, ``feeder.host_blocked_ms``)."""
         self.batches += 1
         self.host_blocked_ms += blocked_ms
         self.blocked_per_batch.append(blocked_ms)
+        reg = get_registry()
+        if reg.enabled:
+            reg.inc("feeder.batches")
+            reg.inc("feeder.host_blocked_ms", blocked_ms, unit="ms")
 
 
 def _assemble(ds: Bt.SegmentedDataset, ids: np.ndarray) -> G.GSTBatch:

@@ -14,8 +14,10 @@ how the parity tests replay JAX's ``key(epoch)`` stream.  The historical
 table lives behind an embedding store: the whole table on the device
 (``DeviceStore``), or with ``table_device_rows`` a bounded set of hot rows
 over a host-RAM tier (``TieredStore``), bitwise the same run either way
-while the write-back gate and the forecaster are off.  The staleness probe
-and the ``obs`` ticks land with the telemetry slice.
+while the write-back gate and the forecaster are off.  With ``obs`` (a
+``repro_torch.obs.Obs``) each epoch ticks its stream, and while a live
+registry is installed each epoch publishes the store's counters and a
+staleness probe of the table (``src/repro/graphs/experiment.py:160-201``).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.graphs import batching as Bt
 from repro_torch.graphs import data as D
 from repro_torch.graphs.gnn import GNNConfig, gnn_init, make_encode_fn
 from repro_torch.models.common import load_jax_params
+from repro_torch.obs import StalenessProbe, get_registry, span
 from repro_torch.optim import make_optimizer
 from repro_torch.store import DeviceStore, TieredStore
 
@@ -132,6 +135,8 @@ def run_experiment(
     stale_forecast: bool = False,
     draws: Optional[Callable] = None,
     weights: Optional[Tuple] = None,
+    obs=None,                         # optional repro_torch.obs.Obs bundle:
+                                      # a tick an epoch (its interval)
 ) -> ExperimentResult:
     """``device``: "cuda" (the default; raises where no card is visible) or
     "cpu".  ``use_kernels``: route the SpMM and the SED pooling through the
@@ -213,6 +218,10 @@ def run_experiment(
         brng = np.random.default_rng(seed + 3)
         last_train = 0.0
         epoch_losses = []
+        probe = StalenessProbe(keep_prob=keep_prob, num_sampled=num_sampled,
+                               seg_valid=ds.seg_valid,
+                               sed_decay=sed_age_weighting,
+                               forecast=stale_forecast)
         for epoch in range(epochs):
             ep_metrics, ep_losses = [], []
             egen = epoch_generator(seed, epoch)
@@ -226,8 +235,9 @@ def run_experiment(
                 # the timed region includes the tier migration: it is part
                 # of a capped table's step cost
                 batch = batch._replace(graph_ids=route(tup, state.step))
-                state, m = step(state, batch, egen, drawn)
-                _sync(dev)
+                with span("train.step", epoch=epoch):
+                    state, m = step(state, batch, egen, drawn)
+                    _sync(dev)
                 iter_times.append(time.perf_counter() - t0)
                 ep_metrics.append(float(m["metric"]))
                 ep_losses.append(float(m["loss"]))
@@ -236,6 +246,13 @@ def run_experiment(
             # resident rows rewritten this epoch re-report their device
             # ages to the eviction bookkeeping (no-op under plain LRU)
             store.refresh_ages(state.table)
+            stale = None
+            if get_registry().enabled:
+                store.publish_counters()
+                stale = probe.observe(store, state.table, state.step)
+            if obs is not None and obs.should_tick(epoch):
+                obs.tick(step=state.step, epoch=epoch, train=last_train,
+                         staleness=stale)
         train_steps = state.step
 
         # ---- head finetuning phase (Algorithm 2 lines 11-18) -----------------

@@ -12,8 +12,19 @@ predictions against the one-shot batch encoder and exits nonzero on
 mismatch; ``--min-hit-rate`` turns the hit-rate into an assertion.
 ``--table-device-rows`` caps the cache's device-resident rows over a
 host-RAM tier (``--evict-policy``, ``--wb-threshold`` and
-``--stale-forecast`` act on that tier).  ``--metrics``, ``--trace-out``
-and ``--mem-probe`` land with the telemetry slice.
+``--stale-forecast`` act on that tier).
+
+Telemetry (``repro_torch.obs``, the flags of ``add_obs_args``) as in
+``src/repro/launch/serve_graphs.py``: the registry is reset after the
+warm-up, the replay runs window by window with a tick every
+``--metrics-interval`` windows, and the summary carries the engine's own
+(``serve=``).  The engine, the cache and the store publish ``serve.*``,
+``serve.cache.*`` and ``store.*``; the gate reads the stream:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_graphs --device cpu \
+        --metrics-out s.jsonl --trace-out s_trace.json
+    PYTHONPATH=src python -m repro_torch.obs.gate --serve-jsonl s.jsonl \
+        --serve-p99-ms 2000 --max-encode-launches 64 --trace s_trace.json
 """
 from __future__ import annotations
 
@@ -21,6 +32,9 @@ import argparse
 
 import numpy as np
 import torch
+
+from repro_torch.obs import Obs, add_obs_args
+from repro_torch.obs.export import summary_lines
 
 
 def build_engine(args):
@@ -118,6 +132,7 @@ def main(argv=None):
     ap.add_argument("--check-parity", action="store_true")
     ap.add_argument("--parity-atol", type=float, default=1e-5)
     ap.add_argument("--min-hit-rate", type=float, default=None)
+    add_obs_args(ap)
     args = ap.parse_args(argv)
 
     from repro_torch.serve.traffic import TrafficConfig, make_request_stream
@@ -128,20 +143,37 @@ def main(argv=None):
                        popularity=args.popularity, seed=args.seed)
     stream = make_request_stream(tc)
     try:
-        return _run(args, engine, stream)
+        obs = Obs.from_args(args, run="serve_graphs",
+                            backbone=args.backbone, requests=args.requests,
+                            window=args.window)
+        try:
+            return _run(args, engine, stream, obs)
+        finally:
+            obs.close()
     finally:
+        # the tiered store owns a write-back thread: release it even when
+        # the parity or hit-rate check raises SystemExit
         engine.close()
 
 
-def _run(args, engine, stream):
+def _run(args, engine, stream, obs):
     if args.warmup:
         engine.process(stream[:args.warmup], window=args.window)
         engine.reset_stats()
+        # the warm-up's misses must not count against the gate's budgets
+        obs.registry.reset()
         if args.cold_cache and engine.cache is not None:
             engine.cache.flush()  # cold contents
 
-    engine.process(stream, window=args.window)
+    # window by window (what one process() call does inside), so the
+    # stream gets a tick a window
+    for wi, w0 in enumerate(range(0, len(stream), args.window)):
+        engine.process(stream[w0:w0 + args.window], window=args.window)
+        if obs.should_tick(wi):
+            obs.tick(step=wi,
+                     requests_done=min(w0 + args.window, len(stream)))
     s = engine.stats.summary()
+    rec = obs.close(serve=s)
 
     dev = engine.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
@@ -172,6 +204,8 @@ def _run(args, engine, stream):
               f"(of {st['n_rows']} total), tier hit-rate "
               f"{st['hit_rate']:.2f}, {st['evictions']} spills, "
               f"{st['migration_bytes'] / 1024:.1f} KiB migrated")
+    for line in summary_lines(rec) if rec is not None else ():
+        print(line)
 
     if args.check_parity:
         worst = check_parity(engine, stream[:3], args.parity_atol)

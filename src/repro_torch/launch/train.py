@@ -38,8 +38,20 @@ encodes).  The LM track (``train_lm``) minimises next-token NLL +
 attention is always the plain version.  The reference has no frames for
 the encoder-decoder on these tracks (its encoder reads
 ``inputs["frames"]``, which the token pipelines do not make); the port
-draws stub frames from the seed there. The telemetry flags
-(``--metrics``/``--trace-out``) are not parsed.
+draws stub frames from the seed there.
+
+Telemetry (``repro_torch.obs``; ``--metrics``, ``--metrics-out``,
+``--metrics-interval``, ``--trace-out``, ``--torch-trace-annotations``):
+every track records a ``train.step`` span a step.  The graph track ticks
+the stream an epoch with the staleness probe
+(``src/repro/graphs/experiment.py``); ``--track seq`` ticks every
+``--log-every`` steps with the store's counters and the probe, ``--track
+lm`` (no table) with its loss.  Off, the registry and the tracer are the
+shared no-op ones.  ``--mem-probe`` raises (ROADMAP A3b).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --track graph \
+        --device cpu --epochs 3 --finetune-epochs 1 --n-graphs 48 \
+        --metrics-out t.jsonl --trace-out t_trace.json
 """
 from __future__ import annotations
 
@@ -60,11 +72,13 @@ from repro_torch.data.tokens import (doc_batch_iterator, make_lm_stream,
 from repro_torch.graphs.experiment import epoch_generator
 from repro_torch.models import build_model
 from repro_torch.models.common import ParamTree
+from repro_torch.obs import Obs, StalenessProbe, add_obs_args, span
+from repro_torch.obs.export import summary_lines
 from repro_torch.optim import cosine_schedule, make_optimizer
 from repro_torch.store import DeviceStore, TieredStore
 
 
-def train_graph(args):
+def train_graph(args, obs=None):
     from repro_torch.graphs.experiment import run_experiment
     r = run_experiment(
         dataset=args.dataset, backbone=args.backbone, variant=args.variant,
@@ -75,7 +89,7 @@ def train_graph(args):
         evict_policy=args.evict_policy,
         wb_threshold=args.wb_threshold,
         sed_age_weighting=args.sed_age_weighting,
-        stale_forecast=args.stale_forecast)
+        stale_forecast=args.stale_forecast, obs=obs)
     print(f"[graph/{args.dataset}] {args.backbone} {args.variant}"
           f"{' [kernels]' if args.use_kernels else ''} on {args.device}: "
           f"train={r.train_metric:.3f} test={r.test_metric:.3f} "
@@ -181,16 +195,21 @@ def seq_batch(model, tup, slots, seed: int, step: int) -> G.GSTBatch:
                       torch.from_numpy(tup[3]).to(dev))
 
 
-def train_seq(args, log=print) -> SeqResult:
+def train_seq(args, log=print, obs=None) -> SeqResult:
     """``--track seq`` (``src/repro/launch/train.py:62-140``): GST training
     of ``encode_segment`` over the property documents, the batch's rows
     routed through the store with the step about to write them as the
     stale-first hint; then the pending write-backs flushed, the store
-    closed and, under ``--ckpt-dir``, the backbone and head saved."""
+    closed and, under ``--ckpt-dir``, the backbone and head saved.  With
+    ``obs`` enabled, every ``--log-every`` steps publish the store's
+    counters and a staleness probe of the table and tick the stream."""
     model, docs, state, step, store = seq_setup(args)
     dev = model.device
     losses, metrics, times = [], [], []
     ckpt = None
+    probe = StalenessProbe(keep_prob=args.keep_prob, num_sampled=1,
+                           sed_decay=args.sed_age_weighting,
+                           forecast=args.stale_forecast)
     try:
         rng = np.random.default_rng(args.seed)
         it = 0
@@ -202,7 +221,9 @@ def train_seq(args, log=print) -> SeqResult:
                                              np.asarray(tup[2]), step=it)
                 state = state._replace(table=table)
                 batch = seq_batch(model, tup, slots, args.seed, it)
-                state, m = step(state, batch, epoch_generator(args.seed, it))
+                with span("train.step", step=it):
+                    state, m = step(state, batch,
+                                    epoch_generator(args.seed, it))
                 losses.append(float(m["loss"]))     # waits for the step
                 metrics.append(float(m["metric"]))
                 _sync(dev)
@@ -212,6 +233,12 @@ def train_seq(args, log=print) -> SeqResult:
                     log(f"step {it}: loss={losses[-1]:.4f} "
                         f"acc={metrics[-1]:.3f} ({(time.perf_counter() - t_start) / it * 1e3:.0f} ms/step)",
                         flush=True)
+                    if obs is not None and obs.enabled:
+                        store.publish_counters()
+                        stale = probe.observe(store, state.table, it)
+                        if obs.should_tick(it // args.log_every - 1):
+                            obs.tick(step=it, loss=losses[-1],
+                                     staleness=stale)
                 if it >= args.steps:
                     break
         # surface any failed write-back before reporting success
@@ -275,8 +302,10 @@ def lm_step(model, params, opt, opt_state, tokens, frames=None):
     return opt_state, loss.detach()
 
 
-def train_lm(args, log=print) -> SeqResult:
-    """``--track lm`` (``src/repro/launch/train.py:143-178``)."""
+def train_lm(args, log=print, obs=None) -> SeqResult:
+    """``--track lm`` (``src/repro/launch/train.py:143-178``).  With
+    ``obs``, every ``--log-every`` steps tick the stream with the loss
+    (the track has no table to probe)."""
     model, data, params, opt, opt_state = lm_setup(args)
     dev = model.device
     rng = np.random.default_rng(args.seed)
@@ -288,8 +317,9 @@ def train_lm(args, log=print) -> SeqResult:
         tokens = torch.from_numpy(data[ids]).to(dev)
         frames = stub_frames(model.cfg, (args.batch_size,), args.seed, it,
                              dev)
-        opt_state, loss = lm_step(model, params, opt, opt_state, tokens,
-                                  frames)
+        with span("train.step", step=it):
+            opt_state, loss = lm_step(model, params, opt, opt_state, tokens,
+                                      frames)
         losses.append(float(loss))
         _sync(dev)
         times.append((time.perf_counter() - t0) * 1e3)
@@ -297,6 +327,9 @@ def train_lm(args, log=print) -> SeqResult:
             log(f"step {it + 1}: lm_loss={losses[-1]:.4f} "
                 f"({(time.perf_counter() - t_start) / (it + 1) * 1e3:.0f} "
                 "ms/step)", flush=True)
+            if obs is not None and obs.should_tick(
+                    (it + 1) // args.log_every - 1):
+                obs.tick(step=it + 1, loss=losses[-1])
     return SeqResult(losses, [], _median_ms(times), times, params)
 
 
@@ -353,22 +386,31 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None,
                     help="seq track: save the backbone and head here at the "
                          "end (checkpoint/io.py)")
+    add_obs_args(ap)
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.track == "graph":
-        return train_graph(args)
-    if args.track == "seq":
-        r = train_seq(args)
-    else:
-        r = train_lm(args)
-    print(f"[{args.track}/{args.arch}{' reduced' if args.reduced else ''}] "
-          f"{args.variant if args.track == 'seq' else 'lm'} on "
-          f"{args.device}: loss {r.losses[0]:.4f} -> {r.losses[-1]:.4f}, "
-          f"{r.ms_per_step:.1f} ms/step")
-    return r
+    obs = Obs.from_args(args, run="train", track=args.track,
+                        variant=args.variant)
+    try:
+        if args.track == "graph":
+            r = train_graph(args, obs)
+        else:
+            r = (train_seq if args.track == "seq" else train_lm)(
+                args, obs=obs)
+            print(f"[{args.track}/{args.arch}"
+                  f"{' reduced' if args.reduced else ''}] "
+                  f"{args.variant if args.track == 'seq' else 'lm'} on "
+                  f"{args.device}: loss {r.losses[0]:.4f} -> "
+                  f"{r.losses[-1]:.4f}, {r.ms_per_step:.1f} ms/step")
+        rec = obs.close()
+        for line in summary_lines(rec) if rec is not None else ():
+            print(line)
+        return r
+    finally:
+        obs.close()
 
 
 if __name__ == "__main__":

@@ -50,8 +50,21 @@ patch buckets (default: planned over the train schedules).  Refresh,
 finetune and eval stay inline.
 
 Each epoch prints its last loss, the feeder's host-blocked time and the
-exchange traffic one shard sent, from the comm's counters.  The telemetry
-flags are not parsed.
+exchange traffic one shard sent, from the comm's counters.
+
+Telemetry (``repro_torch.obs``, the flags of ``add_obs_args``) as in
+``src/repro/launch/train_dist.py``: ``train.commit`` and ``train.step``
+spans; once a train step, from the main loop (not the shard threads),
+``exchange.bytes.<strategy>.<dtype>`` += the modelled bytes of a step and
+shard, and on the prefetch lane ``exchange.prefetch.*`` with the step's
+patched rows; each epoch the store's counters, a staleness probe of the
+whole table and a tick; at the end ``store.wb_skip_rate`` and the summary
+(``wall_s``, ``train_metric``).  Telemetry of a ``torchrun`` run (one
+shard a process) is not ported and raises.
+
+    PYTHONPATH=src python -m repro_torch.launch.train_dist --device cpu \
+        --devices 2 --exchange ring --payload-dtype int8 --epochs 2 \
+        --finetune-epochs 1 --metrics-out d.jsonl --trace-out d_trace.json
 """
 from __future__ import annotations
 
@@ -75,6 +88,10 @@ from repro_torch.dist.table import rows_per_shard
 from repro_torch.graphs import data as D
 from repro_torch.graphs.experiment import epoch_generator
 from repro_torch.graphs.gnn import GNNConfig, gnn_init, make_encode_fn
+from repro_torch.obs import (Obs, StalenessProbe, add_obs_args,
+                             record_exchange_bytes, record_prefetch_exchange,
+                             span)
+from repro_torch.obs.export import summary_lines
 from repro_torch.optim import make_optimizer
 
 
@@ -187,6 +204,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stale-forecast", action="store_true",
                     help="extrapolate stale host-tier rows on fault-in "
                          "under --table-device-rows (store/forecast.py)")
+    add_obs_args(ap)
     return ap
 
 
@@ -377,9 +395,22 @@ def setup(args) -> DistSetup:
 
 
 def run(args, log=print) -> DistResult:
+    if "WORLD_SIZE" in os.environ and any(getattr(args, k, None) for k in (
+            "metrics", "metrics_out", "trace_out")):
+        raise NotImplementedError(
+            "telemetry of a torchrun run (one shard a process) is not "
+            "ported: run the shards as threads (--devices) for a stream")
     s = setup(args)
     try:
-        return _run(s, log)
+        obs = Obs.from_args(args, run="train_dist", variant=args.variant,
+                            devices=s.ctx.num_shards,
+                            exchange=s.ctx.exchange,
+                            payload_dtype=s.step.exchanges[0].payload_dtype,
+                            epochs=args.epochs, batch_size=args.batch_size)
+        try:
+            return _run(s, log, obs)
+        finally:
+            obs.close()
     finally:
         s.store.close()   # stops a tiered store's write-back thread
 
@@ -396,7 +427,7 @@ def _store_line(store) -> str:
             f"occupancy {st['occupancy']}{gate}")
 
 
-def _run(s: DistSetup, log) -> DistResult:
+def _run(s: DistSetup, log, obs) -> DistResult:
     args, ctx, ds, step, states = s.args, s.ctx, s.ds, s.step, s.states
     if ctx.local_ranks[0] != 0:
         log = lambda *a, **k: None            # noqa: E731  (rank 0 prints)
@@ -421,6 +452,11 @@ def _run(s: DistSetup, log) -> DistResult:
     def tables():
         return [st.table for st in states]
 
+    probe = StalenessProbe(keep_prob=args.keep_prob,
+                           num_sampled=args.num_sampled,
+                           seg_valid=ds.seg_valid,
+                           sed_decay=args.sed_age_weighting,
+                           forecast=args.stale_forecast)
     comm0 = ctx.group.comms[0]
     t_start = time.perf_counter()
     iter_times, epoch_losses, epoch_bytes = [], [], []
@@ -434,7 +470,7 @@ def _run(s: DistSetup, log) -> DistResult:
         sent0 = comm0.exchange_bytes
         if prefetch:
             states, loss, stats, rows = run_epoch_prefetch(
-                s, states, feeder, gens, sync, iter_times)
+                s, states, feeder, gens, sync, iter_times, epoch)
             patched_rows += rows
         else:
             loss = None
@@ -442,10 +478,14 @@ def _run(s: DistSetup, log) -> DistResult:
                 # the timed region includes the tier migration's commit:
                 # it is part of a capped table's step cost
                 t0 = time.perf_counter()
-                states, batches = s.commit(states, item)
-                states, m = step(states, batches, gens)
+                with span("train.commit"):
+                    states, batches = s.commit(states, item)
+                with span("train.step", epoch=epoch):
+                    states, m = step(states, batches, gens)
                 sync()
                 iter_times.append(time.perf_counter() - t0)
+                record_exchange_bytes(ctx.exchange, ex.payload_dtype,
+                                      step_bytes)
                 loss = m["loss"]
             stats = feeder.stats
         epoch_losses.append(float(loss))
@@ -458,6 +498,26 @@ def _run(s: DistSetup, log) -> DistResult:
         # resident rows rewritten this epoch re-report their device ages to
         # the eviction bookkeeping (no-op under plain LRU)
         s.store.refresh_ages(tables())
+        if obs.enabled:
+            # per-epoch rates (the registry's delta()) and a staleness
+            # probe of the whole table
+            s.store.publish_counters()
+            stale = probe.observe(s.store, tables(), s.hint)
+            d = None
+            if obs.exporter is None:
+                d = obs.registry.delta()
+            elif obs.should_tick(epoch):
+                d = obs.tick(step=s.hint, epoch=epoch,
+                             loss=epoch_losses[-1], staleness=stale)["delta"]
+            if d is not None:
+                exch = sum(v for k, v in d.items()
+                           if k.startswith("exchange.bytes."))
+                log(f"  obs epoch {epoch}: faults "
+                    f"{d.get('store.faults', 0):.0f} evictions "
+                    f"{d.get('store.evictions', 0):.0f} exch KiB "
+                    f"{exch / 1024:.1f} row-age p99 "
+                    f"{stale['row_age_steps']['p99']:.0f} steps sed-drop "
+                    f"{stale['sed_drop_rate']:.3f}", flush=True)
     train_steps = states[0].step
     if tiered:
         log(f"  {_store_line(s.store)}", flush=True)
@@ -499,6 +559,12 @@ def _run(s: DistSetup, log) -> DistResult:
         f"host blocked {blocked:.2f} ms/batch ({args.feeder})", flush=True)
     if tiered:
         log(f"  {_store_line(s.store)}", flush=True)
+    if obs.enabled:
+        s.store.publish_counters()
+        probe.observe_store_counters(s.store.counters.as_dict())
+    rec = obs.close(wall_s=wall, train_metric=train_metric)
+    for line in summary_lines(rec) if rec is not None else ():
+        log(line, flush=True)
     ms = (float(np.median(iter_times[3:]) * 1e3) if len(iter_times) > 4
           else float("nan"))
     return DistResult(cap=s.cap,
@@ -514,7 +580,7 @@ def _run(s: DistSetup, log) -> DistResult:
 
 
 def run_epoch_prefetch(s: DistSetup, states, feeder, gens, sync,
-                       iter_times):
+                       iter_times, epoch: int = 0):
     """One train epoch through the prefetch lane
     (``src/repro/launch/train_dist.py:340-410``): the lane pulls item k+1
     before step k and dispatches it (commit its migration, then issue its
@@ -525,16 +591,19 @@ def run_epoch_prefetch(s: DistSetup, states, feeder, gens, sync,
     yields items of ``s.put_pinned``.  Each step's pins are released after
     it.  A variant without the table issues no lookup (the reference's lane
     issues one that its step never reads; its bytes model counts none).
+    Each step records its exchange telemetry (``epoch`` tags its span).
     Returns (states, the last loss, the feeder's stats, the write rows with
     a consumer)."""
     ctx, args = s.ctx, s.args
     D, dev = ctx.num_shards, ctx.device
     bucketed = ctx.exchange == "bucketed"
+    payload_dtype = s.step.exchanges[0].payload_dtype
     box = {"states": states}
     lookup = DT.make_prefetch_lookup(ctx)
 
     def dispatch(item):
-        box["states"], batches = s.commit(box["states"], item)
+        with span("train.commit"):
+            box["states"], batches = s.commit(box["states"], item)
         if not s.variant.use_table:
             return [None] * len(batches)
         return lookup([st.table for st in box["states"]],
@@ -548,11 +617,11 @@ def run_epoch_prefetch(s: DistSetup, states, feeder, gens, sync,
     for (prep, batches), cur_h, nxt, nxt_h in lane:
         if pref is None:
             pref = cur_h         # the first batch: nothing patched it yet
-        dest = None
+        dest, step_rows = None, 0
         if nxt is not None:
             nprep, nbatches = nxt
             next_ids, next_pair = [b.graph_ids for b in nbatches], nxt_h
-            rows += int(np.isin(prep.slots, nprep.slots).sum())
+            step_rows = int(np.isin(prep.slots, nprep.slots).sum())
             if bucketed:
                 dest = EXC.consumer_shards(prep.slots, nprep.slots,
                                            num_shards=D, rows=ctx.table_rows)
@@ -567,16 +636,24 @@ def run_epoch_prefetch(s: DistSetup, states, feeder, gens, sync,
                                       device=dev)) for _ in ctx.local_ranks]
             if bucketed:
                 dest = np.full((args.batch_size,), D, np.int32)
-        states, m, pref = s.step(box["states"], batches, gens, None, pref,
-                                 next_pair, next_ids,
-                                 None if dest is None
-                                 else DT.shard_rows(ctx, dest))
+        with span("train.step", epoch=epoch):
+            states, m, pref = s.step(box["states"], batches, gens, None,
+                                     pref, next_pair, next_ids,
+                                     None if dest is None
+                                     else DT.shard_rows(ctx, dest))
         box["states"] = states
         s.store.release(prep)
         sync()
         t1 = time.perf_counter()
         iter_times.append(t1 - t0)      # the step and the next dispatch
         t0 = t1
+        rows += step_rows
+        # exchange.bytes.* stays the run's total-traffic family (the lane
+        # moves the same bytes earlier; bucketed adds its patch hop),
+        # exchange.prefetch.* is the lane's own
+        record_exchange_bytes(ctx.exchange, payload_dtype, s.pxbytes)
+        record_prefetch_exchange(ctx.exchange, payload_dtype, s.pxbytes,
+                                 step_rows)
         loss = m["loss"]
     return box["states"], loss, lane.stats, rows
 

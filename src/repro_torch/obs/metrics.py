@@ -1,19 +1,44 @@
-"""Metrics registry of the port — counters and fixed-bucket histograms.
+"""Process-wide metrics registry of the port: counters, gauges and
+fixed-bucket histograms.
 
-Counterpart of ``src/repro/obs/metrics.py``, cut to what the serving engine
-uses: ``Histogram``, ``summarize``, the bucket ladders, and the process-wide
-registry (a no-op ``NullRegistry`` until someone enables metrics) that the
-engine, the cache, the store and the distributed trainer's prefetch lane
-(the counters ``feeder.prefetch_batches`` and
-``feeder.prefetch_dispatch_ms``) publish to.  Host-side only; every
-mutation takes the registry's lock.  Gauges, ``delta()`` and the JSONL
-export land with the telemetry slice.
+Counterpart of ``src/repro/obs/metrics.py``, with the same names, units,
+buckets and summaries, so a stream the port writes reads like the JAX
+package's.  One telemetry spine for every subsystem: the store, the
+exchange, the feeders and the serve engine all publish through ONE
+registry under hierarchical dotted names (``store.faults``,
+``exchange.bytes.ring.f32``, ``serve.latency_ms``), so a run's residency
+traffic, wire bytes and latency distributions come out of a single
+``snapshot()``.
+
+Design rules:
+
+* **Host-side only.**  Instrumented code records host values it already
+  holds (counts, host clocks) around the steps; what has to read the
+  device (the staleness probe's ages) runs only while a live registry is
+  installed, once an epoch or a window, so telemetry changes no step.
+* **The disabled path is a no-op.**  The module-global registry defaults
+  to :class:`NullRegistry`, whose record methods are empty and whose
+  metric handles are shared no-op singletons — code can call
+  ``get_registry().inc("store.faults")`` unconditionally.
+* **Thread-safe.**  The store's begin() runs on the feeder thread,
+  write-backs land on the AsyncHostWriter thread, and the consumer reads
+  snapshots — every mutation takes the registry's lock (one lock: these
+  are per-batch events, not per-element ones).
+* **Cumulative counters + ``delta()``.**  Counters never self-reset;
+  per-interval rates (a per-epoch fault count, a per-window hit-rate)
+  come from ``delta()``, which diffs against the previous ``delta()``
+  call.
+
+``summarize()`` is the one percentile/latency-summary implementation: it
+accepts a :class:`Histogram` (p50/p99 interpolated from the buckets —
+O(buckets) memory no matter how long the replay) or a plain value
+sequence.
 """
 from __future__ import annotations
 
 import threading
 from bisect import bisect_left
-from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -35,6 +60,7 @@ def exponential_buckets(start: float, factor: float, count: int) -> Tuple[float,
 LATENCY_BUCKETS_MS = exponential_buckets(0.1, 2.0, 20)
 # 1 .. ~5e5 steps in x2 steps — row ages / prediction staleness in steps
 AGE_BUCKETS_STEPS = exponential_buckets(1.0, 2.0, 20)
+BYTES_BUCKETS = exponential_buckets(64.0, 4.0, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -57,6 +83,31 @@ class Counter:
     def inc(self, v: float = 1.0) -> None:
         with self._lock:
             self._value += v
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def snapshot(self) -> Dict:
+        return {"type": self.kind, "unit": self.unit, "value": self.value}
+
+
+class Gauge:
+    """Last-write-wins instantaneous value (occupancy, queue depth)."""
+
+    __slots__ = ("name", "unit", "_lock", "_value")
+    kind = "gauge"
+
+    def __init__(self, name: str, unit: str = "", lock: Optional[threading.Lock] = None):
+        self.name = name
+        self.unit = unit
+        self._lock = lock or threading.Lock()
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
 
     @property
     def value(self) -> float:
@@ -167,7 +218,7 @@ class Histogram:
             }
 
 
-Metric = Union[Counter, Histogram]
+Metric = Union[Counter, Gauge, Histogram]
 
 
 # ---------------------------------------------------------------------------
@@ -176,13 +227,14 @@ Metric = Union[Counter, Histogram]
 
 
 class MetricsRegistry:
-    """Get-or-create metric handles by dotted name + snapshot/reset."""
+    """Get-or-create metric handles by dotted name + snapshot/delta/reset."""
 
     enabled = True
 
     def __init__(self):
         self._lock = threading.Lock()
         self._metrics: Dict[str, Metric] = {}
+        self._delta_mark: Dict[str, float] = {}
 
     # -- handles -----------------------------------------------------------
 
@@ -199,6 +251,9 @@ class MetricsRegistry:
     def counter(self, name: str, unit: str = "") -> Counter:
         return self._get_or_create(name, Counter, unit=unit)
 
+    def gauge(self, name: str, unit: str = "") -> Gauge:
+        return self._get_or_create(name, Gauge, unit=unit)
+
     def histogram(self, name: str, buckets: Sequence[float] = LATENCY_BUCKETS_MS,
                   unit: str = "") -> Histogram:
         return self._get_or_create(name, Histogram, buckets=buckets, unit=unit)
@@ -208,6 +263,9 @@ class MetricsRegistry:
     def inc(self, name: str, v: float = 1.0, unit: str = "") -> None:
         self.counter(name, unit=unit).inc(v)
 
+    def set(self, name: str, v: float, unit: str = "") -> None:
+        self.gauge(name, unit=unit).set(v)
+
     def observe(self, name: str, v: float,
                 buckets: Sequence[float] = LATENCY_BUCKETS_MS,
                 unit: str = "") -> None:
@@ -215,19 +273,64 @@ class MetricsRegistry:
 
     # -- views -------------------------------------------------------------
 
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._metrics)
+
+    def get(self, name: str) -> Optional[Metric]:
+        with self._lock:
+            return self._metrics.get(name)
+
     def snapshot(self) -> Dict[str, Dict]:
         with self._lock:
             metrics = dict(self._metrics)
         return {name: m.snapshot() for name, m in sorted(metrics.items())}
 
+    def delta(self) -> Dict[str, float]:
+        """Per-interval change since the PREVIOUS delta() call: counters
+        diff their cumulative value, histograms diff their observation
+        count (``<name>.count``) and sum (``<name>.sum``), gauges report
+        their current value.  This is the primitive every per-epoch /
+        per-window rate print goes through — cumulative counters stop
+        masquerading as rates."""
+        out: Dict[str, float] = {}
+        with self._lock:
+            metrics = dict(self._metrics)
+        for name, m in sorted(metrics.items()):
+            if isinstance(m, Counter):
+                cur = m.value
+                out[name] = cur - self._delta_mark.get(name, 0.0)
+                self._delta_mark[name] = cur
+            elif isinstance(m, Gauge):
+                out[name] = m.value
+            else:
+                snap = m.snapshot()
+                for part in ("count", "sum"):
+                    key = f"{name}.{part}"
+                    cur = float(snap[part])
+                    out[key] = cur - self._delta_mark.get(key, 0.0)
+                    self._delta_mark[key] = cur
+        return out
+
     def reset(self) -> None:
-        """Drop every metric (a fresh run phase)."""
+        """Drop every metric AND the delta marks (a fresh run phase)."""
         with self._lock:
             self._metrics.clear()
+            self._delta_mark.clear()
+
+    def summary(self) -> Dict[str, object]:
+        """Flat report-grade dict: counters/gauges -> value, histograms ->
+        summarize() dict.  This is what the BENCH_*.json writers merge."""
+        out: Dict[str, object] = {}
+        with self._lock:
+            metrics = dict(self._metrics)
+        for name, m in sorted(metrics.items()):
+            out[name] = summarize(m) if isinstance(m, Histogram) else m.value
+        return out
 
 
 class _NullMetric:
-    """Shared do-nothing handle: inc/observe are no-ops, reads zero."""
+    """Shared do-nothing handle: inc/set/observe all no-ops, reads zero."""
 
     __slots__ = ()
     name = ""
@@ -237,6 +340,9 @@ class _NullMetric:
     mean = 0.0
 
     def inc(self, v: float = 1.0) -> None:
+        pass
+
+    def set(self, v: float) -> None:
         pass
 
     def observe(self, v: float) -> None:
@@ -268,21 +374,39 @@ class NullRegistry(MetricsRegistry):
     def counter(self, name: str, unit: str = ""):
         return _NULL_METRIC
 
+    def gauge(self, name: str, unit: str = ""):
+        return _NULL_METRIC
+
     def histogram(self, name: str, buckets=LATENCY_BUCKETS_MS, unit: str = ""):
         return _NULL_METRIC
 
     def inc(self, name: str, v: float = 1.0, unit: str = "") -> None:
         pass
 
+    def set(self, name: str, v: float, unit: str = "") -> None:
+        pass
+
     def observe(self, name: str, v: float, buckets=LATENCY_BUCKETS_MS,
                 unit: str = "") -> None:
         pass
 
+    def names(self) -> List[str]:
+        return []
+
+    def get(self, name: str):
+        return None
+
     def snapshot(self) -> Dict[str, Dict]:
+        return {}
+
+    def delta(self) -> Dict[str, float]:
         return {}
 
     def reset(self) -> None:
         pass
+
+    def summary(self) -> Dict[str, object]:
+        return {}
 
 
 _NULL_REGISTRY = NullRegistry()
@@ -304,8 +428,12 @@ def set_registry(registry: MetricsRegistry) -> MetricsRegistry:
     return prev
 
 
+def null_registry() -> NullRegistry:
+    return _NULL_REGISTRY
+
+
 def enable_metrics() -> MetricsRegistry:
-    """Install and return a fresh live registry."""
+    """Install and return a fresh live registry (the --metrics path)."""
     reg = MetricsRegistry()
     set_registry(reg)
     return reg
@@ -346,3 +474,19 @@ def summarize(data: Union[Histogram, Iterable[float]],
 
 def _fmt_q(q: float) -> str:
     return str(int(q)) if float(q).is_integer() else str(q).replace(".", "_")
+
+
+def dict_delta(cur: Dict, prev: Optional[Dict]) -> Dict:
+    """Numeric diff of two flat stat dicts (non-numeric keys pass through
+    from ``cur``) — the per-interval view of a cumulative counter dict,
+    for code still reading the legacy dict accessors."""
+    if prev is None:
+        return dict(cur)
+    out = {}
+    for k, v in cur.items():
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            out[k] = v
+        else:
+            p = prev.get(k, 0)
+            out[k] = v - p if isinstance(p, (int, float)) else v
+    return out

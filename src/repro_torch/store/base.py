@@ -348,9 +348,11 @@ class DeviceStore(EmbeddingStore):
         return table if single else [table]
 
     def ages_init(self, tables):
-        (table,), _ = shard_tables(tables)
-        return (table.age[:self.n_rows].cpu().numpy(),
-                table.initialized[:self.n_rows].cpu().numpy())
+        tables, _ = shard_tables(tables)
+        if len(tables) != self.num_shards:
+            raise ValueError("ages_init needs every shard's table")
+        return tuple(torch.cat([getattr(t, k).cpu() for t in tables])
+                     [:self.n_rows].numpy() for k in ("age", "initialized"))
 
     def occupancy(self) -> int:
         return min(self.n_rows, self.device_rows)

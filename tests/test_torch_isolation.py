@@ -37,7 +37,10 @@ def test_importing_every_port_module_pulls_in_no_jax():
             "repro_torch.models.common", "repro_torch.models.blocks",
             "repro_torch.models.transformer", "repro_torch.models.registry",
             "repro_torch.launch.serve", "repro_torch.data",
-            "repro_torch.data.tokens"} <= set(mods)
+            "repro_torch.data.tokens", "repro_torch.obs",
+            "repro_torch.obs.export", "repro_torch.obs.gate",
+            "repro_torch.obs.staleness", "repro_torch.obs.bench_diff"
+            } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

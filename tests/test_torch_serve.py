@@ -150,7 +150,13 @@ def test_metrics_and_spans_match_jax(tmp_path):
     assert names == {"serve.window", "serve.partition", "serve.encode",
                      "serve.insert", "serve.gather", "serve.head"}
     out = json.loads(open(tracer.export(str(tmp_path / "t.json"))).read())
-    assert len(out["traceEvents"]) == len(tracer.events())
+    # the export adds one thread-name metadata ("M") event a thread seen,
+    # as the reference's does
+    spans = [ev for ev in out["traceEvents"] if ev["ph"] != "M"]
+    meta = [ev for ev in out["traceEvents"] if ev["ph"] == "M"]
+    assert len(spans) == len(tracer.events())
+    assert [ev["name"] for ev in meta] == ["thread_name"] * len(
+        {ev["tid"] for ev in spans})
 
 
 def test_full_hit_request_adds_no_encode_and_is_bit_identical():

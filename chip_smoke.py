@@ -142,6 +142,22 @@ fails the run (none catches its own):
                 with --torch-trace-annotations: a train.step range a
                 step.  ms_per_iter and p50 / p99 of every turn.  Streams
                 and traces under chiprun_out/telemetry/
+ 8a'. memory    the memory probe and the constant-memory sweep
+                (repro_torch.obs.memory_sweep), kernels on: (m1) the
+                reference's geometry (hidden 32, max_seg_nodes 32, batch
+                4, comm 2-16): allocator records, repro_torch.obs.gate's
+                verdict printed, full x >= 2.0, streaming flat and at or
+                above its bound, GST's ratio recorded; (m2) the repo's
+                full width (hidden 64, max_seg_nodes 64, batch 8, comm
+                4-512, J up to ~700): every point's temp and peak, GST
+                below full at every point and its bytes a segment at most
+                1/100 of full's, streaming flat; where GST grows past
+                1.25, the blocks live at its step's peak from the
+                allocator's history; (m3) --mem-probe on (a) at 2 epochs,
+                a 2-shard train_dist and the sage replay: bitwise the run
+                without and launches equal, every reference site reached
+                in allocator mode, gate --expect-mem exits 0.  Files
+                under chiprun_out/memory/
  8b. seq_train  internlm2-1.8b at full width and depth (f32, random),
                 launch.train: (a) --track seq gst_efd, kernels, batch 8
                 x J 8 x 64 tokens, 64 documents, 3 steps: sed_pool once
@@ -188,8 +204,9 @@ fails the run (none catches its own):
                 layer at B 2: ms a call, launches, device busy time
  12. kernels    one JSON line: per kernel, launches on the main path
                 (serving, training, distributed training, dist_prefetch,
-                the store's (a), (c) and (d), telemetry, seq_train,
-                seq_serve and seq_families),
+                the store's (a), (c) and (d), telemetry, memory, seq_train,
+                seq_serve and seq_families; the memory phase's apart in
+                launches_by_path for B1, its backward and sed_pool),
                 error, times and bound
 
     python3 chip_smoke.py --turns PARENT_DIR
@@ -209,6 +226,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -272,6 +290,11 @@ PREFETCH_OVERLAP_STEPS = 4            # (h'): batches of one row set
 # the telemetry phase's streams and traces (inside the checkout, ignored
 # by git)
 TELEMETRY_DIR = ROOT / "chiprun_out" / "telemetry"
+# the memory phase: the sweep's files and the --mem-probe streams; the
+# gate's bounds (--mem-growth-floor 2.0, 1 + --mem-epsilon 1.25), and
+# (m2)'s bar on GST's bytes a segment: at most 1/100 of full's
+MEMORY_DIR = ROOT / "chiprun_out" / "memory"
+MEM_GROWTH_FLOOR, GST_FLAT_BOUND, MEM_SLOPE_RATIO = 2.0, 1.25, 100
 QUANT_STRESS = (8192, 1280)             # 40 MiB of f32 rows
 # (R, N, element offset of x and v in their buffers) edge cases: one row,
 # N not a multiple of 32, a wide ragged row, rows with NaN of both signs,
@@ -2085,6 +2108,257 @@ def phase_telemetry(torch, dev):
     return main_launches, out
 
 
+def peak_blocks(torch, fn, dev, plane_bytes, top=8):
+    """The blocks live on the card at the peak of one call of ``fn``, from
+    the allocator's history (``torch.cuda.memory._snapshot()``'s trace of
+    allocs and completed frees since recording began): the ``top``
+    largest groups by the innermost repro_torch frame that allocated
+    them, as (bytes, blocks, bytes / ``plane_bytes``, frame)."""
+    import inspect
+
+    record = torch.cuda.memory._record_memory_history
+    # an earlier recording's trace must not count (clear_history where
+    # this torch has it)
+    clear = ({"clear_history": True} if "clear_history"
+             in inspect.signature(record).parameters else {})
+    torch.cuda.synchronize(dev)
+    record(stacks="python", max_entries=2_000_000, **clear)
+    try:
+        fn()
+        torch.cuda.synchronize(dev)
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        record(enabled=None)
+    live, cur, best, at_peak = {}, 0, -1, {}
+    for ev in snap["device_traces"][dev.index]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = ev
+            cur += ev["size"]
+            if cur > best:
+                best, at_peak = cur, dict(live)
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            cur -= live.pop(ev["addr"])["size"]
+    groups = {}
+    for ev in at_peak.values():
+        frame = next((f"{Path(f['filename']).name}:{f['line']} {f['name']}"
+                      for f in ev.get("frames", [])
+                      if "repro_torch" in f["filename"]), "(no port frame)")
+        size, n = groups.get(frame, (0, 0))
+        groups[frame] = (size + ev["size"], n + 1)
+    rows = sorted(((b, n, round(b / plane_bytes, 2), f)
+                   for f, (b, n) in groups.items()), reverse=True)
+    return best, rows[:top]
+
+
+def sweep_records(entry):
+    return (entry["gst_step"] + entry["full_step"] + entry["streaming"]
+            + entry["ladder"]["buckets"])
+
+
+def sweep_slope(points):
+    """Temp bytes a segment added across the sweep (first to last point)."""
+    return ((points[-1]["temp_bytes"] - points[0]["temp_bytes"])
+            / (points[-1]["j_max"] - points[0]["j_max"]))
+
+
+def gst_peak_report(torch, dev, label, geo, comm):
+    """Where GST's step holds its bytes at ``comm`` (the sweep's largest
+    point): the live blocks at its peak, each beside the (B, J, 4 B)
+    plane of that point."""
+    from repro_torch.obs import memory_sweep as MS
+
+    _, ds, tup, meta = MS.make_point(comm, n_graphs=geo["n_graphs"],
+                                     max_seg_nodes=geo["max_seg_nodes"],
+                                     batch_size=geo["batch_size"])
+    step, args = MS.train_leg(ds, tup, "gst_efd", hidden=geo["hidden"],
+                              dev=dev)
+    plane = geo["batch_size"] * meta["j_max"] * 4
+    best, rows = peak_blocks(torch, lambda: step(*args), dev, plane)
+    log(f"[memory] {label}: GST step at comm {comm} (J {meta['j_max']}): "
+        f"{best} B live at its peak above what was live before; the "
+        f"largest groups (bytes, blocks, bytes / (B x J x 4 B) = "
+        f"{plane}, allocating frame):")
+    for row in rows:
+        log(f"[memory]   {row}")
+    return {"comm": comm, "j_max": meta["j_max"], "peak_traced": best,
+            "plane_bytes": plane, "blocks": rows}
+
+
+def phase_memory(torch, dev):
+    """The memory probe and the constant-memory sweep on the card, kernels
+    on (the probe resets the card's peak counter: no other phase reads a
+    peak while it runs).  (m1) ``python -m repro_torch.obs.memory_sweep``
+    at the reference's geometry: every record in allocator mode, the
+    port's gate CLI's verdict printed, full x >= 2.0, streaming flat and
+    at or above its bound; GST's ratio recorded, and above 1.25 the live
+    blocks at its step's peak printed.  (m2) the same at the repo's full
+    width (J up to ~700): every point's temp and peak, the streaming
+    temps (within 1%, each at or above its bound), the ladder total; full
+    x >= 2.0, GST below full at every point, GST's bytes a segment at
+    most 1/100 of full's; GST's ratio and the live blocks at its peak
+    printed, the gate's 1.25 not run on this file.  (m3) --mem-probe on
+    (a)'s setup at 2 epochs (train), a 2-shard train_dist and the sage
+    replay: probe on = off bitwise with equal launches, every reference
+    site the run reaches recorded in allocator mode, and
+    repro_torch.obs.gate --expect-mem exits 0.  Returns (the launches,
+    each counted from 0, a summary)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_graphs, train, train_dist
+    from repro_torch.obs import gate
+    from repro_torch.obs import memory_sweep as MS
+
+    MEMORY_DIR.mkdir(parents=True, exist_ok=True)
+    launches, out = {}, {}
+
+    def count(fn):
+        """``fn()`` with its launches counted from 0 and added up."""
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        for k, v in launched(ops.kernel_launches()).items():
+            launches[k] = launches.get(k, 0) + v
+        return r
+
+    # (m1) and (m2): the sweep at both geometries
+    for tag, flags, geo in (("m1", [], MS.REFERENCE),
+                            ("m2", ["--full-width"], MS.FULL_WIDTH)):
+        path = MEMORY_DIR / f"{tag}_gst_memory.json"
+        t0 = time.perf_counter()
+        entry = count(lambda: MS.main(
+            ["--device", "cuda", "--out", str(path)] + flags,
+            log=lambda line: log(f"[memory] {tag}: {line}")))
+        seconds = time.perf_counter() - t0
+        modes = {r["mode"] for r in sweep_records(entry)}
+        ran = launched(ops.kernel_launches())
+        if modes != {"allocator"} or not all(ran.get(k) for k in (
+                "segment_spmm_batched", "segment_spmm_batched_bwd",
+                "sed_pool")):
+            raise AssertionError(f"[memory] {tag}: record modes {modes}, "
+                                 f"launches {ran}")
+        log(f"[memory] {tag}: launches {ran}")
+        s = entry["summary"]
+        gst, full = (s["gst_temp_ratio_max_over_min"],
+                     s["full_temp_ratio_max_over_min"])
+        stream = s["streaming_temp_ratio_max_over_min"]
+        if full < MEM_GROWTH_FLOOR or stream > 1.01 or \
+                not s["streaming_bound_ok"]:
+            raise AssertionError(f"[memory] {tag}: full x{full}, streaming "
+                                 f"x{stream}, bound ok "
+                                 f"{s['streaming_bound_ok']}")
+        for leg in ("gst_step", "full_step"):
+            log(f"[memory] {tag} {leg}: " + "; ".join(
+                f"comm {p['comm']} J {p['j_max']} temp {p['temp_bytes']} "
+                f"peak {p['peak_bytes']}" for p in entry[leg]))
+        log(f"[memory] {tag} streaming temps " + ", ".join(
+            f"{p['temp_bytes']} ({p['n_chunks']} chunks, bound "
+            f"{p['accounting_bound_bytes']})" for p in entry["streaming"])
+            + f"; ladder total {s['ladder_total_peak_bytes']} B")
+        res = {"summary": s, "seconds": seconds,
+               "gst_temp": [p["temp_bytes"] for p in entry["gst_step"]],
+               "full_temp": [p["temp_bytes"] for p in entry["full_step"]],
+               "j_max": [p["j_max"] for p in entry["gst_step"]]}
+        if tag == "m1":
+            verdict = subprocess.run(
+                [sys.executable, "-m", "repro_torch.obs.gate",
+                 "--memory-json", str(path)], cwd=ROOT, capture_output=True,
+                text=True, timeout=120,
+                env=dict(os.environ, PYTHONPATH=str(SRC)))
+            lines = (verdict.stdout + verdict.stderr).strip().splitlines()
+            log(f"[memory] m1: repro_torch.obs.gate --memory-json exit "
+                f"{verdict.returncode}: {lines[-1] if lines else ''}")
+            res["gate_rc"] = verdict.returncode
+        else:
+            slopes = {leg: sweep_slope(entry[leg + "_step"])
+                      for leg in ("gst", "full")}
+            below = all(g["temp_bytes"] < f["temp_bytes"] for g, f in
+                        zip(entry["gst_step"], entry["full_step"]))
+            if not below or slopes["gst"] * MEM_SLOPE_RATIO > slopes["full"]:
+                raise AssertionError(f"[memory] m2: GST below full at every "
+                                     f"point {below}, bytes a segment "
+                                     f"{slopes}")
+            log(f"[memory] m2: GST below full at every point; bytes a "
+                f"segment GST {slopes['gst']:.1f}, full "
+                f"{slopes['full']:.1f} (1/{slopes['full'] / slopes['gst']:.0f});"
+                f" the gate's 1.25 is not run on this file")
+            res["bytes_per_segment"] = slopes
+        log(f"[memory] {tag}: GST x{gst} (bound {GST_FLAT_BOUND} at the "
+            f"reference's geometry), full x{full}, streaming x{stream}, "
+            f"{seconds:.1f} s")
+        if gst > GST_FLAT_BOUND:
+            # m2 at the point before its last, whose data builds in half
+            # the host time
+            res["gst_peak"] = gst_peak_report(
+                torch, dev, tag, geo, geo["comms"][-1 if tag == "m1" else -2])
+        out[tag] = res
+
+    # (m3) --mem-probe on the three CLIs, off / on
+    base = DIST_ARGS[:DIST_ARGS.index("--epochs")]
+    cli_runs = {
+        "train": (lambda argv: train.main(
+            ["--track", "graph", "--device", "cuda", "--n-graphs", "80",
+             "--epochs", "2", "--finetune-epochs", "1"] + argv),
+            lambda a, b: (a.epoch_losses == b.epoch_losses
+                          and (a.train_metric, a.test_metric)
+                          == (b.train_metric, b.test_metric)
+                          and all(torch.equal(x, y)
+                                  for x, y in zip(a.table, b.table))),
+            {"train.step", "train.eval", "train.refresh", "train.finetune"},
+            "--train-jsonl"),
+        "train_dist": (lambda argv: train_dist.main(
+            base + PREFETCH_EPOCHS + ["--exchange", "ring",
+                                      "--payload-dtype", "int8",
+                                      "--devices", "2"] + argv),
+            lambda a, b: bitwise_run(torch, a, b),
+            {"dist.train_step", "dist.eval_step", "dist.refresh_step",
+             "dist.finetune_step"}, "--train-jsonl"),
+        "serve_graphs": (lambda argv: serve_graphs.main(
+            ["--device", "cuda"] + argv),
+            lambda a, b: all(a[k] == b[k] for k in (
+                "n_requests", "n_segments", "encode_launches",
+                "encoded_segments", "kernel_launches", "cache")),
+            {"serve.head", "serve.encode."}, "--serve-jsonl"),
+    }
+    out["m3"] = {}
+    for cli, (run, same, sites, stream) in cli_runs.items():
+        path = MEMORY_DIR / f"m3_{cli}.jsonl"
+        ops.reset_kernel_launches()
+        off = run([])
+        off_l = launched(ops.kernel_launches())
+        on = count(lambda: run(["--mem-probe", "--metrics-out", str(path)]))
+        on_l = launched(ops.kernel_launches())
+        if not (same(on, off) and on_l == off_l):
+            raise AssertionError(f"[memory] m3 {cli}: probe on differs from "
+                                 f"off ({on_l} vs {off_l} launches)")
+        records = [json.loads(x) for x in path.read_text().splitlines()]
+        (mem,) = [r for r in records if r.get("event") == "memory"]
+        got = {r["site"] for r in mem["records"]}
+        missing = [s for s in sites if not any(g.startswith(s) for g in got)]
+        modes = {r["mode"] for r in mem["records"]}
+        if missing or modes != {"allocator"}:
+            raise AssertionError(f"[memory] m3 {cli}: sites {sorted(got)} "
+                                 f"(missing {missing}), modes {modes}")
+        argv = [stream, str(path), "--expect-mem"] + (
+            ["--expect-dist"] if cli == "train_dist" else [])
+        if gate.main(argv) != 0:
+            raise AssertionError(f"[memory] m3 {cli}: the gate failed")
+        if cli == "serve_graphs":   # --expect-mem reads a train stream
+            names = records[-1]["metrics"]
+            for fam in gate.MEM_FAMILIES:
+                if not any(n.startswith(fam) for n in names):
+                    raise AssertionError(f"[memory] m3 serve: no {fam}")
+        by_site = {}
+        for r in mem["records"]:
+            t, c = by_site.get(r["site"], (0, 0))
+            by_site[r["site"]] = (max(t, r["temp_bytes"]), c + r["calls"])
+        log(f"[memory] m3 {cli} --mem-probe: bitwise the run without, "
+            f"launches equal; gate --expect-mem passed; (site: max temp B, "
+            f"calls) " + "; ".join(f"{k}: {t}, {c}"
+                                   for k, (t, c) in sorted(by_site.items())))
+        out["m3"][cli] = by_site
+    return launches, out
+
+
 def phase_store_migration(torch, dev):
     """(e) migrations at a table size users hold: MIGRATION_TABLE in a
     TieredStore with 10% of the rows on the card (host tier pinned).
@@ -3406,6 +3680,9 @@ def main() -> int:
     launches, telemetry = phase_telemetry(torch, dev)
     for k, v in launches.items():
         main_launches[k] = main_launches.get(k, 0) + v
+    memory_launches, memory = phase_memory(torch, dev)
+    for k, v in memory_launches.items():
+        main_launches[k] = main_launches.get(k, 0) + v
 
     profile = phase_profile(torch, dev)
     dist_profile = phase_dist_profile(torch)
@@ -3457,6 +3734,10 @@ def main() -> int:
         tc_bound_ms=swa_rows[SWA_HEADLINE]["tc_bound_ms"],
         fma_bound_ms=swa_rows[SWA_HEADLINE]["fma_bound_ms"],
         build=swa_build)
+    for k in kernels[:4]:
+        k["launches_by_path"] = {
+            "memory": memory_launches.get(k["name"], 0),
+            "the rest": k["launches"] - memory_launches.get(k["name"], 0)}
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
@@ -3465,6 +3746,7 @@ def main() -> int:
                     "dist_f32_epoch_losses": f32_losses,
                     "dist_prefetch": dist_prefetch, "seq_train": seq_train,
                     "store": store, "telemetry": telemetry,
+                    "memory": memory,
                     "dist_profile": dist_profile,
                     "dist_scaling_ms": dist_scaling, "seq_serve": seq_serve,
                     "seq_families": seq_families,

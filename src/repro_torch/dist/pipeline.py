@@ -30,6 +30,7 @@ import numpy as np
 
 from repro_torch.core import gst as G
 from repro_torch.graphs import batching as Bt
+from repro_torch.obs.memory import get_probe, tree_nbytes
 from repro_torch.obs.metrics import get_registry
 from repro_torch.obs.trace import span
 from repro_torch.serve.buckets import BucketSpec, choose_bucket, default_ladder
@@ -118,6 +119,9 @@ class SyncSegmentFeeder:
             t0 = time.perf_counter()
             with span("feeder.assemble", batch=len(ids)):
                 host = _assemble(self._ds, ids)
+            p = get_probe()
+            if p.enabled:
+                p.observe_host("feeder.staging", tree_nbytes(host))
             t1 = time.perf_counter()
             with span("feeder.put"):
                 dev = self._put(host)
@@ -172,6 +176,9 @@ class AsyncSegmentFeeder:
                 t1 = time.perf_counter()
                 with span("feeder.assemble", batch=len(ids)):
                     host = _assemble(self._ds, ids)
+                p = get_probe()
+                if p.enabled:
+                    p.observe_host("feeder.staging", tree_nbytes(host))
                 with span("feeder.put"):
                     dev = self._put(host)
                 self.stats.put_ms += (time.perf_counter() - t1) * 1e3

@@ -31,6 +31,11 @@ dispatch order, the port keeps one stream a card: the lookup is enqueued
 after the next batch's migration commit and before the step's in-place
 write.  The kernels run per shard unchanged: each shard hands them its
 (B/D)·S segments and they never see the other shards.
+
+Each top-level step is a memory-probe site (``dist.train_step``,
+``dist.prefetch_lookup``, ``dist.eval_step``, ``dist.refresh_step``,
+``dist.finetune_step``), its record the whole card's for the local
+shards; each shard runs through ``obs/memory.py::in_shard``.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from repro_torch.core import gst as G
 from repro_torch.dist import table as dtbl
 from repro_torch.dist.exchange import (EXCHANGES, PAYLOAD_DTYPES, Exchange,
                                        make_exchange)
+from repro_torch.obs.memory import in_shard, probe_call
 from repro_torch.store import (DeviceStore, EmbeddingStore, TieredStore,
                                device_rows_per_shard)
 
@@ -265,7 +271,8 @@ class _DistStep:
                                                    ctx.group.comms)]
 
     def _run(self, fn):
-        return self.ctx.group.run(lambda i, comm: fn(i, self.steps[i]))
+        return self.ctx.group.run(
+            lambda i, comm: in_shard(lambda: fn(i, self.steps[i])))
 
 
 def make_dist_train_step(encode_fn, optimizer, variant: G.GSTVariant, *,
@@ -352,8 +359,9 @@ def make_dist_train_step(encode_fn, optimizer, variant: G.GSTVariant, *,
             return [s for s, _, _ in out], out[0][1], [p for _, _, p in out]
 
     if ctx.prefetch:
-        return PrefetchedTrainStep(ctx, build_prefetched)
-    return TrainStep(ctx, build)
+        return probe_call("dist.train_step",
+                          PrefetchedTrainStep(ctx, build_prefetched))
+    return probe_call("dist.train_step", TrainStep(ctx, build))
 
 
 def make_prefetch_lookup(ctx: DistContext):
@@ -366,10 +374,10 @@ def make_prefetch_lookup(ctx: DistContext):
     exchanges = [make_shard_exchange(ctx, c) for c in ctx.group.comms]
 
     def fn(tables, ids):
-        return ctx.group.run(lambda i, comm: exchanges[i].prefetch_lookup(
-            tables[i], ids[i]))
+        return ctx.group.run(lambda i, comm: in_shard(
+            lambda: exchanges[i].prefetch_lookup(tables[i], ids[i])))
 
-    return fn
+    return probe_call("dist.prefetch_lookup", fn)
 
 
 def make_dist_eval_step(encode_fn, *, ctx: DistContext, **kwargs):
@@ -379,8 +387,9 @@ def make_dist_eval_step(encode_fn, *, ctx: DistContext, **kwargs):
         def __call__(self, states, batches):
             return self._run(lambda i, step: step(states[i], batches[i]))[0]
 
-    return EvalStep(ctx, lambda ex, comm: G.make_eval_step(
-        encode_fn, comm=comm, **kwargs))
+    return probe_call("dist.eval_step", EvalStep(
+        ctx, lambda ex, comm: G.make_eval_step(encode_fn, comm=comm,
+                                               **kwargs)))
 
 
 def make_dist_refresh_step(encode_fn, *, ctx: DistContext):
@@ -391,8 +400,9 @@ def make_dist_refresh_step(encode_fn, *, ctx: DistContext):
         def __call__(self, states, batches):
             return self._run(lambda i, step: step(states[i], batches[i]))
 
-    return RefreshStep(ctx, lambda ex, comm: G.make_refresh_step(
-        encode_fn, table_update_all=ex.update_all))
+    return probe_call("dist.refresh_step", RefreshStep(
+        ctx, lambda ex, comm: G.make_refresh_step(
+            encode_fn, table_update_all=ex.update_all)))
 
 
 def make_dist_finetune_step(optimizer, *, ctx: DistContext, **kwargs):
@@ -404,5 +414,6 @@ def make_dist_finetune_step(optimizer, *, ctx: DistContext, **kwargs):
             out = self._run(lambda i, step: step(states[i], batches[i]))
             return [s for s, _ in out], out[0][1]
 
-    return FinetuneStep(ctx, lambda ex, comm: G.make_finetune_step(
-        optimizer, table_lookup=ex.lookup, comm=comm, **kwargs))
+    return probe_call("dist.finetune_step", FinetuneStep(
+        ctx, lambda ex, comm: G.make_finetune_step(
+            optimizer, table_lookup=ex.lookup, comm=comm, **kwargs)))

@@ -18,6 +18,8 @@ while the write-back gate and the forecaster are off.  With ``obs`` (a
 ``repro_torch.obs.Obs``) each epoch ticks its stream, and while a live
 registry is installed each epoch publishes the store's counters and a
 staleness probe of the table (``src/repro/graphs/experiment.py:160-201``).
+The train, eval, refresh and finetune steps are the memory probe's
+``train.*`` sites (``obs/memory.py``).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from repro_torch.graphs import batching as Bt
 from repro_torch.graphs import data as D
 from repro_torch.graphs.gnn import GNNConfig, gnn_init, make_encode_fn
 from repro_torch.models.common import load_jax_params
-from repro_torch.obs import StalenessProbe, get_registry, span
+from repro_torch.obs import StalenessProbe, get_registry, probe_call, span
 from repro_torch.optim import make_optimizer
 from repro_torch.store import DeviceStore, TieredStore
 
@@ -183,13 +185,16 @@ def run_experiment(
     state = G.TrainState(bb, head, None, store.init_device_table(), 0)
     state = state._replace(opt_state=opt.init(G.train_params(state)))
 
-    step = G.make_train_step(
+    # each step is a memory-probe site (--mem-probe: the first call of
+    # each shape measured; one global read and a branch a call when off)
+    step = probe_call("train.step", G.make_train_step(
         enc, opt, var, num_sampled=num_sampled, keep_prob=keep_prob,
         head_mode=head_mode, loss_kind=loss_kind, agg=agg,
-        use_kernels=use_kernels, sed_decay=sed_age_weighting)
-    eval_step = G.make_eval_step(enc, head_mode=head_mode, loss_kind=loss_kind,
-                                 agg=agg, use_kernels=use_kernels)
-    refresh = G.make_refresh_step(enc)
+        use_kernels=use_kernels, sed_decay=sed_age_weighting))
+    eval_step = probe_call("train.eval", G.make_eval_step(
+        enc, head_mode=head_mode, loss_kind=loss_kind, agg=agg,
+        use_kernels=use_kernels))
+    refresh = probe_call("train.refresh", G.make_refresh_step(enc))
 
     def evaluate(ds_, st):
         ms, ws = [], []
@@ -267,9 +272,9 @@ def run_experiment(
             ft_opt = make_optimizer("adam", lr=lr * 0.5)
             state = state._replace(opt_state=ft_opt.init(
                 list(state.head.parameters())))
-            ft_step = G.make_finetune_step(
+            ft_step = probe_call("train.finetune", G.make_finetune_step(
                 ft_opt, head_mode=head_mode, loss_kind=loss_kind, agg=agg,
-                use_kernels=use_kernels)
+                use_kernels=use_kernels))
             for _ in range(finetune_epochs):
                 for tup in Bt.batch_iterator(ds, batch_size, rng=brng):
                     state, _ = ft_step(state, routed(tup))

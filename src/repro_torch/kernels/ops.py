@@ -89,6 +89,22 @@ def reset_kernel_launches() -> None:
         counts.reset()
 
 
+def max_intermediate_bytes(fn, *args, **kwargs) -> int:
+    """Bytes of the largest single buffer an op makes in one call of
+    ``fn(*args, **kwargs)`` (an output that is a view or an in-place
+    result makes none), counted by the memory probe's dispatch mode
+    (``obs/memory.py::LiveBytes``) in the calling thread.  Counterpart of
+    ``src/repro/kernels/ops.py::max_intermediate_bytes``: the streaming
+    encoder's stays flat as the chunk count grows, the one-shot
+    encoder's grows with the segment count."""
+    from repro_torch.obs.memory import LiveBytes
+
+    mode = LiveBytes()
+    with mode:
+        fn(*args, **kwargs)
+    return mode.largest
+
+
 def batched_neighbor_sum(h, src, dst, w, *, use_kernels: bool = True):
     """Batched weighted scatter-add over N segments in ONE kernel launch.
 

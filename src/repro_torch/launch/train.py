@@ -41,13 +41,15 @@ the encoder-decoder on these tracks (its encoder reads
 draws stub frames from the seed there.
 
 Telemetry (``repro_torch.obs``; ``--metrics``, ``--metrics-out``,
-``--metrics-interval``, ``--trace-out``, ``--torch-trace-annotations``):
-every track records a ``train.step`` span a step.  The graph track ticks
-the stream an epoch with the staleness probe
-(``src/repro/graphs/experiment.py``); ``--track seq`` ticks every
-``--log-every`` steps with the store's counters and the probe, ``--track
-lm`` (no table) with its loss.  Off, the registry and the tracer are the
-shared no-op ones.  ``--mem-probe`` raises (ROADMAP A3b).
+``--metrics-interval``, ``--trace-out``, ``--torch-trace-annotations``,
+``--mem-probe``), as the reference's tracks write it: the graph track
+ticks the stream every ``--metrics-interval`` epochs with the staleness
+probe (``src/repro/graphs/experiment.py``) and records a ``train.step``
+span a step; ``--track seq`` records the span and ticks at every
+``--log-every`` steps, whatever the interval, with the store's counters
+and the probe; ``--track lm`` writes neither span nor tick (the stream is
+``meta, summary``).  Off, the registry, the tracer and the memory probe
+are the shared no-op ones.
 
     PYTHONPATH=src python -m repro_torch.launch.train --track graph \
         --device cpu --epochs 3 --finetune-epochs 1 --n-graphs 48 \
@@ -236,9 +238,7 @@ def train_seq(args, log=print, obs=None) -> SeqResult:
                     if obs is not None and obs.enabled:
                         store.publish_counters()
                         stale = probe.observe(store, state.table, it)
-                        if obs.should_tick(it // args.log_every - 1):
-                            obs.tick(step=it, loss=losses[-1],
-                                     staleness=stale)
+                        obs.tick(step=it, loss=losses[-1], staleness=stale)
                 if it >= args.steps:
                     break
         # surface any failed write-back before reporting success
@@ -302,10 +302,9 @@ def lm_step(model, params, opt, opt_state, tokens, frames=None):
     return opt_state, loss.detach()
 
 
-def train_lm(args, log=print, obs=None) -> SeqResult:
-    """``--track lm`` (``src/repro/launch/train.py:143-178``).  With
-    ``obs``, every ``--log-every`` steps tick the stream with the loss
-    (the track has no table to probe)."""
+def train_lm(args, log=print) -> SeqResult:
+    """``--track lm`` (``src/repro/launch/train.py:143-178``); it writes no
+    telemetry of its own, as the reference's does not."""
     model, data, params, opt, opt_state = lm_setup(args)
     dev = model.device
     rng = np.random.default_rng(args.seed)
@@ -317,9 +316,8 @@ def train_lm(args, log=print, obs=None) -> SeqResult:
         tokens = torch.from_numpy(data[ids]).to(dev)
         frames = stub_frames(model.cfg, (args.batch_size,), args.seed, it,
                              dev)
-        with span("train.step", step=it):
-            opt_state, loss = lm_step(model, params, opt, opt_state, tokens,
-                                      frames)
+        opt_state, loss = lm_step(model, params, opt, opt_state, tokens,
+                                  frames)
         losses.append(float(loss))
         _sync(dev)
         times.append((time.perf_counter() - t0) * 1e3)
@@ -327,9 +325,6 @@ def train_lm(args, log=print, obs=None) -> SeqResult:
             log(f"step {it + 1}: lm_loss={losses[-1]:.4f} "
                 f"({(time.perf_counter() - t_start) / (it + 1) * 1e3:.0f} "
                 "ms/step)", flush=True)
-            if obs is not None and obs.should_tick(
-                    (it + 1) // args.log_every - 1):
-                obs.tick(step=it + 1, loss=losses[-1])
     return SeqResult(losses, [], _median_ms(times), times, params)
 
 
@@ -398,8 +393,8 @@ def main(argv=None):
         if args.track == "graph":
             r = train_graph(args, obs)
         else:
-            r = (train_seq if args.track == "seq" else train_lm)(
-                args, obs=obs)
+            r = (train_seq(args, obs=obs) if args.track == "seq"
+                 else train_lm(args))
             print(f"[{args.track}/{args.arch}"
                   f"{' reduced' if args.reduced else ''}] "
                   f"{args.variant if args.track == 'seq' else 'lm'} on "

@@ -1,9 +1,9 @@
 """Telemetry export of the port: periodic JSONL event log, final summaries,
 CLI glue.
 
-Counterpart of ``src/repro/obs/export.py`` without the memory probe
-(ROADMAP A3b): the same flags, stream schema and lifecycle, so the JAX
-package's gate reads a stream the port writes unchanged.  The three graph
+Counterpart of ``src/repro/obs/export.py``: the same flags, stream schema
+and lifecycle, so the JAX package's gate reads a stream the port writes
+unchanged.  The three graph
 CLIs (launch/train.py, launch/train_dist.py, launch/serve_graphs.py)
 share one flag set (``add_obs_args``) and one lifecycle object
 (:class:`Obs`):
@@ -22,6 +22,9 @@ JSONL stream format (one JSON object per line):
     {"type": "tick", "step": N, "wall_s": ..., "delta": {name: change},
      **extra}                          # delta() since the previous tick
     {"type": "event", "event": "...", **payload}
+                                       # --mem-probe: a "memory" event
+                                       # (MemoryProbe.snapshot()) just
+                                       # before the summary
     {"type": "summary", "wall_s": ..., "metrics": {name: value|summary},
      **extra}                          # cumulative, report-grade
 
@@ -38,6 +41,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.obs.memory import MemoryProbe, null_probe, set_probe
 from repro_torch.obs.metrics import (MetricsRegistry, null_registry,
                                      set_registry)
 from repro_torch.obs.trace import Tracer, null_tracer, set_tracer
@@ -69,8 +73,12 @@ def add_obs_args(ap) -> None:
                         "each span, so span names show up as ranges in a "
                         "torch.profiler trace; needs --trace-out")
     g.add_argument("--mem-probe", action="store_true",
-                   help="per-site device memory records: not ported yet "
-                        "(ROADMAP A3b); raises NotImplementedError")
+                   help="measure device memory at every probed site "
+                        "(train/dist steps, serve encode buckets, the "
+                        "store's migrations) on the first call of each "
+                        "shape: mem.device.* gauges and a memory event "
+                        "before the summary; implies --metrics.  Resets "
+                        "the card's peak-memory counter")
 
 
 class JsonlExporter:
@@ -167,10 +175,6 @@ class Obs:
                  annotations: bool = False,
                  mem_probe: bool = False,
                  install: bool = True):
-        if mem_probe:
-            raise NotImplementedError(
-                "--mem-probe is not ported yet: the port's per-site device "
-                "memory records are ROADMAP A3b")
         if int(metrics_interval) != 1 and not metrics_out:
             raise ValueError("--metrics-interval spaces the ticks "
                              "--metrics-out writes: pass --metrics-out too")
@@ -178,7 +182,9 @@ class Obs:
             raise ValueError("--torch-trace-annotations enters "
                              "record_function in the spans --trace-out "
                              "records: pass --trace-out too")
-        self.enabled = bool(metrics or metrics_out)
+        # --mem-probe implies a live registry: the probe's gauges need
+        # somewhere to land even without --metrics
+        self.enabled = bool(metrics or metrics_out or mem_probe)
         self.trace_out = trace_out
         self.interval = int(metrics_interval)
         if self.interval < 1:
@@ -186,10 +192,12 @@ class Obs:
         self.registry = MetricsRegistry() if self.enabled else null_registry()
         self.tracer = (Tracer(annotations=annotations)
                        if trace_out else null_tracer())
+        self.probe = MemoryProbe() if mem_probe else null_probe()
         self.exporter = (JsonlExporter(metrics_out, self.registry)
                          if metrics_out else None)
         self._prev_registry = None
         self._prev_tracer = None
+        self._prev_probe = None
         self._installed = False
         self._closed = False
         if install:
@@ -213,6 +221,7 @@ class Obs:
         if not self._installed:
             self._prev_registry = set_registry(self.registry)
             self._prev_tracer = set_tracer(self.tracer)
+            self._prev_probe = set_probe(self.probe)
             self._installed = True
         return self
 
@@ -220,6 +229,7 @@ class Obs:
         if self._installed:
             set_registry(self._prev_registry or null_registry())
             set_tracer(self._prev_tracer or null_tracer())
+            set_probe(self._prev_probe or null_probe())
             self._installed = False
 
     def __enter__(self) -> "Obs":
@@ -258,6 +268,10 @@ class Obs:
         self._closed = True
         rec = None
         if self.exporter is not None:
+            if self.probe.enabled:
+                # the per-(site, signature) records, ahead of the summary
+                # so readers still find the summary last
+                self.exporter.event("memory", **self.probe.snapshot())
             rec = self.exporter.summary(**summary_extra)
             self.exporter.close()
         elif self.enabled:

@@ -28,18 +28,17 @@ Checks:
     forecast run's ``staleness.effective_age`` p99 strictly below the
     row-age p99 (of --baseline-jsonl when given, else the same stream);
   * every trace passes :func:`repro_torch.obs.trace.validate_chrome_trace`;
-  * memory (``--memory-json BENCH_gst_memory.json``, the bench_memory.py
-    sweep): the GST train-step temp (activation) bytes stay flat while
-    graph size grows (max/min ratio <= 1 + --mem-epsilon), the full-graph
-    control actually grows (>= --mem-growth-floor, proving the sweep has
-    teeth), the streaming-encoder temp is chunk-count-independent
-    (ratio <= 1 + --stream-epsilon) and >= its jaxpr-walk accounting
-    bound, and the serve bucket-ladder total peak fits
+  * memory (``--memory-json``, a ``gst_memory`` file of the sweep,
+    ``python -m repro_torch.obs.memory_sweep``, or of the reference's
+    ``benchmarks/bench_memory.py``): the GST train-step temp bytes stay
+    flat while graph size grows (max/min ratio <= 1 + --mem-epsilon), the
+    full-graph control actually grows (>= --mem-growth-floor, proving the
+    sweep has teeth), the streaming-encoder temp is chunk-count-independent
+    (ratio <= 1 + --stream-epsilon) and >= its accounting bound (the
+    largest single buffer), and the serve bucket-ladder total peak fits
     --ladder-budget-bytes when given.  ``--expect-mem`` additionally
-    requires the ``mem.`` gauge family in the train stream (the
-    --mem-probe wiring canary).  The memory checks read JSON only; no
-    run of the port writes ``mem.*`` or ``BENCH_gst_memory.json`` yet
-    (ROADMAP A3b).
+    requires the ``mem.device.*`` gauge families in the train stream
+    (the --mem-probe wiring canary; ``obs/memory.py`` writes them).
 """
 from __future__ import annotations
 

@@ -37,6 +37,7 @@ from repro_torch.graphs.data import SyntheticGraph
 from repro_torch.graphs.gnn import GNN, GNNConfig, encode_segments, gnn_init
 from repro_torch.graphs.partition import partition_graph
 from repro_torch.kernels.ops import kernel_launches, next_pow2
+from repro_torch.obs.memory import probe_call
 from repro_torch.obs.metrics import (AGE_BUCKETS_STEPS, LATENCY_BUCKETS_MS,
                                      Histogram, get_registry, summarize)
 from repro_torch.obs.trace import span
@@ -262,6 +263,9 @@ class ServeEngine:
                                    store=store, device=self.device)
                       if cfg.cache_enabled else None)
         self.stats = ServeStats()
+        # memory-probe sites: the head, one encode a bucket, the stream
+        self._encode_fns: Dict[int, object] = {}
+        self._head_fn = probe_call("serve.head", self._head_impl)
         self._stream = None
         self._request_counter = 0
 
@@ -284,10 +288,15 @@ class ServeEngine:
 
     def _encode_bucket(self, bi: int, seg_inputs: Dict[str, np.ndarray]
                        ) -> torch.Tensor:
+        fn = self._encode_fns.get(bi)
+        if fn is None:
+            gc = self.gnn_cfg
+            fn = self._encode_fns[bi] = probe_call(
+                f"serve.encode.{self.ladder[bi].key}",
+                lambda p, si: encode_segments(p, gc, si))
         launches0 = _total_launches()
         with span("serve.encode", bucket=bi):
-            emb = encode_segments(self.params, self.gnn_cfg,
-                                  to_device(seg_inputs, self.device))
+            emb = fn(self.params, to_device(seg_inputs, self.device))
         self.stats.encode_launches += 1
         self.stats.kernel_launches += _total_launches() - launches0
         return emb
@@ -425,7 +434,7 @@ class ServeEngine:
                     ci += 1
             h = torch.stack(rows + [rows[0]] * (Jp - J))           # (Jp, d)
             with span("serve.head", segments=J):
-                pred = self._head_impl(
+                pred = self._head_fn(
                     self.head, h, torch.from_numpy(mask).to(self.device))
                 pred_np = pred.cpu().numpy()          # waits for the card
             latency_ms = (time.perf_counter() - t0) * 1e3
@@ -493,7 +502,7 @@ class ServeEngine:
                                  seed=self.cfg.partition_seed,
                                  partition_max_nodes=self.cfg.max_seg_nodes)
         if self._stream is None:
-            self._stream = make_stream_encoder(
-                self.gnn_cfg, head_mode=self.cfg.head_mode, agg=self.cfg.agg)
+            self._stream = probe_call("serve.stream", make_stream_encoder(
+                self.gnn_cfg, head_mode=self.cfg.head_mode, agg=self.cfg.agg))
         pred, _ = self._stream(self.params, self.head, chunks, self.device)
         return pred.cpu().numpy()

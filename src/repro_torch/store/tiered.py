@@ -31,6 +31,9 @@ Where the reference jits a gather that makes a new buffer, the port's
 steps write the table in place, so the eviction content is a COPY
 (``index_select``) taken on the compute stream before the upload's
 ``index_copy_``; later in-place writes to the table cannot reach it.
+That device half of a commit is the memory probe's ``store.migrate``
+(uploads and evictions), ``store.upload`` or ``store.gather`` site, and
+``publish_counters`` gauges the host tier as ``store.host_tier``.
 
 Concurrency: ``begin`` may run on the feeder thread while a step runs (it
 touches host bookkeeping and fresh staging buffers only, and copies on its
@@ -54,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import embedding_table as tbl
+from repro_torch.obs.memory import get_probe, probe_call
 from repro_torch.obs.trace import span
 from repro_torch.store.base import (EmbeddingStore, PreparedMigration,
                                     device_rows_per_shard, shard_tables)
@@ -112,6 +116,11 @@ class TieredStore(EmbeddingStore):
         self._commit_next = 1
         self._done_ticket = 0
         self._wb_exc: Optional[BaseException] = None  # failed write-back
+        # memory-probe sites, one a commit by what it moves (the
+        # reference's three migration jits)
+        self._migrate = probe_call("store.migrate", self._move)
+        self._upload = probe_call("store.upload", self._move)
+        self._gather_ev = probe_call("store.gather", self._move)
 
     def _host_tier(self) -> tbl.EmbeddingTable:
         """One shard's host tier, zeros: pinned on cuda (an error where
@@ -362,26 +371,25 @@ class TieredStore(EmbeddingStore):
         cur = torch.cuda.current_stream(self.device) if self._cuda else None
         if prep.up_ready is not None:
             cur.wait_event(prep.up_ready)
-        staged = [prep.ev_slots, prep.up_slots, prep.up_emb, prep.up_age,
+        fields = [prep.ev_slots, prep.up_slots, prep.up_emb, prep.up_age,
                   prep.up_init]
-        going_home = []
-        for i, table in enumerate(tlist):
-            ev_slots, up_slots, *up = (None if f is None else f[i]
-                                       for f in staged)
-            if self._cuda:
-                # the staged tensors came from the host -> device stream
-                for t in (ev_slots, up_slots, *up):
-                    if t is not None:
-                        t.record_stream(cur)
-            # evicted content is gathered (a copy) BEFORE the upload lands
-            ev = (None if ev_slots is None
-                  else [x.index_select(0, ev_slots) for x in table])
-            if up_slots is not None:
-                for x, u in zip(table, up):
-                    x.index_copy_(0, up_slots, u)
-            if ev is not None:
-                going_home.append((self.local_shards[i], prep.ev_rows[i],
-                                   self._to_host(ev, cur)))
+        staged = [[None if f is None else f[i] for f in fields]
+                  for i in range(len(tlist))]
+        if self._cuda:
+            # the staged tensors came from the host -> device stream
+            for t in (t for shard in staged for t in shard):
+                if t is not None:
+                    t.record_stream(cur)
+        evs = [None] * len(tlist)
+        if prep.n_up and prep.n_ev:
+            evs = self._migrate(tlist, staged)
+        elif prep.n_up:
+            evs = self._upload(tlist, staged)
+        elif prep.n_ev:
+            evs = self._gather_ev(tlist, staged)
+        going_home = [(self.local_shards[i], prep.ev_rows[i],
+                       self._to_host(ev, cur))
+                      for i, ev in enumerate(evs) if ev is not None]
         if prep.n_ev:
             with self._mu:
                 self.counters.evictions += prep.n_ev
@@ -396,6 +404,22 @@ class TieredStore(EmbeddingStore):
             self._writer.submit(self._writeback_thunk(going_home,
                                                       prep.ticket, landed))
         return tlist[0] if single else tlist
+
+    @staticmethod
+    def _move(tables, staged):
+        """The device half of a migration on every local shard's table:
+        the evicted rows gathered (a copy) BEFORE the uploads land in
+        place.  ``staged`` a shard: (ev_slots, up_slots, emb, age, init),
+        each None where the shard has none.  Returns each shard's evicted
+        (emb, age, init), or None."""
+        evs = []
+        for table, (ev_slots, up_slots, *up) in zip(tables, staged):
+            evs.append(None if ev_slots is None
+                       else [x.index_select(0, ev_slots) for x in table])
+            if up_slots is not None:
+                for x, u in zip(table, up):
+                    x.index_copy_(0, up_slots, u)
+        return evs
 
     def _to_host(self, ev, cur):
         """The evicted (emb, age, init) on the host: on cuda copied into
@@ -511,6 +535,12 @@ class TieredStore(EmbeddingStore):
         """Bytes of the local host tiers (pinned on cuda)."""
         return sum(x.numel() * x.element_size()
                    for h in self._host.values() for x in h)
+
+    def publish_counters(self) -> None:
+        super().publish_counters()
+        p = get_probe()
+        if p.enabled:
+            p.observe_host("store.host_tier", self.host_tier_bytes())
 
     def _resident(self, shard: int):
         """(rows within the shard, slots) of the shard's resident rows."""

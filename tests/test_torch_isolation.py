@@ -39,7 +39,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
             "repro_torch.launch.serve", "repro_torch.data",
             "repro_torch.data.tokens", "repro_torch.obs",
             "repro_torch.obs.export", "repro_torch.obs.gate",
-            "repro_torch.obs.staleness", "repro_torch.obs.bench_diff"
+            "repro_torch.obs.staleness", "repro_torch.obs.bench_diff",
+            "repro_torch.obs.memory", "repro_torch.obs.memory_sweep"
             } <= set(mods)
     code = (
         "import importlib, sys\n"

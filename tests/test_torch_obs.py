@@ -15,8 +15,9 @@ package's (src/repro/obs/), piece by piece, on the same numpy inputs:
   * the JSONL stream has the same record types and keys; a tensor never
     reaches ``json.dumps``;
   * ``bench_diff`` gives the same report on the repo's own BENCH files;
-  * ``--mem-probe`` raises (ROADMAP A3b), and a flag that would act only
-    beside another one refuses to stand alone.
+  * ``Obs(mem_probe=True)`` installs a memory probe and a live registry
+    and restores both on close, and a flag that would act only beside
+    another one refuses to stand alone.
 """
 import json
 import threading
@@ -42,15 +43,17 @@ ROOT = Path(__file__).resolve().parents[1]
 
 @pytest.fixture(autouse=True)
 def _clean_globals():
-    """Every test starts and ends with both packages' null registry and
-    tracer installed."""
+    """Every test starts and ends with both packages' null registry,
+    tracer and memory probe installed."""
     for mod, nt in ((J, jnull_tracer), (P, P.null_tracer)):
         mod.set_registry(mod.null_registry())
         mod.set_tracer(nt())
+        mod.set_probe(mod.null_probe())
     yield
     for mod, nt in ((J, jnull_tracer), (P, P.null_tracer)):
         mod.set_registry(mod.null_registry())
         mod.set_tracer(nt())
+        mod.set_probe(mod.null_probe())
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +373,6 @@ def test_jsonable_takes_tensors_and_numpy():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(mem_probe=True), NotImplementedError, "A3b"),
     (dict(annotations=True), ValueError, "--trace-out"),
     (dict(metrics=True, metrics_interval=3), ValueError, "--metrics-out"),
     (dict(metrics_out="x.jsonl", metrics_interval=0), ValueError, "< 1"),
@@ -381,6 +383,17 @@ def test_obs_refuses_flags_that_cannot_act(kw, err, match, tmp_path,
     with pytest.raises(err, match=match):
         P.Obs(**kw)
     assert not P.get_registry().enabled
+
+
+def test_obs_mem_probe_installs_probe_and_live_registry():
+    obs = P.Obs(mem_probe=True)
+    assert obs.enabled and obs.exporter is None
+    assert P.get_probe() is obs.probe and obs.probe.enabled
+    assert P.get_registry() is obs.registry and obs.registry.enabled
+    rec = obs.close()
+    assert rec["type"] == "summary" and rec["metrics"] == {}
+    assert P.get_probe() is P.null_probe() and not P.get_probe().enabled
+    assert P.get_registry() is P.null_registry()
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,12 @@ small):
     tests/test_torch_dist.py runs the reference), and equal the bytes the
     port's comm counted;
   * the serving replay's stream has the JAX CLI's records and counters
-    (latency by name and count: a host time).
+    (latency by name and count: a host time);
+  * ``--track seq`` and ``--track lm`` write the JAX CLI's record types
+    in order (seq: a tick every ``--log-every`` steps whatever
+    ``--metrics-interval`` says; lm: ``meta, summary``), and seq's tick
+    keys, metric families and ``staleness.*`` / ``store.*`` summaries
+    are equal.
 """
 import json
 import os
@@ -32,9 +37,10 @@ from repro.graphs.experiment import run_experiment as jax_run  # noqa: E402
 from repro.graphs.gnn import GNNConfig as JGNNConfig  # noqa: E402
 from repro.graphs.gnn import gnn_init as jgnn_init  # noqa: E402
 from repro.launch import serve_graphs as jserve_graphs  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
 from repro.obs.trace import null_tracer as jnull_tracer  # noqa: E402
 from repro_torch.graphs.experiment import run_experiment  # noqa: E402
-from repro_torch.launch import serve_graphs, train_dist  # noqa: E402
+from repro_torch.launch import serve_graphs, train, train_dist  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(n_graphs=16, max_seg_nodes=24, hidden=8, batch_size=4,
@@ -43,6 +49,9 @@ DIST = ["--device", "cpu", "--devices", "2", "--exchange", "ring",
         "--payload-dtype", "int8", "--epochs", "2", "--finetune-epochs", "1",
         "--n-graphs", "32"]
 SERVE = ["--requests", "24", "--unique", "8", "--duplicate-rate", "0.6"]
+SEQ = ["--arch", "internlm2-1.8b", "--reduced", "--steps", "4",
+       "--log-every", "2", "--metrics-interval", "2", "--n-docs", "16",
+       "--batch-size", "4"]
 
 
 @pytest.fixture(autouse=True)
@@ -160,3 +169,29 @@ def test_serve_graphs_counters_match_jax(tmp_path):
         if p["type"] == "tick":
             assert p["step"] == j["step"] and sorted(p["delta"]) == \
                 sorted(j["delta"])
+
+
+@pytest.mark.parametrize("track", ["seq", "lm"])
+def test_seq_and_lm_streams_match_jax(track, tmp_path, monkeypatch):
+    jout, pout = str(tmp_path / "j.jsonl"), str(tmp_path / "p.jsonl")
+    monkeypatch.setattr(sys, "argv", ["train", "--track", track, *SEQ,
+                                      "--metrics-out", jout])
+    jtrain.main()
+    train.main(["--track", track, "--device", "cpu", *SEQ,
+                "--metrics-out", pout])
+    want = [json.loads(x) for x in Path(jout).read_text().splitlines()]
+    got = [json.loads(x) for x in Path(pout).read_text().splitlines()]
+    types = [r["type"] for r in got]
+    assert types == [r["type"] for r in want]
+    wm, gm = want[-1]["metrics"], got[-1]["metrics"]
+    if track == "lm":
+        assert types == ["meta", "summary"] and gm == wm == {}
+        return
+    assert types == ["meta", "tick", "tick", "summary"]
+    for p, j in zip(got[1:-1], want[1:-1]):
+        assert sorted(p) == sorted(j) and p["step"] == j["step"]
+        assert sorted(p["delta"]) == sorted(j["delta"])
+    assert sorted(gm) == sorted(wm)
+    shared = [k for k in gm if k.startswith(("staleness.", "store."))]
+    assert "staleness.row_age" in shared and "store.hits" in shared
+    assert {k: gm[k] for k in shared} == {k: wm[k] for k in shared}

@@ -8,15 +8,22 @@ runs: tests/test_torch_obs_parity.py):
     (``repro.obs.gate.main``, unchanged) and the port's both pass, with
     ``--expect-dist``/``--expect-prefetch`` on the distributed ones; both
     fail the same stream cut before its summary;
-  * ``--mem-probe`` raises on every CLI, as does telemetry of a torchrun
-    run;
-  * telemetry on vs off is bitwise equal (losses, metrics, final table)
-    with equal launch counts: graph, distributed inline and prefetched,
-    and the sequence track (the counterpart of tests/test_obs.py::
-    test_train_step_jaxpr_identical_with_obs_installed).
+  * ``--mem-probe`` on every CLI records the JAX CLI's sites with as
+    many calls a site (the train run over a capped table, so the store's
+    sites too), ``mem.device.*`` lands in both summaries, and both gates
+    pass the port's stream under ``--expect-mem``; telemetry of a
+    torchrun run raises;
+  * telemetry on (with ``--mem-probe``) vs off is bitwise equal (losses,
+    metrics, final table) with equal launch counts: graph, distributed
+    inline and prefetched, and the sequence track (the counterpart of
+    tests/test_obs.py::test_train_step_jaxpr_identical_with_obs_installed).
 """
 import argparse
 import json
+import os
+import subprocess
+import sys
+from collections import Counter
 from pathlib import Path
 
 import pytest
@@ -25,6 +32,8 @@ torch = pytest.importorskip("torch")
 
 import repro.obs as J  # noqa: E402
 import repro_torch.obs as P  # noqa: E402
+from repro.launch import serve_graphs as jserve_graphs  # noqa: E402
+from repro.launch import train as jtrain  # noqa: E402
 from repro.obs import gate as jgate  # noqa: E402
 from repro.obs.trace import null_tracer as jnull_tracer  # noqa: E402
 from repro_torch.graphs.experiment import (load_datasets,  # noqa: E402
@@ -41,6 +50,7 @@ DIST = ["--device", "cpu", "--devices", "2", "--exchange", "ring",
 GRAPH = ["--track", "graph", "--device", "cpu", "--epochs", "2",
          "--finetune-epochs", "1", "--n-graphs", "32"]
 SERVE = ["--requests", "24", "--unique", "8", "--duplicate-rate", "0.6"]
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -48,10 +58,12 @@ def _clean_globals():
     for mod, nt in ((J, jnull_tracer), (P, P.null_tracer)):
         mod.set_registry(mod.null_registry())
         mod.set_tracer(nt())
+        mod.set_probe(mod.null_probe())
     yield
     for mod, nt in ((J, jnull_tracer), (P, P.null_tracer)):
         mod.set_registry(mod.null_registry())
         mod.set_tracer(nt())
+        mod.set_probe(mod.null_probe())
 
 
 def _gates(argv):
@@ -148,7 +160,7 @@ def test_telemetry_on_off_bitwise(path, tmp_path):
         on, on_launches = _run_path(path, [
             "--metrics-out", str(tmp_path / "s.jsonl"),
             "--trace-out", str(tmp_path / "t.json"),
-            "--torch-trace-annotations"])
+            "--torch-trace-annotations", "--mem-probe"])
     finally:
         torch.set_num_threads(threads)
     assert on[:2] == off[:2]
@@ -160,17 +172,61 @@ def test_telemetry_on_off_bitwise(path, tmp_path):
     assert any(ev["name"] == "train.step" for ev in trace["traceEvents"])
 
 
+def _memory_event(path):
+    """(calls a site, the summary's metric names) of a stream's memory
+    event; each record is accounting mode (port) or compiled (JAX)."""
+    records = [json.loads(line) for line in Path(path).read_text().splitlines()]
+    (mem,) = [r for r in records if r.get("event") == "memory"]
+    assert records[-1]["type"] == "summary"
+    calls = Counter()
+    for r in mem["records"]:
+        assert r["mode"] in ("accounting", "compiled"), r
+        assert r["peak_bytes"] >= r["temp_bytes"] >= 0
+        calls[r["site"]] += r["calls"]
+    return calls, sorted(records[-1]["metrics"])
+
+
 @pytest.mark.parametrize("cli", ["train", "train_dist", "serve_graphs"])
-def test_mem_probe_raises_on_every_cli(cli):
-    argv = ["--mem-probe"]
-    with pytest.raises(NotImplementedError, match="A3b"):
-        if cli == "train":
-            train.main(GRAPH + argv)
-        elif cli == "train_dist":
-            train_dist.main(DIST + argv)
-        else:
-            serve_graphs.main(SERVE + ["--device", "cpu"] + argv)
-    assert not P.get_registry().enabled
+def test_mem_probe_sites_match_jax(cli, tmp_path, monkeypatch):
+    pout, jout = str(tmp_path / "p.jsonl"), str(tmp_path / "j.jsonl")
+    probe = ["--mem-probe", "--metrics-out"]
+    if cli == "train":
+        argv = GRAPH + ["--table-device-rows", "8"]
+        train.main(argv + probe + [pout])
+        monkeypatch.setattr(sys, "argv", ["train"] + [
+            a for a in argv if a not in ("--device", "cpu")] + probe + [jout])
+        jtrain.main()
+        gate = ["--train-jsonl", pout, "--expect-mem"]
+    elif cli == "train_dist":
+        train_dist.main(DIST + probe + [pout])
+        # the reference on a forced 2-device host (the CLI forces it; the
+        # tier-1 process sees one device)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   JAX_PLATFORMS="cpu")
+        env.pop("XLA_FLAGS", None)
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro.launch.train_dist",
+             *[a for a in DIST if a not in ("--device", "cpu")], *probe,
+             jout], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=300)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        gate = ["--train-jsonl", pout, "--expect-dist", "--expect-mem"]
+    else:
+        serve_graphs.main(SERVE + ["--device", "cpu"] + probe + [pout])
+        jserve_graphs.main(SERVE + probe + [jout])
+        # --expect-mem reads a train stream: the serve summary's
+        # mem.device.* families are checked below
+        gate = ["--serve-jsonl", pout, "--expect-mem"]
+    got, got_names = _memory_event(pout)
+    want, want_names = _memory_event(jout)
+    assert got == want and got
+    if cli == "train":
+        assert {"train.step", "train.eval", "train.refresh",
+                "train.finetune", "store.migrate"} <= set(got)
+    for names in (got_names, want_names):
+        for fam in pgate.MEM_FAMILIES:
+            assert any(n.startswith(fam) for n in names), (fam, names)
+    assert _gates(gate) == (0, 0)
 
 
 def test_torchrun_telemetry_is_refused(monkeypatch):

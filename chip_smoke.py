@@ -12,9 +12,11 @@ track's training (GST and LM) and serving paths on internlm2-1.8b at
 full width and depth, and its serving path on
 qwen2-vl-7b, arctic-480b, deepseek-v3-671b, whisper-large-v3,
 zamba2-1.2b and rwkv6-7b at full width (the two MoE models cut in depth
-to fit the card), with random weights from a seed, and holds each
-hand-written kernel against its plain PyTorch version.  Phases, in order; an error in any of them
-fails the run (none catches its own):
+to fit the card), with random weights from a seed, and the paper's
+experiments (``repro_torch.paper`` and the two graph-track examples),
+and holds each hand-written kernel against its plain PyTorch version.
+Phases, in order; an error in any of them fails the run (none catches
+its own):
 
   1. card       the device name and nvidia-smi's name and power limit
   2. build      nvcc builds every kernel source from the checkout, all at
@@ -158,6 +160,17 @@ fails the run (none catches its own):
                 without and launches equal, every reference site reached
                 in allocator mode, gate --expect-mem exits 0.  Files
                 under chiprun_out/memory/
+ 8a''. paper   the paper's experiments through the port (kernels on):
+                examples/quickstart_torch.py at the reference's sizes
+                (test accuracy above 0.3), examples/tpugraphs_ranking_
+                torch.py (gst's ms_per_iter above gst_e's), and python -m
+                repro_torch.paper.run --quick over its nine entries
+                (Tables 1-3 and 6, Figures 1, 3 and 4, kernels,
+                roofline; the kernels entry timed apart from the main
+                path): every row printed and finite, accuracies and OPA
+                in [0, 1], Figure 1's allocator bytes of gst_efd below
+                full's at the largest J, the kernel rows present, B1
+                forward and backward and sed_pool launched
  8b. seq_train  internlm2-1.8b at full width and depth (f32, random),
                 launch.train: (a) --track seq gst_efd, kernels, batch 8
                 x J 8 x 64 tokens, 64 documents, 3 steps: sed_pool once
@@ -204,9 +217,10 @@ fails the run (none catches its own):
                 layer at B 2: ms a call, launches, device busy time
  12. kernels    one JSON line: per kernel, launches on the main path
                 (serving, training, distributed training, dist_prefetch,
-                the store's (a), (c) and (d), telemetry, memory, seq_train,
-                seq_serve and seq_families; the memory phase's apart in
-                launches_by_path for B1, its backward and sed_pool),
+                the store's (a), (c) and (d), telemetry, memory, paper,
+                seq_train, seq_serve and seq_families; the memory and
+                paper phases' apart in launches_by_path for B1, its
+                backward, sed_pool and sed_pool_aged),
                 error, times and bound
 
     python3 chip_smoke.py --turns PARENT_DIR
@@ -295,6 +309,11 @@ TELEMETRY_DIR = ROOT / "chiprun_out" / "telemetry"
 # (m2)'s bar on GST's bytes a segment: at most 1/100 of full's
 MEMORY_DIR = ROOT / "chiprun_out" / "memory"
 MEM_GROWTH_FLOOR, GST_FLAT_BOUND, MEM_SLOPE_RATIO = 2.0, 1.25, 100
+# the paper phase: the paper tables at --quick (the kernels entry, which
+# times kernels, apart from the main path's launches); the rows whose
+# value is an accuracy or an OPA
+PAPER_TIMING = "kernels"
+PAPER_SCORES = ("table1/", "table2/", "fig3/", "fig4/", "table6/")
 QUANT_STRESS = (8192, 1280)             # 40 MiB of f32 rows
 # (R, N, element offset of x and v in their buffers) edge cases: one row,
 # N not a multiple of 32, a wide ragged row, rows with NaN of both signs,
@@ -919,16 +938,18 @@ def train_step_parity(torch, dev, dataset, backbone, decay):
     return want_counts, worst, n_stale
 
 
-def train_setup(torch, dev, dataset, backbone, decay, use_kernels):
-    """run_experiment's training set, model and gst_efd train step at its
-    defaults, weights from seed 0: (dataset, state, step)."""
+def train_setup(torch, dev, dataset, backbone, decay, use_kernels,
+                variant="gst_efd", n_graphs=80):
+    """run_experiment's training set, model and ``variant``'s train step at
+    its defaults, weights from seed 0: (dataset, state, step)."""
     from repro_torch.core import gst as G
     from repro_torch.graphs.experiment import load_datasets
     from repro_torch.graphs.gnn import GNNConfig, gnn_init, make_encode_fn
     from repro_torch.optim import make_optimizer
     from repro_torch.store import DeviceStore
 
-    (loss_kind, head_mode, agg, n_out), ds, _ = load_datasets(dataset, 80, 64)
+    (loss_kind, head_mode, agg, n_out), ds, _ = load_datasets(dataset,
+                                                              n_graphs, 64)
     cfg = GNNConfig(backbone=backbone, n_feat=ds.x.shape[-1],
                     use_kernels=use_kernels)
     gen = torch.Generator().manual_seed(0)
@@ -940,7 +961,7 @@ def train_setup(torch, dev, dataset, backbone, decay, use_kernels):
     st = G.TrainState(bb, head, None, table, 0)
     st = st._replace(opt_state=opt.init(G.train_params(st)))
     return ds, st, G.make_train_step(
-        make_encode_fn(cfg), opt, G.VARIANTS["gst_efd"], head_mode=head_mode,
+        make_encode_fn(cfg), opt, G.VARIANTS[variant], head_mode=head_mode,
         loss_kind=loss_kind, agg=agg, use_kernels=use_kernels,
         sed_decay=decay)
 
@@ -2170,8 +2191,8 @@ def gst_peak_report(torch, dev, label, geo, comm):
     _, ds, tup, meta = MS.make_point(comm, n_graphs=geo["n_graphs"],
                                      max_seg_nodes=geo["max_seg_nodes"],
                                      batch_size=geo["batch_size"])
-    step, args = MS.train_leg(ds, tup, "gst_efd", hidden=geo["hidden"],
-                              dev=dev)
+    step, args = MS.train_leg(tup, "gst_efd", n_rows=ds.n,
+                              hidden=geo["hidden"], dev=dev)
     plane = geo["batch_size"] * meta["j_max"] * 4
     best, rows = peak_blocks(torch, lambda: step(*args), dev, plane)
     log(f"[memory] {label}: GST step at comm {comm} (J {meta['j_max']}): "
@@ -2894,6 +2915,139 @@ def phase_seq_serve(torch, dev):
     del params
     torch.cuda.empty_cache()
     return main, out
+
+
+def ranking_turns(torch, dev):
+    """The ranking example's gst and gst_e runs again in turns (gst_e,
+    gst, gst, gst_e: its ms_per_iter, run_experiment's median), and one
+    step of each at its setup under torch.profiler: launches, host-device
+    copies and stream syncs a step.  The example's assertion compares one
+    run of each; on the card the step is host bound, so what orders them
+    is the host work a step."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.graphs.batching import batch_iterator
+    from repro_torch.graphs.experiment import (epoch_generator,
+                                               run_experiment, to_batch)
+
+    turns = {"gst": [], "gst_e": []}
+    for v in ("gst_e", "gst", "gst", "gst_e"):
+        turns[v].append(run_experiment(
+            dataset="tpugraphs", backbone="sage", variant=v, n_graphs=64,
+            epochs=25, finetune_epochs=0, seed=0, device="cuda").ms_per_iter)
+    calls = {}
+    for v in ("gst", "gst_e"):
+        ds, st, step = train_setup(torch, dev, "tpugraphs", "sage", 0.0,
+                                   True, variant=v, n_graphs=64)
+        batches = [to_batch(*t, dev) for t in batch_iterator(
+            ds, 8, rng=np.random.default_rng(0))][:4]
+        draws = epoch_generator(0, 0)
+        for b in batches[:3]:
+            st, _ = step(st, b, draws)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st, _ = step(st, batches[3], draws)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        calls[v] = {"launches": sum(n.startswith("cudaLaunchKernel")
+                                    for n in names),
+                    "copies": names.count("cudaMemcpyAsync"),
+                    "syncs": names.count("cudaStreamSynchronize")}
+    log(f"[paper] ranking in turns (gst_e, gst, gst, gst_e): ms_per_iter "
+        f"{turns}; a step's runtime calls {calls}")
+    return {"ms_per_iter": turns, "step_calls": calls}
+
+
+def phase_paper(torch, dev):
+    """The paper's experiments through the port, on the card, kernels on
+    (the main path; launches counted across the runs): (1)
+    examples/quickstart_torch.py at the reference's sizes, test accuracy
+    above 0.3; (2) examples/tpugraphs_ranking_torch.py, its assertion
+    (gst's ms_per_iter above gst_e's) holding, then its gst and gst_e
+    runs in turns and a step of each profiled (``ranking_turns``, off
+    the launch count); (3) ``python -m
+    repro_torch.paper.run --quick --device cuda`` over all nine entries
+    (the kernels entry in a second call, its timing launches kept off the
+    main path's count).  Every row finite, every accuracy and OPA in [0,
+    1], Figure 1's bytes from the allocator with gst_efd below full at
+    the largest J, the three kernel rows present; B1 forward and
+    backward and sed_pool launched by the examples and by the tables."""
+    import runpy
+
+    from repro_torch.kernels import ops
+    from repro_torch.paper import run as paper_run
+    from repro_torch.paper.paper_tables import ALL_BENCHES
+
+    out, launches = {}, {}
+
+    def counted(label, fn):
+        ops.reset_kernel_launches()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize(dev)
+        out[label + "_s"] = time.perf_counter() - t0
+        got = launched(ops.kernel_launches())
+        for k in ("segment_spmm_batched", "segment_spmm_batched_bwd",
+                  "sed_pool"):
+            if not got.get(k):
+                raise AssertionError(f"paper: {label} launched no {k}: {got}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        out[label + "_launches"] = got
+        return r
+
+    examples = ROOT / "examples"
+    quickstart = runpy.run_path(str(examples / "quickstart_torch.py"))
+    acc = counted("quickstart", lambda: quickstart["main"](device="cuda"))
+    if not acc > 0.3:
+        raise AssertionError(f"paper: quickstart test accuracy {acc}")
+    ranking = runpy.run_path(str(examples / "tpugraphs_ranking_torch.py"))
+    res = counted("ranking", lambda: ranking["main"](device="cuda"))
+    out["quickstart_test_acc"] = acc
+    out["ranking_turns"] = ranking_turns(torch, dev)
+    out["ranking"] = {v: {"train_opa": r.train_metric,
+                          "test_opa": r.test_metric,
+                          "ms_per_iter": r.ms_per_iter}
+                      for v, r in res.items()}
+    entries = [n for n in ALL_BENCHES if n != PAPER_TIMING]
+    rows = counted("tables", lambda: paper_run.main(
+        ["--quick", "--only", ",".join(entries), "--device", "cuda"]))
+    t0 = time.perf_counter()
+    rows.update(paper_run.main(["--quick", "--only", PAPER_TIMING,
+                                "--device", "cuda"]))
+    out["kernels_entry_s"] = time.perf_counter() - t0
+    if list(rows) != entries + [PAPER_TIMING]:
+        raise AssertionError(f"paper: entries {list(rows)}")
+    flat = [r for name in rows for r in rows[name]]
+    for name, value, derived in flat:
+        if not math.isfinite(float(value)):
+            raise AssertionError(f"paper: {name} = {value}")
+        if name.startswith(PAPER_SCORES) and not 0.0 <= float(value) <= 1.0:
+            raise AssertionError(f"paper: {name} = {value} outside [0, 1]")
+    by = {r[0]: r for r in flat}
+    for k in ("segment_spmm", "sed_pool", "swa"):
+        if f"kernels/{k}_us" not in by:
+            raise AssertionError(f"paper: no kernels/{k}_us row")
+    fig1 = [r for r in flat if r[0].startswith("fig1/")]
+    if any(r[2] != "allocator_temp_bytes" for r in fig1):
+        raise AssertionError(f"paper: Figure 1 not from the allocator: {fig1}")
+    j = max(int(r[0].rsplit("=", 1)[1]) for r in fig1)
+    gst, full = (by[f"fig1/temp_bytes/{v}/J={j}"][1]
+                 for v in ("gst_efd", "full"))
+    if not gst < full:
+        raise AssertionError(f"paper: Figure 1 at J={j}: gst_efd {gst} B, "
+                             f"full {full} B")
+    out["rows"] = flat
+    log(f"[paper] quickstart test accuracy {acc:.4f} in "
+        f"{out['quickstart_s']:.1f} s; ranking ms_per_iter "
+        + ", ".join(f"{v} {r['ms_per_iter']:.3f}"
+                    for v, r in out["ranking"].items())
+        + f" in {out['ranking_s']:.1f} s; tables {out['tables_s']:.1f} s, "
+        f"kernels entry {out['kernels_entry_s']:.1f} s; Figure 1 at J={j}: "
+        f"gst_efd {gst} B, full {full} B; launches {launches}")
+    return launches, out
 
 
 def seq_train_args(*extra):
@@ -3687,6 +3841,9 @@ def main() -> int:
     profile = phase_profile(torch, dev)
     dist_profile = phase_dist_profile(torch)
     dist_scaling = phase_dist_scaling(torch)
+    paper_launches, paper = phase_paper(torch, dev)
+    for k, v in paper_launches.items():
+        main_launches[k] = main_launches.get(k, 0) + v
     train_launches, seq_train = phase_seq_train(torch, dev)
     for k, v in train_launches.items():
         main_launches[k] = main_launches.get(k, 0) + v
@@ -3735,9 +3892,10 @@ def main() -> int:
         fma_bound_ms=swa_rows[SWA_HEADLINE]["fma_bound_ms"],
         build=swa_build)
     for k in kernels[:4]:
-        k["launches_by_path"] = {
-            "memory": memory_launches.get(k["name"], 0),
-            "the rest": k["launches"] - memory_launches.get(k["name"], 0)}
+        apart = {"memory": memory_launches.get(k["name"], 0),
+                 "paper": paper_launches.get(k["name"], 0)}
+        k["launches_by_path"] = dict(
+            apart, **{"the rest": k["launches"] - sum(apart.values())})
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on the main path")
@@ -3746,7 +3904,7 @@ def main() -> int:
                     "dist_f32_epoch_losses": f32_losses,
                     "dist_prefetch": dist_prefetch, "seq_train": seq_train,
                     "store": store, "telemetry": telemetry,
-                    "memory": memory,
+                    "memory": memory, "paper": paper,
                     "dist_profile": dist_profile,
                     "dist_scaling_ms": dist_scaling, "seq_serve": seq_serve,
                     "seq_families": seq_families,

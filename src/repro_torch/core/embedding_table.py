@@ -52,6 +52,13 @@ def _in_range(table: EmbeddingTable, graph_ids: torch.Tensor, mode):
     return torch.nonzero((graph_ids >= 0) & (graph_ids < n)).reshape(-1)
 
 
+def _put_scalar(t: torch.Tensor, index, value) -> None:
+    """``t[index] = value`` for a Python scalar, in place.  The scalar is
+    filled on t's device: an indexing assignment of a Python scalar to a
+    CUDA tensor copies it from the host and waits for the copy."""
+    t.index_put_(index, torch.full((), value, dtype=t.dtype, device=t.device))
+
+
 @torch.no_grad()
 def update_sampled(table: EmbeddingTable, graph_ids: torch.Tensor,
                    seg_idx: torch.Tensor, h_new: torch.Tensor,
@@ -67,8 +74,8 @@ def update_sampled(table: EmbeddingTable, graph_ids: torch.Tensor,
     graph_ids, seg_idx = graph_ids.long(), seg_idx.long()
     b_idx = graph_ids[:, None].expand(seg_idx.shape)
     table.emb[b_idx, seg_idx] = h_new.to(table.emb.dtype)
-    table.age[b_idx, seg_idx] = step
-    table.initialized[b_idx, seg_idx] = True
+    _put_scalar(table.age, (b_idx, seg_idx), step)
+    _put_scalar(table.initialized, (b_idx, seg_idx), True)
     return table
 
 
@@ -84,7 +91,7 @@ def update_all(table: EmbeddingTable, graph_ids: torch.Tensor,
         graph_ids, h_all, seg_valid = graph_ids[keep], h_all[keep], seg_valid[keep]
     graph_ids = graph_ids.long()
     table.emb[graph_ids] = h_all.to(table.emb.dtype)
-    table.age[graph_ids] = step
+    _put_scalar(table.age, (graph_ids,), step)
     table.initialized[graph_ids] = seg_valid.bool()
     return table
 

@@ -150,3 +150,16 @@ PARTITIONERS: Dict[str, Callable] = {
 def partition_graph(n: int, edges: np.ndarray, max_size: int,
                     method: str = "bfs", seed: int = 0) -> List[np.ndarray]:
     return PARTITIONERS[method](n, edges, max_size, seed)
+
+
+def partitioner_run(method: str) -> str:
+    """The partitioner that ``partition_graph(..., method)`` runs in this
+    process: ``method`` itself, but ``"bfs(networkx absent)"`` for
+    ``louvain`` where networkx cannot be imported (``louvain_partition``
+    then falls back to BFS, as the reference's does)."""
+    if method == "louvain":
+        try:
+            import networkx  # noqa: F401
+        except ImportError:
+            return "bfs(networkx absent)"
+    return method

@@ -92,15 +92,19 @@ def make_point(comm: int, *, n_graphs: int, max_seg_nodes: int,
     return graphs, ds, tup, meta
 
 
-def train_leg(ds, tup, variant: str, *, hidden: int, dev):
-    """A fresh state and ``variant``'s train step at one size point,
-    warmed up by one step: (the step, the arguments of the next one)."""
-    cfg = GNNConfig(backbone=BACKBONE, n_feat=ds.x.shape[-1], hidden=hidden,
+def train_leg(tup, variant: str, *, n_rows: int, hidden: int, dev):
+    """A fresh state (a table of ``n_rows`` graphs) and ``variant``'s train
+    step for the batch ``tup`` (its J and feature width set the table's
+    and the backbone's), warmed up by one step: (the step, the arguments
+    of the next one).  Also the paper tables' Figure 1 step
+    (``repro_torch.paper.paper_tables.fig1_memory``)."""
+    _, j_max, _, n_feat = tup[0]["x"].shape
+    cfg = GNNConfig(backbone=BACKBONE, n_feat=n_feat, hidden=hidden,
                     use_kernels=True)
     bb, head = _weights(cfg, dev)
     opt = make_optimizer("adam", lr=1e-3)
     state = G.TrainState(bb, head, None,
-                         init_table(ds.n, ds.j_max, hidden, device=dev), 0)
+                         init_table(n_rows, j_max, hidden, device=dev), 0)
     state = state._replace(opt_state=opt.init(G.train_params(state)))
     step = G.make_train_step(make_encode_fn(cfg), opt, G.VARIANTS[variant],
                              keep_prob=0.5, use_kernels=True)
@@ -114,7 +118,8 @@ def bench_steps(ds, tup, meta, *, hidden: int, dev) -> Dict:
     own fresh state."""
     out = dict(meta)
     for leg, variant in (("gst", "gst_efd"), ("full", "full")):
-        step, args = train_leg(ds, tup, variant, hidden=hidden, dev=dev)
+        step, args = train_leg(tup, variant, n_rows=ds.n, hidden=hidden,
+                               dev=dev)
         out[leg], _ = measure_call(step, args)
         del step, args
     return out

@@ -1,7 +1,9 @@
 """The port's example scripts run on the CPU and import no JAX:
 examples/serve_batched_torch.py serves the five reduced families;
 examples/llm_segment_training_torch.py trains the ~27M-parameter
-internlm2-family backbone with GST+EFD."""
+internlm2-family backbone with GST+EFD; examples/quickstart_torch.py and
+examples/tpugraphs_ranking_torch.py run the graph track's pipeline and
+its four ranking variants, here at small sizes."""
 import os
 import runpy
 import subprocess
@@ -15,6 +17,12 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 SERVE_BATCHED = ROOT / "examples" / "serve_batched_torch.py"
 LLM_TRAINING = ROOT / "examples" / "llm_segment_training_torch.py"
+QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
+RANKING = ROOT / "examples" / "tpugraphs_ranking_torch.py"
+NO_REFERENCE = (
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+    "('jax', 'repro', 'benchmarks'))\n"
+    "assert not bad, bad\n")
 
 
 def _env():
@@ -77,3 +85,49 @@ def test_llm_segment_training_runs_two_steps_on_the_cpu_without_jax():
         main = runpy.run_path(str(LLM_TRAINING))["main"]
         with pytest.raises(RuntimeError, match="is_available"):
             main(1)
+
+
+def test_quickstart_runs_small_on_the_cpu_without_jax():
+    code = (
+        "import runpy, sys\n"
+        f"g = runpy.run_path({str(QUICKSTART)!r})\n"
+        "acc = g['main'](n_graphs=24, n_train=16, max_seg_nodes=32, "
+        "hidden=8, epochs=10, finetune_epochs=1, device='cpu')\n"
+        + NO_REFERENCE + "print('ACC', acc)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("16 train graphs, J_max=")
+    assert lines[0].endswith("segments of <= 32 nodes, on cpu")
+    assert lines[1].startswith("epoch 10: loss=")
+    assert lines[2].startswith("test accuracy: ")
+    acc = float(lines[-1].split()[1])
+    assert 0.0 <= acc <= 1.0 and f"{acc:.3f}" in lines[2]
+    if not torch.cuda.is_available():
+        main = runpy.run_path(str(QUICKSTART))["main"]
+        with pytest.raises(RuntimeError, match="is_available"):
+            main()
+
+
+def test_tpugraphs_ranking_runs_small_on_the_cpu_without_jax():
+    """Four variants at 32 graphs, 2 epochs (6 timed steps each): the
+    reference's columns, and its assertion that gst's step is slower
+    than gst_e's (gst re-encodes every segment, gst_e one)."""
+    code = (
+        "import runpy, sys\n"
+        f"g = runpy.run_path({str(RANKING)!r})\n"
+        "r = g['main'](n_graphs=32, epochs=2, device='cpu')\n"
+        + NO_REFERENCE +
+        "print('OK', sorted(r))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert lines[0] == "variant      train_OPA  test_OPA  ms/iter"
+    rows = [ln.split() for ln in lines[1:5]]
+    assert [r[0] for r in rows] == ["gst", "gst_one", "gst_e", "gst_efd"]
+    for r in rows:
+        train_opa, test_opa, ms = map(float, r[1:])
+        assert 0.0 <= train_opa <= 1.0 and 0.0 <= test_opa <= 1.0 and ms > 0
+    assert lines[5] == "OK ['gst', 'gst_e', 'gst_efd', 'gst_one']"

@@ -1,5 +1,6 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``."""
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and the
+port's examples import neither JAX, nor anything of the JAX package
+``repro``, nor the reference's ``benchmarks``."""
 import os
 import re
 import subprocess
@@ -12,8 +13,11 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:[\s.,]|$)",
-                       re.MULTILINE)
+IMPORT_RE = re.compile(
+    r"^\s*(?:import|from)\s+(jax|repro|benchmarks)(?:[\s.,]|$)",
+    re.MULTILINE)
+EXAMPLES = ["serve_batched_torch.py", "llm_segment_training_torch.py",
+            "quickstart_torch.py", "tpugraphs_ranking_torch.py"]
 
 
 def _port_modules():
@@ -40,14 +44,16 @@ def test_importing_every_port_module_pulls_in_no_jax():
             "repro_torch.data.tokens", "repro_torch.obs",
             "repro_torch.obs.export", "repro_torch.obs.gate",
             "repro_torch.obs.staleness", "repro_torch.obs.bench_diff",
-            "repro_torch.obs.memory", "repro_torch.obs.memory_sweep"
+            "repro_torch.obs.memory", "repro_torch.obs.memory_sweep",
+            "repro_torch.core.theory", "repro_torch.paper",
+            "repro_torch.paper.paper_tables", "repro_torch.paper.run"
             } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'repro', 'benchmarks'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -58,9 +64,8 @@ def test_importing_every_port_module_pulls_in_no_jax():
 
 
 def test_no_jax_or_repro_import_in_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "serve_batched_torch.py",
-        ROOT / "examples" / "llm_segment_training_torch.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "examples" / name for name in EXAMPLES]
     assert len(files) > 10
     offenders = {str(f.relative_to(ROOT)): IMPORT_RE.findall(f.read_text())
                  for f in files if IMPORT_RE.search(f.read_text())}
@@ -70,8 +75,10 @@ def test_no_jax_or_repro_import_in_port_sources():
 def test_import_pattern_catches_what_it_should():
     for line in ("import jax", "import jax.numpy as jnp", "from jax import lax",
                  "from repro.graphs import data", "import repro",
-                 "    from repro.kernels.ops import x"):
+                 "    from repro.kernels.ops import x",
+                 "from benchmarks.paper_tables import ALL_BENCHES"):
         assert IMPORT_RE.search(line), line
     for line in ("import repro_torch", "from repro_torch.graphs import data",
-                 "import jaxlib_free_name_x", "# not an import of jax"):
+                 "import jaxlib_free_name_x", "# not an import of jax",
+                 "import benchmarks_free_name_x"):
         assert not IMPORT_RE.search(line), line

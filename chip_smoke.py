@@ -142,8 +142,14 @@ its own):
                 --expect-prefetch; exchange.bytes.ring.int8 = shard 0's
                 counted bytes); (4) an epoch of (a) under torch.profiler
                 with --torch-trace-annotations: a train.step range a
-                step.  ms_per_iter and p50 / p99 of every turn.  Streams
-                and traces under chiprun_out/telemetry/
+                step.  ms_per_iter and p50 / p99 of every turn.  (5),
+                after 11b: torchrun --standalone --nproc_per_node 1 -m
+                repro_torch.launch.train_dist (one process, NCCL) with
+                --metrics-out, --trace-out and --mem-probe against
+                --devices 1 threads: the same records in the same order,
+                equal but timings, tick losses bitwise, dist.* memory
+                records "shards": 1 of world 1, the gate passes both.
+                Streams and traces under chiprun_out/telemetry/
  8a'. memory    the memory probe and the constant-memory sweep
                 (repro_torch.obs.memory_sweep), kernels on: (m1) the
                 reference's geometry (hidden 32, max_seg_nodes 32, batch
@@ -163,7 +169,8 @@ its own):
  8a''. paper   the paper's experiments through the port (kernels on):
                 examples/quickstart_torch.py at the reference's sizes
                 (test accuracy above 0.3), examples/tpugraphs_ranking_
-                torch.py (gst's ms_per_iter above gst_e's), and python -m
+                torch.py (its four runs' steps in lockstep; gst's
+                ms_per_iter above gst_e's), and python -m
                 repro_torch.paper.run --quick over its nine entries
                 (Tables 1-3 and 6, Figures 1, 3 and 4, kernels,
                 roofline; the kernels entry timed apart from the main
@@ -215,6 +222,19 @@ its own):
                 one layer at full width: zamba2's ssd_chunked and rwkv6's
                 rwkv_timemix at B 1, S 2048, one decode step of each
                 layer at B 2: ms a call, launches, device busy time
+ 11b. dryrun   the production-mesh dry run (repro_torch.launch.dryrun):
+                (a) internlm2-1.8b at train_4k, prefill_32k, decode_32k
+                and long_500k on single(16,16), a fake group of 256 ranks,
+                fake cuda tensors as DTensors placed by the reference's
+                rules: every row ok, trace seconds and terms printed,
+                rows under chiprun_out/dryrun/; (b) a reduced
+                internlm2-1.8b train step (seq 64, batch 4, f32) run for
+                real on DTensors on the 1x1 debug mesh: loss and updated
+                parameters (gradient above 1e-6) within 1e-5 of the plain
+                step, gradients within 1e-4, its
+                FlopCounterMode count equal to the fake trace's, the fake
+                trace's peak beside max_memory_allocated; (c) the paper
+                suite's roofline entry over (a)'s rows (H100 constants)
  12. kernels    one JSON line: per kernel, launches on the main path
                 (serving, training, distributed training, dist_prefetch,
                 the store's (a), (c) and (d), telemetry, memory, paper,
@@ -304,6 +324,14 @@ PREFETCH_OVERLAP_STEPS = 4            # (h'): batches of one row set
 # the telemetry phase's streams and traces (inside the checkout, ignored
 # by git)
 TELEMETRY_DIR = ROOT / "chiprun_out" / "telemetry"
+# the dry run (phase dryrun): (a) the production-mesh dry run of SEQ_ARCH
+# at every shape on the single-pod mesh, its rows in DRYRUN_DIR; (b) a
+# reduced SEQ_ARCH train step at the reference test's small shape
+# (tests/test_sharding_launch.py:65-68: seq 64, batch 4) run for real on
+# the 1x1 debug mesh
+DRYRUN_DIR = ROOT / "chiprun_out" / "dryrun"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRYRUN_DEBUG = (64, 4)
 # the memory phase: the sweep's files and the --mem-probe streams; the
 # gate's bounds (--mem-growth-floor 2.0, 1 + --mem-epsilon 1.25), and
 # (m2)'s bar on GST's bytes a segment: at most 1/100 of full's
@@ -2129,6 +2157,97 @@ def phase_telemetry(torch, dev):
     return main_launches, out
 
 
+def _untimed(obj):
+    """A stream record without its times and host-memory readings (keys
+    with "_ms", "wall", "rss" or "mem.") or argv."""
+    if isinstance(obj, dict):
+        return {k: _untimed(v) for k, v in obj.items() if k != "argv"
+                and not any(t in k for t in ("_ms", "wall", "rss", "mem."))}
+    if isinstance(obj, list):
+        return [_untimed(v) for v in obj]
+    return obj
+
+
+def telemetry_torchrun(flags):
+    """Telemetry (5), run after the dry run, last, so that every earlier
+    phase runs in the process history it had before it: ``torchrun
+    --standalone --nproc_per_node 1 -m
+    repro_torch.launch.train_dist`` (the ProcessGroup path over NCCL) with
+    --metrics-out, --trace-out and --mem-probe, against --devices 1 shard
+    threads in this process with the same flags: the same record types in
+    the same order, every record equal but timings, the ticks' losses
+    bitwise; a dist.* memory record says "shards": 1 and the world size;
+    repro_torch.obs.gate passes both (--expect-dist --expect-mem)."""
+    from repro_torch.launch import train_dist
+
+    TELEMETRY_DIR.mkdir(parents=True, exist_ok=True)
+    i = flags.index("--devices")
+    flags = flags[:i] + flags[i + 2:] + ["--mem-probe"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "repro_torch.launch.train_dist",
+         *flags, *telemetry_argv("torchrun")], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=600)
+    ranked_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[telemetry] torchrun exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    t0 = time.perf_counter()
+    train_dist.run(train_dist.build_parser().parse_args(
+        flags + ["--devices", "1"] + telemetry_argv("threads1")),
+        log=lambda *a, **k: None)
+    threads_s = time.perf_counter() - t0
+    got, want = ([json.loads(ln) for ln in
+                  (TELEMETRY_DIR / f"{tag}.jsonl").read_text().splitlines()]
+                 for tag in ("torchrun", "threads1"))
+    types = [r["type"] for r in got]
+    if types != [r["type"] for r in want]:
+        raise AssertionError(f"[telemetry] torchrun record types {types} vs "
+                             f"{[r['type'] for r in want]}")
+    losses = []
+    for g, w in zip(got, want):
+        if g["type"] == "event":
+            gr, wr = g["records"], w["records"]
+            if [(r["site"], r["calls"]) for r in gr] != [
+                    (r["site"], r["calls"]) for r in wr]:
+                raise AssertionError("[telemetry] torchrun memory sites "
+                                     "differ from the thread run's")
+            for r in gr:
+                if r["site"].startswith("dist.") and (
+                        r.get("shards"), r.get("world_size")) != (1, 1):
+                    raise AssertionError(f"[telemetry] torchrun {r['site']}"
+                                         f" record: {r}")
+            continue
+        if g.keys() != w.keys() or _untimed(g) != _untimed(w):
+            raise AssertionError(f"[telemetry] torchrun {g['type']} record "
+                                 "differs from the thread run's")
+        if g["type"] == "tick":
+            if sorted(g["delta"]) != sorted(w["delta"]) or \
+                    g["loss"] != w["loss"]:
+                raise AssertionError("[telemetry] torchrun tick differs")
+            losses.append(g["loss"])
+    if sorted(got[-1]["metrics"]) != sorted(want[-1]["metrics"]):
+        raise AssertionError("[telemetry] torchrun metric names differ")
+    for tag in ("torchrun", "threads1"):
+        telemetry_gate(tag, "--expect-dist", "--expect-mem")
+    backend = "NCCL" if flags[flags.index("--device") + 1] == "cuda" \
+        else "gloo"
+    log(f"[telemetry] torchrun --nproc_per_node 1 ({backend}) vs --devices 1: "
+        f"records {types} equal but timings, tick losses bitwise "
+        f"{losses}; dist.* memory records shards 1 of world 1; gate passed "
+        f"both; wall {ranked_s:.1f} s (torchrun, process start included) "
+        f"and {threads_s:.1f} s (threads)")
+    return {"records": types, "tick_losses": losses,
+            "torchrun_wall_s": ranked_s, "threads_wall_s": threads_s}
+
+
 def peak_blocks(torch, fn, dev, plane_bytes, top=8):
     """The blocks live on the card at the peak of one call of ``fn``, from
     the allocator's history (``torch.cuda.memory._snapshot()``'s trace of
@@ -2917,25 +3036,46 @@ def phase_seq_serve(torch, dev):
     return main, out
 
 
+def host_probe_ms():
+    """The host's speed at this moment: the median of five timings of a
+    fixed pure-Python loop (no torch, no card), in ms."""
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sum(i * i for i in range(100_000))
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts) * 1e3
+
+
 def ranking_turns(torch, dev):
-    """The ranking example's gst and gst_e runs again in turns (gst_e,
-    gst, gst, gst_e: its ms_per_iter, run_experiment's median), and one
+    """The ranking example's gst and gst_e runs again, one after the other
+    in turns (gst_e, gst, gst, gst_e: its ms_per_iter, run_experiment's
+    median, with the host probe just before each run), then twice in
+    lockstep (``run_in_lockstep``, as the example takes them), and one
     step of each at its setup under torch.profiler: launches, host-device
-    copies and stream syncs a step.  The example's assertion compares one
-    run of each; on the card the step is host bound, so what orders them
-    is the host work a step."""
+    copies and stream syncs a step.  On the card the step is host bound,
+    so what orders them is the host work a step, and what blurs runs made
+    one after the other is the host's drift between them."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.graphs.batching import batch_iterator
     from repro_torch.graphs.experiment import (epoch_generator,
-                                               run_experiment, to_batch)
+                                               run_experiment,
+                                               run_in_lockstep, to_batch)
 
+    kw = dict(dataset="tpugraphs", backbone="sage", n_graphs=64, epochs=25,
+              finetune_epochs=0, seed=0, device="cuda")
     turns = {"gst": [], "gst_e": []}
+    probe = []
     for v in ("gst_e", "gst", "gst", "gst_e"):
-        turns[v].append(run_experiment(
-            dataset="tpugraphs", backbone="sage", variant=v, n_graphs=64,
-            epochs=25, finetune_epochs=0, seed=0, device="cuda").ms_per_iter)
+        probe.append(host_probe_ms())
+        turns[v].append(run_experiment(variant=v, **kw).ms_per_iter)
+    lockstep = []
+    for _ in range(2):
+        a, b = run_in_lockstep([dict(kw, variant=v)
+                                for v in ("gst", "gst_e")])
+        lockstep.append({"gst": a.ms_per_iter, "gst_e": b.ms_per_iter})
     calls = {}
     for v in ("gst", "gst_e"):
         ds, st, step = train_setup(torch, dev, "tpugraphs", "sage", 0.0,
@@ -2955,18 +3095,26 @@ def ranking_turns(torch, dev):
                                     for n in names),
                     "copies": names.count("cudaMemcpyAsync"),
                     "syncs": names.count("cudaStreamSynchronize")}
-    log(f"[paper] ranking in turns (gst_e, gst, gst, gst_e): ms_per_iter "
-        f"{turns}; a step's runtime calls {calls}")
-    return {"ms_per_iter": turns, "step_calls": calls}
+    # each gst run beside the gst_e run next to it: (2, 1) and (3, 4)
+    seq = [g / e for g, e in zip(turns["gst"], turns["gst_e"])]
+    lock = [r["gst"] / r["gst_e"] for r in lockstep]
+    log(f"[paper] ranking one after the other in turns (gst_e, gst, gst, "
+        f"gst_e): ms_per_iter {turns}, host probe ms {probe}, gst / gst_e "
+        f"{seq}; in lockstep: {lockstep}, gst / gst_e {lock}; a step's "
+        f"runtime calls {calls}")
+    return {"ms_per_iter": turns, "host_probe_ms": probe,
+            "lockstep_ms_per_iter": lockstep, "ratio_in_turns": seq,
+            "ratio_in_lockstep": lock, "step_calls": calls}
 
 
 def phase_paper(torch, dev):
     """The paper's experiments through the port, on the card, kernels on
     (the main path; launches counted across the runs): (1)
     examples/quickstart_torch.py at the reference's sizes, test accuracy
-    above 0.3; (2) examples/tpugraphs_ranking_torch.py, its assertion
-    (gst's ms_per_iter above gst_e's) holding, then its gst and gst_e
-    runs in turns and a step of each profiled (``ranking_turns``, off
+    above 0.3; (2) examples/tpugraphs_ranking_torch.py (its four runs'
+    steps in lockstep), its assertion (gst's ms_per_iter above gst_e's)
+    holding, then its gst and gst_e runs one after the other in turns and
+    in lockstep, and a step of each profiled (``ranking_turns``, off
     the launch count); (3) ``python -m
     repro_torch.paper.run --quick --device cuda`` over all nine entries
     (the kernels entry in a second call, its timing launches kept off the
@@ -3704,6 +3852,182 @@ def phase_recurrent_pieces(torch, dev):
     return out
 
 
+def debug_values(torch, cfg, spec, dev, seed=0):
+    """Real arguments of a train StepSpec (``launch/specs.py``): random
+    weights and table, zero moments, a batch and its draws, from ``seed``."""
+    from repro_torch.core.embedding_table import EmbeddingTable
+    from repro_torch.models import transformer
+    from repro_torch.models.common import dense_init
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    state, batch, draws = spec.args
+    n, J, d = state["table"].emb.shape
+    B, S = draws[0].shape
+    L = batch["seg_inputs"]["tokens"].shape[-1]
+    head = {"w1": dense_init(d, d, gen), "b1": torch.zeros(d, device=dev),
+            "w2": dense_init(d, cfg.gst_num_classes, gen),
+            "b2": torch.zeros(cfg.gst_num_classes, device=dev)}
+
+    def randint(hi, shape, dtype=torch.int64):
+        return torch.randint(0, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    table = EmbeddingTable(
+        torch.randn(n, J, d, generator=gen, device=dev),
+        randint(3, (n, J), torch.int32),
+        torch.rand(n, J, generator=gen, device=dev) < 0.5)
+    zeros = [torch.zeros(m.shape, device=dev) for m in state["mu"]]
+    valid = torch.ones(B, J, device=dev)
+    valid[: B // 2, -1] = 0.0              # half the rows one segment short
+    state = {"backbone": transformer.init_params(gen, cfg, torch.float32),
+             "head": head, "mu": zeros, "nu": [z.clone() for z in zeros],
+             "table": table, "step": 3}
+    batch = {"seg_inputs": {"tokens": randint(cfg.vocab_size, (B, J, L),
+                                              torch.int32)},
+             "seg_valid": valid,
+             "graph_ids": torch.randperm(n, generator=gen, device=dev)[:B]
+             .to(torch.int32),
+             "labels": randint(cfg.gst_num_classes, (B,), torch.int32)}
+    draws = (randint(J - 1, (B, S)), torch.rand(B, J, generator=gen,
+                                                device=dev))
+    return state, batch, draws
+
+
+def dryrun_debug_step(torch, dev):
+    """(b) of phase_dryrun: a reduced SEQ_ARCH train step at (seq, batch)
+    DRYRUN_DEBUG run for real on DTensors on the 1x1 debug mesh against
+    the plain step and the fake trace (see phase_dryrun)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, sharding as SH, specs as SP
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    cfg = reduced(get_config(SEQ_ARCH))
+    seq, batch = DRYRUN_DEBUG
+    shape = InputShape("train_4k", seq, batch, "train")
+    with make_debug_mesh(dev.type) as mesh:
+        spec = SP.build_train_spec(cfg, shape, mesh, dtype=torch.float32,
+                                   device=dev.type)
+        fake = dryrun.trace_spec(cfg, shape, spec, mesh, device=dev.type)
+        values = debug_values(torch, cfg, spec, dev)
+
+        def clone(tree):
+            return tuple(SH.tree_map(lambda x: x.clone() if isinstance(
+                x, torch.Tensor) else x, t) for t in tree)
+
+        plain = clone(values)
+        _, plain_m = spec.fn(*plain)
+        args = SP.materialize(spec, mesh, dev, values=clone(values))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        calls = dryrun.DTensorCalls()   # as the fake trace makes its calls
+        with implicit_replication(), calls, \
+                FlopCounterMode(display=False) as fc:
+            _, m = spec.fn(*args)
+        torch.cuda.synchronize()
+        real_temp = torch.cuda.max_memory_allocated() - before
+        loss = float(m["loss"].full_tensor())
+        loss_diff = abs(loss - float(plain_m["loss"]))
+        # AdamW's first moment after one step is 0.1 x the clipped
+        # gradient; a parameter is compared where its gradient is above
+        # the 1e-6 noise floor, under which Adam's eps makes the update
+        # ill-conditioned (tests/test_torch_dist.py's rule)
+        order = SP.module_order(args[0]["backbone"]) + SP.module_order(
+            args[0]["head"])
+        want = SP.module_order(plain[0]["backbone"]) + SP.module_order(
+            plain[0]["head"])
+        grad_diff = param_diff = 0.0
+        for (_, x), (_, p), mu, pmu in zip(order, want, args[0]["mu"],
+                                           plain[0]["mu"]):
+            g, pg = mu.full_tensor() / 0.1, pmu / 0.1
+            grad_diff = max(grad_diff, max_diff(torch, g, pg))
+            live = pg.abs() > 1e-6
+            if live.any():
+                param_diff = max(param_diff, max_diff(
+                    torch, x.full_tensor()[live], p[live]))
+    if loss_diff > TOL or param_diff > TOL or grad_diff > GRAD_TOL:
+        raise AssertionError(
+            f"[dryrun] (b) the DTensor step differs from the plain step: "
+            f"loss {loss_diff}, parameters {param_diff} (> {TOL}?), "
+            f"gradients {grad_diff} (> {GRAD_TOL}?)")
+    flops = fc.get_total_flops()
+    if flops != fake["flops_per_device"]:
+        raise AssertionError(f"[dryrun] (b) FlopCounterMode {flops} vs the "
+                             f"fake trace's {fake['flops_per_device']}")
+    ma = fake["memory_analysis"]
+    log(f"[dryrun] (b) reduced {SEQ_ARCH} train step, seq {seq} batch "
+        f"{batch}, f32, real on the 1x1 debug mesh: loss {loss:.6f} within "
+        f"{loss_diff:.3e} of the plain step's, {len(order)} updated "
+        f"parameters within {param_diff:.3e} (gradients above 1e-6), "
+        f"gradients within {grad_diff:.3e}; FLOPs {flops} = the fake "
+        f"trace's; fake trace temp "
+        f"{ma['temp_bytes']} B (peak {ma['peak_bytes']} B with "
+        f"{ma['arg_bytes']} B of arguments) vs the real step's "
+        f"max_memory_allocated {real_temp} B above the {before} B before it")
+    return {"loss_diff": loss_diff, "param_diff": param_diff,
+            "grad_diff": grad_diff, "flops": flops,
+            "replicated_calls": calls.replicated,
+            "local_scatter_calls": calls.local, "fake_memory": ma,
+            "real_temp_bytes": real_temp, "allocated_before": before}
+
+
+def phase_dryrun(torch, dev):
+    """The production-mesh dry run (``repro_torch.launch.dryrun``): (a)
+    SEQ_ARCH at every shape on the single-pod (16, 16) mesh of a fake
+    group, fake tensors on the card's device type, every row ok, each
+    trace's seconds printed, the rows written to DRYRUN_DIR; (b) on the 1x1
+    debug mesh, a reduced SEQ_ARCH train step at (seq, batch) DRYRUN_DEBUG
+    run for real on DTensors: loss and updated parameters (where the
+    gradient is above 1e-6) within TOL of the plain step's (the same
+    function on plain tensors), gradients within GRAD_TOL, its
+    FlopCounterMode count equal to the fake trace's, the fake trace's
+    peak printed beside the real step's max_memory_allocated; (c) the
+    paper suite's roofline entry over (a)'s rows."""
+    from repro_torch.launch import dryrun
+    from repro_torch.paper import paper_tables
+
+    out = {}
+    # (a)
+    rows = [dryrun.run_one(SEQ_ARCH, shape, False, device=dev.type)
+            for shape in DRYRUN_SHAPES]
+    bad = [r for r in rows if r["status"] != "ok"]
+    if bad:
+        raise AssertionError(f"[dryrun] rows not ok: {bad}")
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    path = DRYRUN_DIR / "dryrun_single.json"
+    path.write_text(json.dumps(rows, indent=1, default=str))
+    log(f"[dryrun] (a) {SEQ_ARCH} on single(16,16), fake {dev.type} "
+        "tensors: " + ", ".join(
+            f"{r['shape']} ok in {r['trace_s']} s (dominant {r['dominant']}, "
+            f"useful {r['useful_flops_ratio']:.4f}, peak/dev "
+            f"{r['memory_analysis']['peak_bytes'] / 2**30:.2f} GiB)"
+            for r in rows))
+    out["rows"] = [{k: r[k] for k in ("shape", "trace_s", "terms_seconds",
+                                      "dominant", "useful_flops_ratio",
+                                      "flops_per_device", "bytes_per_device",
+                                      "collective_bytes_per_device",
+                                      "memory_analysis", "replicated_calls",
+                                      "local_scatter_calls")}
+                   for r in rows]
+
+    # (b)
+    out["debug_step"] = dryrun_debug_step(torch, dev)
+
+    # (c)
+    rows = paper_tables.roofline_table(device=dev.type, path=str(path))
+    if len(rows) != 4 * len(DRYRUN_SHAPES) or any(
+            "missing" in r[0] or "H100" not in r[2] for r in rows):
+        raise AssertionError(f"[dryrun] (c) roofline rows: {rows}")
+    log(f"[dryrun] (c) the paper suite's roofline entry: {len(rows)} rows "
+        "over the H100's constants")
+    out["roofline_rows"] = rows
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rows, headline):
     head = rows[headline]
     return {"name": name, "route": "cuda", "source": source,
@@ -3853,6 +4177,11 @@ def main() -> int:
     family_launches, seq_families = phase_seq_families(torch, dev)
     main_launches["swa_attention"] += family_launches
     recurrent = phase_recurrent_pieces(torch, dev)
+    dryrun = phase_dryrun(torch, dev)
+    base = DIST_ARGS[:DIST_ARGS.index("--epochs")]
+    telemetry["torchrun"] = telemetry_torchrun(
+        base + PREFETCH_EPOCHS + ["--exchange", "ring", "--payload-dtype",
+                                  "int8"])
 
     csrc = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -3908,7 +4237,8 @@ def main() -> int:
                     "dist_profile": dist_profile,
                     "dist_scaling_ms": dist_scaling, "seq_serve": seq_serve,
                     "seq_families": seq_families,
-                    "recurrent_pieces": recurrent, "card": smi,
+                    "recurrent_pieces": recurrent, "dryrun": dryrun,
+                    "card": smi,
                     "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

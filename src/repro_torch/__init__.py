@@ -14,8 +14,11 @@ Slice 4 is sequence-track serving of the dense transformers:
 ``launch/serve.py`` and ``models/registry.py::Model``, whose full-sequence
 passes run the attention kernel ``kernels/csrc/swa_attention.cu``; later
 slices serve the other families, add the tiered store, the prefetch lane
-of distributed training (``--prefetch-lookups``) and sequence-track
-training (``launch/train.py --track seq|lm``).
+of distributed training (``--prefetch-lookups``), sequence-track
+training (``launch/train.py --track seq|lm``), telemetry (``obs/``, under
+``torchrun`` too), the paper's experiments (``paper/``) and the
+production-mesh dry run (``launch/dryrun.py`` over ``launch/mesh.py``,
+``sharding.py``, ``specs.py`` and ``roofline/analysis.py``).
 
 Device rule: entry points run on ``cuda`` unless the caller asks for the
 CPU; asking for ``cuda`` where no card is visible raises.  TF32 is switched

@@ -4,7 +4,9 @@ Counterpart of ``src/repro/graphs/experiment.py``.  Runs one (dataset,
 backbone, variant) cell of the paper's tables on the synthetic MalNet-like /
 TpuGraphs-like datasets: GST training (Algorithm 1/2) with the optional
 head-finetuning phase, returning train/test metrics and the wall-clock time
-per iteration (Table 3 analogue).
+per iteration (Table 3 analogue).  ``run_in_lockstep`` runs several such
+experiments with their timed train steps interleaved, so that their times
+per iteration are taken under the same host conditions.
 
 The data split, the batch order and the epoch structure are the
 reference's, from the same numpy generators.  The step's random draws come
@@ -25,7 +27,8 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import (Callable, Dict, Generator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -110,7 +113,7 @@ def load_datasets(dataset: str, n_graphs: int, max_seg_nodes: int, *,
     return track, ds, ds_test
 
 
-def run_experiment(
+def experiment_steps(
     *,
     dataset: str = "malnet",          # malnet | tpugraphs
     backbone: str = "sage",           # gcn | sage | gps
@@ -139,8 +142,12 @@ def run_experiment(
     weights: Optional[Tuple] = None,
     obs=None,                         # optional repro_torch.obs.Obs bundle:
                                       # a tick an epoch (its interval)
-) -> ExperimentResult:
-    """``device``: "cuda" (the default; raises where no card is visible) or
+) -> Generator[None, None, ExperimentResult]:
+    """One experiment as a generator: it yields after each timed train
+    step and returns the ``ExperimentResult`` when it ends
+    (``run_experiment`` runs it alone, ``run_in_lockstep`` beside others).
+
+    ``device``: "cuda" (the default; raises where no card is visible) or
     "cpu".  ``use_kernels``: route the SpMM and the SED pooling through the
     port's kernels (the plain versions on a CPU tensor).
 
@@ -246,6 +253,7 @@ def run_experiment(
                 iter_times.append(time.perf_counter() - t0)
                 ep_metrics.append(float(m["metric"]))
                 ep_losses.append(float(m["loss"]))
+                yield
             last_train = float(np.mean(ep_metrics))
             epoch_losses.append(float(np.mean(ep_losses)))
             # resident rows rewritten this epoch re-report their device
@@ -297,3 +305,37 @@ def run_experiment(
         finetuned=finetuned, store_stats=store_stats,
         train_steps=train_steps, finetune_steps=finetune_steps,
         epoch_losses=epoch_losses, table=table)
+
+
+def run_experiment(**kwargs) -> ExperimentResult:
+    """One experiment run to its end; the arguments of
+    ``experiment_steps``."""
+    return run_in_lockstep([kwargs])[0]
+
+
+def run_in_lockstep(configs: Sequence[Dict]) -> List[ExperimentResult]:
+    """Several experiments (``experiment_steps``' arguments each) with
+    their timed train steps interleaved: one step of each in turn, the
+    run that goes first rotating from turn to turn.  On the card a graph
+    step is host bound and the host's speed drifts from second to second,
+    so runs made one after the other also compare the drift; in lockstep
+    it falls on every run alike.  Each run's results are those it gives
+    alone (its own generators, store and state); only its timings are
+    taken beside the others'."""
+    runs = [experiment_steps(**c) for c in configs]
+    results: List[Optional[ExperimentResult]] = [None] * len(runs)
+    try:
+        live, turn = list(range(len(runs))), 0
+        while live:
+            k = turn % len(live)
+            for i in live[k:] + live[:k]:
+                try:
+                    next(runs[i])
+                except StopIteration as done:
+                    results[i] = done.value
+            live = [i for i in live if results[i] is None]
+            turn += 1
+    finally:  # a run that raised: close the others' stores
+        for r in runs:
+            r.close()
+    return results

@@ -59,8 +59,15 @@ spans; once a train step, from the main loop (not the shard threads),
 shard, and on the prefetch lane ``exchange.prefetch.*`` with the step's
 patched rows; each epoch the store's counters, a staleness probe of the
 whole table and a tick; at the end ``store.wb_skip_rate`` and the summary
-(``wall_s``, ``train_metric``).  Telemetry of a ``torchrun`` run (one
-shard a process) is not ported and raises.
+(``wall_s``, ``train_metric``).  Under ``torchrun`` (one shard a
+process) rank 0 opens the telemetry and writes every file; the other ranks
+run a null ``Obs`` and write none.  Where the thread run reads all its
+shards (the staleness probe's ages over the whole table, the store's
+counters), the ranks gather to rank 0 over the group at the same points
+(:func:`_gathered`), so the stream equals the thread run's on every key
+but timings; what the thread run records for one shard (the exchange
+bytes) stays one shard's, and a ``--mem-probe`` ``dist.*`` record covers
+rank 0's shard (``"shards": 1``, ``"world_size": D``).
 
     PYTHONPATH=src python -m repro_torch.launch.train_dist --device cpu \
         --devices 2 --exchange ring --payload-dtype int8 --epochs 2 \
@@ -394,19 +401,64 @@ def setup(args) -> DistSetup:
         pxbytes=pxbytes)
 
 
+def _ranked(ctx) -> bool:
+    """A torchrun run: one shard a process."""
+    return isinstance(ctx.group, ProcessGroup)
+
+
+def _gathered(ctx, obj) -> list:
+    """Every rank's ``obj`` in rank order under torchrun (every rank must
+    call), ``[obj]`` for the thread run.  Outside the comm's counters: it
+    is telemetry, not exchange traffic."""
+    if not _ranked(ctx):
+        return [obj]
+    import torch.distributed as dist
+
+    out = [None] * ctx.num_shards
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def table_ages_init(s: "DistSetup", tables):
+    """(ages, initialized) over the whole table, as the staleness probe
+    reads them: every shard's rows, gathered from the ranks under
+    torchrun (all ranks call; rank 0's is the answer)."""
+    if not _ranked(s.ctx):
+        return s.store.ages_init(tables)
+    parts = _gathered(s.ctx, s.store.local_ages_init(tables))
+    return tuple(np.concatenate([p[k] for p in parts])[:s.ds.n]
+                 for k in (0, 1))
+
+
+def fold_store_counters(s: "DistSetup", folded: dict) -> None:
+    """Under torchrun, add the other ranks' shard-local store counters
+    (moved since the last fold, ``folded`` per rank) into rank 0's store,
+    which then counts what the thread run's one store over every shard
+    does (all ranks call)."""
+    if not _ranked(s.ctx):
+        return
+    parts = _gathered(s.ctx, s.store.counters.shard_local())
+    if s.ctx.local_ranks[0] != 0:
+        return
+    for r, part in enumerate(parts[1:], 1):
+        prev = folded.get(r, dict.fromkeys(part, 0))
+        s.store.fold_counters({k: part[k] - prev[k] for k in part})
+        folded[r] = part
+
+
 def run(args, log=print) -> DistResult:
-    if "WORLD_SIZE" in os.environ and any(getattr(args, k, None) for k in (
-            "metrics", "metrics_out", "trace_out")):
-        raise NotImplementedError(
-            "telemetry of a torchrun run (one shard a process) is not "
-            "ported: run the shards as threads (--devices) for a stream")
     s = setup(args)
     try:
-        obs = Obs.from_args(args, run="train_dist", variant=args.variant,
-                            devices=s.ctx.num_shards,
-                            exchange=s.ctx.exchange,
-                            payload_dtype=s.step.exchanges[0].payload_dtype,
-                            epochs=args.epochs, batch_size=args.batch_size)
+        if _ranked(s.ctx) and s.ctx.local_ranks[0] != 0:
+            obs = Obs()     # rank 0 writes the run's telemetry
+        else:
+            obs = Obs.from_args(
+                args, run="train_dist", variant=args.variant,
+                devices=s.ctx.num_shards, exchange=s.ctx.exchange,
+                payload_dtype=s.step.exchanges[0].payload_dtype,
+                epochs=args.epochs, batch_size=args.batch_size)
+            if _ranked(s.ctx):
+                obs.probe.world_size = s.ctx.num_shards
         try:
             return _run(s, log, obs)
         finally:
@@ -452,6 +504,10 @@ def _run(s: DistSetup, log, obs) -> DistResult:
     def tables():
         return [st.table for st in states]
 
+    # the gathers of a torchrun run happen on every rank, where rank 0's
+    # registry is on (obs.enabled there)
+    collect = bool(args.metrics or args.metrics_out or args.mem_probe)
+    folded: dict = {}
     probe = StalenessProbe(keep_prob=args.keep_prob,
                            num_sampled=args.num_sampled,
                            seg_valid=ds.seg_valid,
@@ -498,11 +554,14 @@ def _run(s: DistSetup, log, obs) -> DistResult:
         # resident rows rewritten this epoch re-report their device ages to
         # the eviction bookkeeping (no-op under plain LRU)
         s.store.refresh_ages(tables())
+        if collect:
+            fold_store_counters(s, folded)
+            ages = table_ages_init(s, tables())
         if obs.enabled:
             # per-epoch rates (the registry's delta()) and a staleness
             # probe of the whole table
             s.store.publish_counters()
-            stale = probe.observe(s.store, tables(), s.hint)
+            stale = probe.observe_ages(*ages, s.hint)
             d = None
             if obs.exporter is None:
                 d = obs.registry.delta()
@@ -559,6 +618,8 @@ def _run(s: DistSetup, log, obs) -> DistResult:
         f"host blocked {blocked:.2f} ms/batch ({args.feeder})", flush=True)
     if tiered:
         log(f"  {_store_line(s.store)}", flush=True)
+    if collect:
+        fold_store_counters(s, folded)
     if obs.enabled:
         s.store.publish_counters()
         probe.observe_store_counters(s.store.counters.as_dict())

@@ -211,10 +211,10 @@ def apply_mrope(x, positions_thw, theta: float, sections: Tuple[int, ...]):
     if sum(sections) != half:
         raise ValueError(f"M-RoPE sections {sections} must sum to D/2 = {half}")
     inv = rope_freqs(x.shape[-1], theta, x.device)  # (half,)
-    # per-frequency position: section 0 -> t, 1 -> h, 2 -> w
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))  # (half,)
+    # per-frequency position: section 0 -> t, 1 -> h, 2 -> w (made on the
+    # host: a fake tensor of the dry run cannot size a repeat by its data)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # (half,)
     pos = positions_thw.float()[..., sec_id]  # (B, S, half)
     return _rotate(x, pos * inv)
 
@@ -238,9 +238,10 @@ def write_cache(cache, new, idx):
     ``new`` into slot ``idx`` of each row of ``cache`` in place and returns
     ``cache``: the values of the reference's default "onehot" update,
     cache·(1 − oh) + oh·new, without rewriting the whole cache."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, idx.long()] = new[:, 0]
-    return cache
+    at = idx.long().reshape((-1, 1) + (1,) * (cache.dim() - 2))
+    # a scatter along the slot axis keeps the batch and head axes free to
+    # be sharded (a DTensor cache of the dry run, launch/specs.py)
+    return cache.scatter_(1, at.expand(new.shape), new)
 
 
 def attn_params(generator: torch.Generator, d_model: int, num_heads: int,

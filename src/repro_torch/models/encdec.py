@@ -16,6 +16,7 @@ stacks them for ``lax.scan``; a Python loop takes the place of the scan.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (
@@ -98,7 +99,7 @@ def decoder_forward(params, cfg: ArchConfig, tokens, enc_out, *,
     """Teacher-forced decoder pass.  Returns (hidden, (k, v) self-attention
     caches, each (L, B, S, KV, hd), or None)."""
     B, S = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = F.embedding(tokens.long(), params["embed"])
     x = x + sinusoidal_positions(S, cfg.d_model, x.dtype, x.device)[None]
     pos = torch.arange(S, device=x.device)[None].expand(B, S)
     xk, xv = cross_kv(params, cfg, enc_out)
@@ -134,7 +135,7 @@ def decode_step(params, cfg: ArchConfig, token, self_cache, xkv, cache_pos):
     """token: (B, 1); self_cache: stacked (L, B, C, KV, hd), written in
     place and returned; xkv: the cross K/V of ``cross_kv``; cache_pos: (B,).
     Returns (logits (B, 1, vocab), self_cache)."""
-    x = params["embed"][token.long()]
+    x = F.embedding(token.long(), params["embed"])
     # the sinusoidal position embedding at the current step
     C = self_cache["k"].shape[2]
     x = x + sinusoidal_positions(C, cfg.d_model, x.dtype,

@@ -113,8 +113,10 @@ def rwkv_timemix(p, x, cfg: ArchConfig, state=None, shift_prev=None):
     bonus = (r * u * k).sum(-1, keepdim=True) * v        # (B, S, H, N)
 
     def steps(t, axis):  # S views of (B·H, N), a unit axis at ``axis``
-        t = t.reshape(B, S, H, N).transpose(0, 1).reshape(S, B * H, N)
-        return t.unsqueeze(axis + 1).unbind(0)
+        # time leads before the unbind, so it is never a sharded axis (a
+        # DTensor of the dry run, launch/specs.py); each step is a view
+        t = t.reshape(B, S, H, N).transpose(0, 1).contiguous()
+        return [x.reshape(B * H, N).unsqueeze(axis) for x in t.unbind(0)]
 
     s = state.float().reshape(B * H, N, N)
     ys = []

@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks as B
@@ -106,8 +107,10 @@ def _build_positions(cfg: ArchConfig, batch: int, seq: int, device=None):
 def _embed(params, cfg: ArchConfig, tokens, patches=None):
     """The token embeddings; where ``patches`` (B, P, d) are given (the
     VLM's stub modality front end), they take the first P positions of the
-    gathered copy (``params["embed"]`` is not written)."""
-    x = params["embed"][tokens.long()]
+    gathered copy (``params["embed"]`` is not written).  ``F.embedding``,
+    not indexing: the same rows, and its backward has a sharding strategy
+    of its own in DTensor (the dry run's train step, launch/specs.py)."""
+    x = F.embedding(tokens.long(), params["embed"])
     if patches is not None and cfg.vision_prefix_len:
         x[:, :patches.shape[1]] = patches.to(x.dtype)
     return x

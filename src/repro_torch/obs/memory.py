@@ -28,8 +28,9 @@ The allocator counts per device, so a ``dist.*`` record is the whole
 card's for its D shards; a dispatch mode sees one thread, so in
 accounting mode each shard thread runs under a mode of its own
 (:func:`in_shard`) and the record sums the shards' peaks.  Either way a
-sharded record carries ``"shards": D``.  The reference's records are per
-device.  There is no ``"error"`` mode: a call that raises propagates (it
+sharded record carries ``"shards": D``.  Under ``torchrun`` a process is
+one shard: its record says ``"shards": 1`` and the run's ``world_size``.
+The reference's records are per device.  There is no ``"error"`` mode: a call that raises propagates (it
 is the run's own step), and ``cost`` is None.
 
 Per measurement the probe publishes, as the reference does:
@@ -303,6 +304,9 @@ class MemoryProbe:
         self._lock = threading.Lock()
         self._records: Dict[Tuple[str, str], Dict[str, Any]] = {}
         self._host_bytes: Dict[str, int] = {}
+        # a torchrun run's world size: its sharded records cover this
+        # process's shard ("shards": 1) of that many
+        self.world_size: Optional[int] = None
 
     # -- device-side capture ----------------------------------------------
 
@@ -331,6 +335,8 @@ class MemoryProbe:
             with self._lock:       # the run's own call failed: no record
                 self._records.pop(key, None)
             raise
+        if self.world_size and "shards" in measured:
+            measured["world_size"] = self.world_size
         with self._lock:
             rec.update(measured)
         self._publish(site, rec)

@@ -20,8 +20,12 @@ the port measures with its own tools:
   plain versions at the same shapes and, on a card, adds a row for each
   hand-written kernel, timed with CUDA events behind a sleep kernel after
   a warm-up; ``derived`` carries the card's name and power limit.
-* ``roofline``: the reference reads a dry run's JSON, whose numbers are a
-  TPU's.  The port has no dry run (ROADMAP A4c) and prints only the
+* ``roofline``: the reference reads a dry run's JSON, whose terms are a
+  TPU's.  The port reads its own dry run's (``python -m
+  repro_torch.launch.dryrun --out ...``; ``path``, by default
+  ``build/dryrun_single.json``), whose terms are over the H100's constants
+  (``roofline/analysis.py::HW``), and emits the reference's rows; each
+  ``derived`` names those constants.  Without the file it prints the
   missing row.
 * ``table6``: ``louvain`` falls back to BFS where networkx cannot be
   imported (``graphs/partition.py``); that row's ``derived`` then says so.
@@ -307,14 +311,42 @@ def kernels_bench(quick: bool = False, device="cuda") -> List[Row]:
 
 
 # ---------------------------------------------------------------------------
-# Roofline — the reference dumps a TPU dry run's table; the port has none
+# Roofline — dump the dry run's table (single-pod baselines)
 # ---------------------------------------------------------------------------
 
+DRYRUN_JSON = "build/dryrun_single.json"
 
-def roofline_table(quick: bool = False, device="cuda") -> List[Row]:
-    return _emit([("roofline/missing", 0.0,
-                   "the port has no dry run yet (ROADMAP A4c); the JAX "
-                   "dry run's terms are a TPU's")])
+
+def roofline_table(quick: bool = False, device="cuda",
+                   path: str = DRYRUN_JSON) -> List[Row]:
+    import json
+    import os
+
+    if not os.path.exists(path):
+        return _emit([("roofline/missing", 0.0,
+                       "run python -m repro_torch.launch.dryrun --mesh "
+                       f"single --out {path} first")])
+    from repro_torch.roofline.analysis import HW   # imports DTensor's stack
+
+    hw = HW()
+    card = (f"H100 {hw.peak_flops:.4g} FLOP/s bf16, {hw.hbm_bw:.4g} B/s "
+            f"HBM, {hw.link_bw:.4g} B/s NVLink")
+    with open(path) as f:
+        results = json.load(f)
+    rows: List[Row] = []
+    for r in results:
+        if r.get("status") != "ok":
+            continue
+        t = r["terms_seconds"]
+        name = f"roofline/{r['arch']}/{r['shape']}"
+        for term in ("compute", "memory", "collective"):
+            rows.append((f"{name}/{term}_s", f"{t[term]:.3e}",
+                         f"{r['dominant']};{card}"))
+        if "useful_flops_ratio" in r:
+            rows.append((name + "/useful_flops_ratio",
+                         round(r["useful_flops_ratio"], 4),
+                         f"6ND/matmul FLOPs;{card}"))
+    return _emit(rows)
 
 
 ALL_BENCHES = {

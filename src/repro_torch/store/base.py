@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import ClassVar, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -79,6 +79,15 @@ class StoreCounters:
     # bytes when the writer thread lands the eviction
     wb_skipped_rows: int = 0
     wb_skipped_bytes: int = 0
+
+    # the fields a process counts for its own shards only under torchrun
+    # (the write-back lane settles the local host tiers); the others every
+    # process counts for the whole table
+    SHARD_LOCAL: ClassVar[tuple] = ("writeback_wait_ms", "wb_skipped_rows",
+                                    "wb_skipped_bytes")
+
+    def shard_local(self) -> dict:
+        return {f: getattr(self, f) for f in self.SHARD_LOCAL}
 
     def as_dict(self) -> dict:
         total = max(self.lookups, 1)
@@ -267,6 +276,25 @@ class EmbeddingStore:
         """(ages (n_rows, J), initialized (n_rows, J)) as numpy."""
         raise NotImplementedError
 
+    def local_ages_init(self, tables):
+        """(ages, initialized) of this process's shards, each shard's
+        rows_per_shard rows in shard order, as numpy: a torchrun run
+        gathers them from every rank into ``ages_init``'s view."""
+        raise NotImplementedError
+
+    def _counter_lock(self):
+        return self._publish_mu
+
+    def fold_counters(self, moved: dict) -> None:
+        """Add another process's shard-local counter movement (the
+        ``StoreCounters.SHARD_LOCAL`` fields) to this store's counters, so
+        rank 0 of a torchrun run counts what one store over every shard
+        does; the skipped write-back bytes were counted as moved."""
+        with self._counter_lock():
+            for f, v in moved.items():
+                setattr(self._counters, f, getattr(self._counters, f) + v)
+            self._counters.bytes_d2h -= moved["wb_skipped_bytes"]
+
     def refresh_ages(self, tables) -> None:
         """Re-report device-plane ages to the eviction bookkeeping; a no-op
         for backends whose eviction never consults ages."""
@@ -351,8 +379,12 @@ class DeviceStore(EmbeddingStore):
         tables, _ = shard_tables(tables)
         if len(tables) != self.num_shards:
             raise ValueError("ages_init needs every shard's table")
-        return tuple(torch.cat([getattr(t, k).cpu() for t in tables])
-                     [:self.n_rows].numpy() for k in ("age", "initialized"))
+        return tuple(x[:self.n_rows] for x in self.local_ages_init(tables))
+
+    def local_ages_init(self, tables):
+        tables, _ = shard_tables(tables)
+        return tuple(torch.cat([getattr(t, k).cpu() for t in tables]).numpy()
+                     for k in ("age", "initialized"))
 
     def occupancy(self) -> int:
         return min(self.n_rows, self.device_rows)

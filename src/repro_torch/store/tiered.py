@@ -549,12 +549,13 @@ class TieredStore(EmbeddingStore):
         return (np.asarray([r - shard * R for r, _ in items], np.int64),
                 np.asarray([s for _, s in items], np.int64))
 
-    def _merged(self, tables, planes):
+    def _merged(self, tables, planes, local: bool = False):
         """The given planes (indices into the triple) of every shard's
         host tier with the resident rows overlaid from the device tables,
-        joined and cut to n_rows, on the host."""
+        joined and cut to n_rows, on the host (``local``: this process's
+        shards, uncut)."""
         tlist, _ = shard_tables(tables)
-        if len(self.local_shards) != self.num_shards:
+        if not local and len(self.local_shards) != self.num_shards:
             raise ValueError("a merged view needs every shard's tables in "
                              "this process")
         out = []
@@ -567,7 +568,8 @@ class TieredStore(EmbeddingStore):
                     host[torch.from_numpy(rows)] = table[k][
                         torch.from_numpy(slots).to(self.device)].cpu()
                 parts.append(host)
-            out.append(torch.cat(parts)[:self.n_rows])
+            out.append(torch.cat(parts) if local
+                       else torch.cat(parts)[:self.n_rows])
         return out
 
     def snapshot(self, tables) -> tbl.EmbeddingTable:
@@ -656,6 +658,13 @@ class TieredStore(EmbeddingStore):
         read one migration stale; ``snapshot`` is the consistent view."""
         age, init = self._merged(tables, (1, 2))
         return age.numpy(), init.numpy()
+
+    def local_ages_init(self, tables):
+        age, init = self._merged(tables, (1, 2), local=True)
+        return age.numpy(), init.numpy()
+
+    def _counter_lock(self):
+        return self._mu
 
     def close(self) -> None:
         if self._own_writer:

@@ -21,7 +21,8 @@ from repro.core import gst as JG  # noqa: E402
 from repro.graphs.experiment import run_experiment as jax_run  # noqa: E402
 from repro.graphs.gnn import GNNConfig as JGNNConfig  # noqa: E402
 from repro.graphs.gnn import gnn_init as jgnn_init  # noqa: E402
-from repro_torch.graphs.experiment import run_experiment  # noqa: E402
+from repro_torch.graphs.experiment import (  # noqa: E402
+    run_experiment, run_in_lockstep)
 from repro_torch.launch import train  # noqa: E402
 
 SMALL = dict(n_graphs=16, max_seg_nodes=24, hidden=8, batch_size=4,
@@ -61,6 +62,56 @@ def test_own_draws_are_reproducible():
     a, b = run_experiment(**kw), run_experiment(**kw)
     assert (a.train_metric, a.test_metric) == (b.train_metric, b.test_metric)
     assert not a.finetuned and np.isfinite(a.test_metric)
+
+
+LOCKSTEP = [dict(dataset="tpugraphs", backbone="sage", variant="gst"),
+            dict(dataset="tpugraphs", backbone="sage", variant="gst_e"),
+            dict(dataset="malnet", backbone="gcn", variant="gst_efd")]
+
+
+def test_runs_in_lockstep_end_as_they_do_alone():
+    """Each run of ``run_in_lockstep`` gives what it gives alone: metrics,
+    per-epoch losses, step counts and the final table bitwise (the
+    gst_efd run with its finetuning phase)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        kws = [dict(kw, device="cpu", **SMALL) for kw in LOCKSTEP]
+        alone = [run_experiment(**kw) for kw in kws]
+        together = run_in_lockstep(kws)
+    finally:
+        torch.set_num_threads(threads)
+    for a, b in zip(alone, together):
+        assert (a.variant, a.train_metric, a.test_metric, a.epoch_losses,
+                a.train_steps, a.finetune_steps, a.finetuned) == \
+            (b.variant, b.train_metric, b.test_metric, b.epoch_losses,
+             b.train_steps, b.finetune_steps, b.finetuned)
+        for x, y in zip(a.table, b.table):
+            assert torch.equal(x, y)
+        assert np.isfinite(b.ms_per_iter)
+    assert [r.finetuned for r in together] == [False, False, True]
+
+
+def test_lockstep_takes_one_step_of_each_in_turn():
+    """The train steps go one of each run in turn, the run that goes
+    first rotating: the step's ``draws`` hook records whose step it is."""
+    order = []
+
+    def draws(name):
+        def fn(epoch, step, seg_valid):
+            order.append((name, step))
+            b, j = seg_valid.shape
+            return np.zeros((b, 1), np.int64), np.full((b, j), 0.5, np.float32)
+        return fn
+
+    kws = [dict(kw, device="cpu", draws=draws(kw["variant"]), **SMALL)
+           for kw in LOCKSTEP]
+    together = run_in_lockstep(kws)
+    names = [kw["variant"] for kw in LOCKSTEP]
+    steps = together[0].train_steps
+    assert [r.train_steps for r in together] == [steps] * 3
+    assert order == [(names[(t + k) % 3], t) for t in range(steps)
+                     for k in range(3)]
 
 
 @pytest.mark.parametrize("variant", list(JG.VARIANTS))

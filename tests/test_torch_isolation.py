@@ -46,7 +46,10 @@ def test_importing_every_port_module_pulls_in_no_jax():
             "repro_torch.obs.staleness", "repro_torch.obs.bench_diff",
             "repro_torch.obs.memory", "repro_torch.obs.memory_sweep",
             "repro_torch.core.theory", "repro_torch.paper",
-            "repro_torch.paper.paper_tables", "repro_torch.paper.run"
+            "repro_torch.paper.paper_tables", "repro_torch.paper.run",
+            "repro_torch.roofline", "repro_torch.roofline.analysis",
+            "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+            "repro_torch.launch.specs", "repro_torch.launch.dryrun"
             } <= set(mods)
     code = (
         "import importlib, sys\n"

@@ -11,14 +11,13 @@ runs: tests/test_torch_obs_parity.py):
   * ``--mem-probe`` on every CLI records the JAX CLI's sites with as
     many calls a site (the train run over a capped table, so the store's
     sites too), ``mem.device.*`` lands in both summaries, and both gates
-    pass the port's stream under ``--expect-mem``; telemetry of a
-    torchrun run raises;
+    pass the port's stream under ``--expect-mem`` (a torchrun run's
+    telemetry: tests/test_torch_obs_torchrun.py);
   * telemetry on (with ``--mem-probe``) vs off is bitwise equal (losses,
     metrics, final table) with equal launch counts: graph, distributed
     inline and prefetched, and the sequence track (the counterpart of
     tests/test_obs.py::test_train_step_jaxpr_identical_with_obs_installed).
 """
-import argparse
 import json
 import os
 import subprocess
@@ -228,9 +227,3 @@ def test_mem_probe_sites_match_jax(cli, tmp_path, monkeypatch):
             assert any(n.startswith(fam) for n in names), (fam, names)
     assert _gates(gate) == (0, 0)
 
-
-def test_torchrun_telemetry_is_refused(monkeypatch):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    args = argparse.Namespace(metrics=True)
-    with pytest.raises(NotImplementedError, match="torchrun"):
-        train_dist.run(args)

@@ -7,7 +7,9 @@ entries, ``benchmarks/paper_tables.py`` (loaded from its path):
     ``run_experiment`` replaced by a recorder returning stub results);
   * ``fig1_memory`` and ``kernels`` on the CPU: the reference's row
     names, and GST's bytes below the full step's at the largest J;
-  * ``roofline`` prints only the missing row and opens no file;
+  * ``roofline`` without the port's dry-run JSON prints only the missing
+    row and opens no file (not the reference's TPU JSON either); with it,
+    the reference's rows from the same JSON, the H100's constants named;
   * with networkx hidden, the ``louvain`` row says that BFS ran;
   * ``python -m repro_torch.paper.run`` prints the reference runner's
     header, rows and timing lines, and imports no JAX.
@@ -143,9 +145,43 @@ def test_roofline_prints_only_the_missing_row(tmp_path, monkeypatch,
     rows = PT.roofline_table(quick=False, device="cpu")
     monkeypatch.undo()
     assert len(rows) == 1 and rows[0][:2] == ("roofline/missing", 0.0)
-    assert "A4c" in rows[0][2]
+    assert "repro_torch.launch.dryrun" in rows[0][2]
     assert capsys.readouterr().out.splitlines() == [
         f"roofline/missing,0.0,{rows[0][2]}"]
+
+
+def test_roofline_rows_equal_the_references_on_the_same_json(ref, tmp_path,
+                                                              capsys):
+    import json
+
+    def row(arch, shape, terms, ratio=None, status="ok"):
+        r = {"arch": arch, "shape": shape, "status": status,
+             "terms_seconds": dict(zip(("compute", "memory", "collective"),
+                                       terms)),
+             "dominant": ("compute", "memory", "collective")[
+                 max(range(3), key=lambda i: terms[i])]}
+        if ratio is not None:
+            r["useful_flops_ratio"] = ratio
+        return r
+
+    path = tmp_path / "dry.json"
+    path.write_text(json.dumps([
+        row("internlm2-1.8b", "train_4k", (0.0593, 0.544, 0.139), 0.81234567),
+        row("internlm2-1.8b", "decode_32k", (1.49e-4, 1.895, 1.41e-3)),
+        {"arch": "whisper-large-v3", "shape": "long_500k",
+         "mesh": "single", "status": "skipped (DESIGN.md §Skips)"},
+        {"arch": "arctic-480b", "shape": "long_500k", "mesh": "single",
+         "status": "FAIL: aten.scatter_.src"}]))
+    want = ref.roofline_table(path=str(path))
+    got = PT.roofline_table(device="cpu", path=str(path))
+    assert len(got) == len(want) == 7
+    assert [r[:2] for r in got] == [r[:2] for r in want]
+    for g, w in zip(got, want):
+        assert g[2].startswith(w[2].split("/")[0])
+        assert "H100 9.89e+14 FLOP/s bf16" in g[2] and "3.35e+12" in g[2]
+        assert not any(tpu in g[2] for tpu in ("TPU", "197", "819"))
+    out = capsys.readouterr().out.splitlines()
+    assert out[-len(got):] == [f"{n},{v},{d}" for n, v, d in got]
 
 
 def test_louvain_row_says_bfs_ran_without_networkx(monkeypatch, capsys):

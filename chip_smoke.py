@@ -234,7 +234,12 @@ its own):
                 step, gradients within 1e-4, its
                 FlopCounterMode count equal to the fake trace's, the fake
                 trace's peak beside max_memory_allocated; (c) the paper
-                suite's roofline entry over (a)'s rows (H100 constants)
+                suite's roofline entry over (a)'s rows (H100 constants);
+                (d) one full-size row per cleared fault: arctic-480b and
+                zamba2-1.2b train_4k, arctic-480b long_500k,
+                internlm2-1.8b decode_32k on multi(2,16,16), rwkv6-7b
+                train_4k, each ok, each train row's FLOPs at least
+                6 x active projection parameters x tokens
  12. kernels    one JSON line: per kernel, launches on the main path
                 (serving, training, distributed training, dist_prefetch,
                 the store's (a), (c) and (d), telemetry, memory, paper,
@@ -332,6 +337,13 @@ TELEMETRY_DIR = ROOT / "chiprun_out" / "telemetry"
 DRYRUN_DIR = ROOT / "chiprun_out" / "dryrun"
 DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 DRYRUN_DEBUG = (64, 4)
+# (d): one full-size row per fault the dry run cleared (ROADMAP §C7-C10):
+# (arch, shape, multi-pod mesh)
+DRYRUN_CLEARED = (("arctic-480b", "train_4k", False),     # C7: MoE backward
+                  ("zamba2-1.2b", "train_4k", False),     # C7: aten.flip
+                  ("arctic-480b", "long_500k", False),    # C8: seq_shard
+                  ("internlm2-1.8b", "decode_32k", True),  # C9: pod mesh
+                  ("rwkv6-7b", "train_4k", False))        # C10: token loop
 # the memory phase: the sweep's files and the --mem-probe streams; the
 # gate's bounds (--mem-growth-floor 2.0, 1 + --mem-epsilon 1.25), and
 # (m2)'s bar on GST's bytes a segment: at most 1/100 of full's
@@ -3986,7 +3998,10 @@ def phase_dryrun(torch, dev):
     function on plain tensors), gradients within GRAD_TOL, its
     FlopCounterMode count equal to the fake trace's, the fake trace's
     peak printed beside the real step's max_memory_allocated; (c) the
-    paper suite's roofline entry over (a)'s rows."""
+    paper suite's roofline entry over (a)'s rows; (d) the full-size rows
+    of DRYRUN_CLEARED, each ok, a train row's FLOPs at least
+    6·N_proj·tokens, their trace seconds and gathered and local calls
+    printed."""
     from repro_torch.launch import dryrun
     from repro_torch.paper import paper_tables
 
@@ -4025,7 +4040,70 @@ def phase_dryrun(torch, dev):
     log(f"[dryrun] (c) the paper suite's roofline entry: {len(rows)} rows "
         "over the H100's constants")
     out["roofline_rows"] = rows
+
+    # (d)
+    out["cleared"] = [dryrun_cleared_row(arch, shape, multi, dev)
+                      for arch, shape, multi in DRYRUN_CLEARED]
     return out
+
+
+def active_projection_params(cfg, train: bool) -> float:
+    """The parameters of the projections a token's step multiplies by:
+    the sharding rules' projections (not the embedding, a lookup, nor the
+    depthwise conv), an expert's counted top_k / num_experts times (the
+    roofline's active count), and no LM head in GST's train step, which
+    encodes segments."""
+    import re
+
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.specs import param_shapes
+
+    pats = [p for p, _ in SH._RULES if "embed" not in p and "conv_w" not in p]
+    leaves = {}
+    SH._tree_map_with_path(lambda p, leaf: leaves.__setitem__(p, leaf),
+                           param_shapes(cfg))
+    n = 0.0
+    for path, leaf in leaves.items():
+        if not any(re.search(p, path) for p in pats) or (
+                train and path.endswith("lm_head")):
+            continue
+        share = cfg.moe.top_k / cfg.moe.num_experts \
+            if "experts" in path and cfg.moe.num_experts else 1.0
+        n += leaf.numel() * share
+    return n
+
+
+def dryrun_cleared_row(arch, shape, multi, dev):
+    """(d) of phase_dryrun: one full-size row of the dry run that did not
+    trace before its fault was cleared; ok, and a train row's FLOPs at
+    least 6 x the active projection parameters x its tokens (the backward
+    was traced)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    row = dryrun.run_one(arch, shape, multi, device=dev.type, verbose=False)
+    mesh = "multi(2,16,16)" if multi else "single(16,16)"
+    if row["status"] != "ok":
+        raise AssertionError(f"[dryrun] (d) {arch} {shape} on {mesh}: "
+                             f"{row['status']}")
+    floor = None
+    if shape == "train_4k":
+        floor = 6 * active_projection_params(get_config(arch), True) * \
+            row["tokens_per_step"]
+        if row["flops_global"] < floor:
+            raise AssertionError(
+                f"[dryrun] (d) {arch} {shape}: FLOPs {row['flops_global']} "
+                f"under 6·N_proj·tokens {floor}: no backward traced?")
+    log(f"[dryrun] (d) {arch} {shape} on {mesh}: ok in {row['trace_s']} s, "
+        f"dominant {row['dominant']}, FLOPs {row['flops_global']:.4e}"
+        + (f" (floor 6·N_proj·tokens {floor:.4e})" if floor else "")
+        + f", replicated_calls {row['replicated_calls']}, "
+        f"local_scatter_calls {row['local_scatter_calls']}")
+    return {k: row[k] for k in ("arch", "shape", "mesh", "trace_s",
+                                "dominant", "terms_seconds", "flops_global",
+                                "bytes_per_device",
+                                "collective_op_counts", "replicated_calls",
+                                "local_scatter_calls")} | {"floor": floor}
 
 
 def kernel_entry(name, source, replaces, launches, rows, headline):

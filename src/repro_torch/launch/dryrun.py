@@ -22,6 +22,22 @@ Usage:
 A row carries the reference's keys, with ``trace_s`` in place of
 ``lower_s``/``compile_s``; a decode row its ``decode_plan``; a failure is
 a row with ``status: "FAIL: ..."``.  ``--head-aligned-sharding`` acts.
+
+Where the reference's partitioner (GSPMD) partitions what DTensor cannot,
+the trace does what GSPMD does, and the row counts it:
+
+* an op with no DTensor strategy at its operands' placements, in the
+  forward (:class:`DTensorCalls`) or in a backward (:class:`AtenCalls`,
+  one aten op at a time, inside the graph), runs on operands gathered
+  over the mesh's last axes (``replicated_calls``);
+* a decode step's write into a cache sharded along its slots
+  (``seq_shard``) goes to the shard that owns the slot
+  (``_local_scatter``, ``local_scatter_calls``);
+* on the multi-pod mesh the FSDP axes ('pod', 'data') are one flattened
+  mesh dim (``launch/mesh.py::dtensor_mesh``): the same shards;
+* rwkv6's token loop runs on each device's batch and heads, with no
+  collective inside (:data:`LOCAL_CALLS`); a long loop is counted from
+  its runs at 2 and 3 steps (:func:`counted_loop`).
 The reference's six speed switches (``--no-unroll``, ``--dispatch
 gather``, ``--cache-update dus``, ``--attn-impl chunked``,
 ``--mla-naive``, ``--gqa grouped``) raise: the port keeps only their
@@ -46,6 +62,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode, \
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map_only
 
 from repro_torch import resolve_device
@@ -55,7 +72,9 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.sharding import head_aligned_overrides
 from repro_torch.launch.specs import (StepSpec, build_step_spec,
                                       decode_plan, gst_geometry, materialize)
-from repro_torch.roofline.analysis import HW, analyze_trace, param_counts
+from repro_torch.models.rwkv6 import wkv_scan
+from repro_torch.roofline.analysis import HW, active_counter, \
+    analyze_trace, param_counts
 
 # the reference's speed switches: flag -> (its default, what the port does)
 SPEED_SWITCHES = {
@@ -84,13 +103,27 @@ def check_speed_switches(args) -> None:
             raise ValueError(f"{flag} cannot act in the port: {why}")
 
 
+# what DTensor says where it cannot partition an op at its operands'
+# placements (torch 2.11 and 2.13)
+_NO_STRATEGY = (
+    "Sharding propagation failed",
+    "does not have a sharding strategy",
+    # a local view its strategy assumed but the shard's strides refuse
+    # (2.11 in a forward; 2.13 in the MoE dispatch's backward)
+    "Cannot view a tensor with shape",
+    # 2.13: a view splitting a dim whose shard is not a whole number of
+    # the new dims (56 heads over a 16-way axis)
+    "Cannot unflatten unevenly sharded tensor",
+    # 2.13: an in-place op whose strategy would move its target
+    "require placement changes",
+)
+_ERRORS = (RuntimeError, NotImplementedError, ValueError)
+
+
 def _no_strategy(e: Exception) -> bool:
-    """DTensor cannot partition the call at its operands' placements: no
-    strategy, or (torch 2.11) a local view its strategy assumed."""
+    """DTensor cannot partition the op at its operands' placements."""
     msg = str(e)
-    return ("Sharding propagation failed" in msg
-            or "does not have a sharding strategy" in msg
-            or "Cannot view a tensor with shape" in msg)
+    return any(m in msg for m in _NO_STRATEGY)
 
 
 class DTensorCalls(TorchFunctionMode):
@@ -106,19 +139,23 @@ class DTensorCalls(TorchFunctionMode):
     Where DTensor has no strategy for a call at its operands' placements
     (an ``unbind`` along a sharded axis; on torch 2.11 a view that
     flattens a sharded head axis, or a strategy whose local view does not
-    fit the shard's strides), the call's DTensor operands are
-    gathered over the mesh's last axis, then over the last two, and so
-    on, until the call goes through, as XLA's partitioner inserts a
-    gather where it cannot partition an op.  An in-place call, or an
-    autograd call (``torch.autograd.grad``: a gathered copy of a
-    parameter is not in the graph), is never retried that way, but an
-    in-place ``scatter_`` whose target is not
-    sharded along the scatter dim runs on the local shards, its index and
-    source placed as the target: DTensor's own scatter strategy does so
-    from torch 2.13 on, and the card's torch 2.11 has none (a decode
-    step's cache write, ``models/common.py::write_cache``; the MoE's
-    one-hot masks).  ``replicated`` ("<call> over <axes>") and ``local``
-    count these calls, and the dry run's row reports them."""
+    fit the shard's strides), the call's DTensor operands are gathered
+    over the mesh's last axis, then over the last two, and so on, until
+    the call goes through, as XLA's partitioner inserts a gather where it
+    cannot partition an op.  An in-place call is never retried that way.
+    An autograd call (``torch.autograd.grad``) is not retried either (a
+    gathered copy of a parameter is not in the graph): the ops it runs,
+    which reach no torch function mode, get the same treatment one aten
+    op at a time from :class:`AtenCalls`, a dispatch mode above
+    DTensor's, inside the graph.  An in-place ``scatter_`` that DTensor
+    cannot place runs on the local shards (:func:`_local_scatter`: a
+    decode step's cache write, ``models/common.py::write_cache``, batch-
+    or sequence-sharded; the MoE's one-hot masks; the card's torch 2.11
+    has no scatter strategy).  A call listed in :data:`LOCAL_CALLS`
+    (rwkv6's token loop) runs on the local shards as its entry says.
+    ``replicated`` ("<call> over <axes>", an aten op under its aten
+    name) and ``local`` count these calls, and the dry run's row reports
+    them."""
 
     def __init__(self):
         super().__init__()
@@ -130,50 +167,93 @@ class DTensorCalls(TorchFunctionMode):
         if not any(isinstance(t, DTensor)
                    for t in tree_leaves((args, kwargs))):
             return func(*args, **kwargs)
-        if func in _AUTOGRAD_CALLS:
-            # their results hang on their operands' identity: a gathered
-            # copy is not in the graph, so a failure surfaces as it is
-            with unset_fake_temporarily():
-                return func(*args, **kwargs)
+        name = getattr(func, "__name__", str(func))
         with unset_fake_temporarily():
+            if func in _AUTOGRAD_CALLS:
+                with AtenCalls(self):
+                    return func(*args, **kwargs)
+            if func in LOCAL_CALLS:
+                self.count_local(name)
+                return LOCAL_CALLS[func](func, *args, **kwargs)
+            return self.partitioned(func, name, args, kwargs,
+                                    name.endswith("_"))
+
+    def count_local(self, name: str) -> None:
+        self.local[name] = self.local.get(name, 0) + 1
+
+    def partitioned(self, func, name: str, args, kwargs, inplace: bool):
+        """``func(*args, **kwargs)``, its DTensor operands gathered over
+        the mesh's last axes where DTensor has no strategy for it."""
+        try:
+            return func(*args, **kwargs)
+        except _ERRORS as e:
+            if not _no_strategy(e):
+                raise
+            if name == "scatter_" and _local_scatter(*args, **kwargs):
+                self.count_local(name)
+                return args[0]
+            if inplace:
+                raise
+            err = e
+        mesh = _mesh_of((args, kwargs))
+        names = mesh.mesh_dim_names
+        for k in range(len(names) - 1, -1, -1):
+            a, kw = tree_map_only(DTensor, lambda t: _gathered_from(t, k),
+                                  (args, kwargs))
             try:
-                return func(*args, **kwargs)
-            except (RuntimeError, NotImplementedError) as e:
-                name = getattr(func, "__name__", str(func))
+                return self._replicated(name, names[k:], func(*a, **kw))
+            except _ERRORS as e:
                 if not _no_strategy(e):
                     raise
-                if name == "scatter_" and _local_scatter(*args, **kwargs):
-                    self.local[name] = self.local.get(name, 0) + 1
-                    return args[0]
-                if name.endswith("_"):
-                    raise
-                err = e
-            names = _mesh_names((args, kwargs))
-            for k in range(len(names) - 1, -1, -1):
-                a, kw = tree_map_only(DTensor,
-                                      lambda t: _gathered_from(t, k),
-                                      (args, kwargs))
-                try:
-                    out = func(*a, **kw)
-                except (RuntimeError, NotImplementedError) as e:
-                    if not _no_strategy(e):
-                        raise
-                    continue
-                key = f"{name} over {','.join(names[k:])}"
-                self.replicated[key] = self.replicated.get(key, 0) + 1
-                return out
-            raise err
+        # no strategy even replicated: the whole tensors on every device,
+        # laid out densely (DTensor's gather can leave a layout a view
+        # cannot take), the op run on them
+        a, kw = tree_map_only(DTensor, lambda t: t.to_local().contiguous(),
+                              (a, kw))
+        try:
+            out = func(*a, **kw)
+        except _ERRORS as e:
+            raise err from e
+        return self._replicated(name, names, tree_map_only(
+            torch.Tensor, lambda t: DTensor.from_local(
+                t, mesh, [Replicate()] * mesh.ndim, run_check=False), out))
+
+    def _replicated(self, name: str, axes, out):
+        key = f"{name} over {','.join(axes)}"
+        self.replicated[key] = self.replicated.get(key, 0) + 1
+        return out
+
+
+class AtenCalls(TorchDispatchMode):
+    """:class:`DTensorCalls`' partitioner for the aten ops of an autograd
+    call (a backward's ops): an op on ``DTensor``s that DTensor cannot
+    partition at its operands' placements runs on operands gathered over
+    the mesh's last axes, counted in ``calls.replicated`` under its aten
+    name.  The mode sits above ``roofline/analysis.py::TraceCounter``,
+    which passes a ``DTensor`` op on to DTensor and counts its local ops
+    and collectives (the gathers' too)."""
+
+    def __init__(self, calls: DTensorCalls):
+        super().__init__()
+        self.calls = calls
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if not any(issubclass(t, DTensor) for t in types):
+            return func(*args, **kwargs)
+        return self.calls.partitioned(func, str(func), args, kwargs,
+                                      func._schema.is_mutable)
 
 
 _AUTOGRAD_CALLS = (torch.autograd.grad, torch.autograd.backward,
                    torch.Tensor.backward)
 
 
-def _mesh_names(tree) -> tuple:
+def _mesh_of(tree):
     for t in tree_leaves(tree):
         if isinstance(t, DTensor):
-            return tuple(t.device_mesh.mesh_dim_names)
-    return ()
+            return t.device_mesh
+    raise ValueError("no DTensor")
 
 
 def _gathered_from(t: DTensor, k: int) -> DTensor:
@@ -184,23 +264,35 @@ def _gathered_from(t: DTensor, k: int) -> DTensor:
 
 def _local_scatter(target, dim, index, src=None, **kwargs) -> bool:
     """``target.scatter_(dim, index, src)`` (a tensor or a number) on the
-    local shards where the target is a DTensor not sharded along ``dim``
-    and index and source have its shape on every other axis; False
-    (nothing done) otherwise."""
+    local shards where the target is a DTensor and index and source have
+    its shape on every axis but ``dim``; False (nothing done) otherwise.
+
+    Index and source take the target's placements, replicated over the
+    mesh dims that shard ``dim``.  Where none does, each shard scatters
+    its own rows.  Where some do (a cache sharded along its slots,
+    ``seq_shard``), each index must name one slot (``index.shape[dim]``
+    is 1): owner computes (:func:`_owner_scatter`), what GSPMD makes of
+    the reference's one-hot update."""
     value = kwargs.pop("value", None)
     if src is None:
         src = value
     if kwargs or not isinstance(target, DTensor) or src is None:
         return False
     dim %= target.ndim
-    if any(isinstance(p, Shard) and p.dim == dim for p in target.placements):
+    mesh, place = target.device_mesh, target.placements
+    along = [d for d, p in enumerate(place)
+             if isinstance(p, Shard) and p.dim == dim]
+    n = 1
+    for d in along:
+        n *= mesh.size(d)
+    if along and (index.shape[dim] != 1 or target.shape[dim] % n):
         return False
     others = [t for t in (index, src) if isinstance(t, torch.Tensor)]
     for t in others:
         if [s for d, s in enumerate(t.shape) if d != dim] != [
                 s for d, s in enumerate(target.shape) if d != dim]:
             return False
-    mesh, place = target.device_mesh, target.placements
+    want = [Replicate() if d in along else p for d, p in enumerate(place)]
 
     def local(t):
         if not isinstance(t, torch.Tensor):
@@ -208,10 +300,191 @@ def _local_scatter(target, dim, index, src=None, **kwargs) -> bool:
         if not isinstance(t, DTensor):
             t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                    run_check=False)
-        return t.redistribute(mesh, place).to_local()
+        return t.redistribute(mesh, want).to_local()
 
-    target.to_local().scatter_(dim, local(index), local(src))
+    shard = target.to_local()
+    if not along:
+        shard.scatter_(dim, local(index), local(src))
+        return True
+    coord, block = mesh.get_coordinate(), 0
+    for d in along:                        # the dim's split, mesh-major
+        block = block * mesh.size(d) + coord[d]
+    _owner_scatter(shard, dim, local(index), local(src),
+                   block * shard.shape[dim])
     return True
+
+
+def _owner_scatter(shard, dim: int, index, src, offset: int) -> None:
+    """``scatter_`` into the shard that holds slots ``offset`` … ``offset
+    + shard.shape[dim] - 1`` of a tensor split along ``dim``: an index in
+    that range writes its source at its local slot, any other writes
+    nothing (it writes back the slot it was clamped to, whose value it
+    read first: one index a row along ``dim``, so no two writes meet)."""
+    at = index - offset
+    mine = (at >= 0) & (at < shard.shape[dim])
+    at = at.clamp(0, shard.shape[dim] - 1)
+    shard.scatter_(dim, at, torch.where(mine, src, shard.gather(dim, at)))
+
+
+def _local_wkv_scan(func, wrkv, state=None):
+    """rwkv6's token loop (``models/rwkv6.py::wkv_scan``) on each device's
+    own batch rows and heads: w, r, k, v (4, S, B, H, N) keep their shards
+    of B and H (a dim that does not divide its mesh dim, and any other
+    sharding, is gathered), the state (B, H, N, N) takes the same ones,
+    and the loop runs on the plain local tensors, in the graph
+    (``to_local`` / ``from_local``).  GSPMD partitions the reference's
+    ``lax.scan`` the same way, along batch and heads, with no collective
+    inside the loop; a DTensor dispatch a step costs a full-size trace
+    minutes, where a plain fake op costs microseconds."""
+    mesh = wrkv.device_mesh
+    place = [p if isinstance(p, Shard) and p.dim in (2, 3)
+             and wrkv.shape[p.dim] % mesh.size(d) == 0 else Replicate()
+             for d, p in enumerate(wrkv.placements)]
+    # the same mesh dims on the state (B, H, N, N) and on y (B, S, H, N)
+    on_state = [Shard(p.dim - 2) if isinstance(p, Shard) else p
+                for p in place]
+    on_y = [Shard(0 if p.dim == 2 else 2) if isinstance(p, Shard) else p
+            for p in place]
+    if state is not None:
+        if not isinstance(state, DTensor):
+            state = DTensor.from_local(state, mesh,
+                                       [Replicate()] * mesh.ndim,
+                                       run_check=False)
+        state = state.redistribute(mesh, on_state).to_local()
+    y, s = counted_loop(func, wrkv.redistribute(mesh, place).to_local(),
+                        state)
+    return (DTensor.from_local(y, mesh, on_y, run_check=False),
+            DTensor.from_local(s, mesh, on_state, run_check=False))
+
+
+# a loop of more steps than this is run at 2 and 3 steps and counted at
+# its length (counted_loop)
+LOOP_STEPS = 64
+
+
+def counted_loop(func, x, state):
+    """``func(x, state)``, a token loop over ``x.shape[1]`` steps of equal
+    shapes (rwkv6's ``wkv_scan`` on local tensors).  Up to
+    :data:`LOOP_STEPS` steps, or where no ``TraceCounter`` counts, it
+    runs as it is.  Longer, it runs at 2 and 3 steps, each under a
+    counter of its own, and the active counter takes what the loop does
+    at its length: every count (FLOPs, bytes, collectives) is affine in
+    the step count (a step's ops do not change, the prologue and
+    epilogue scale or stay), so c(S) = c(3) + (S − 3)·(c(3) − c(2));
+    the storages' peak and what stays live (the outputs, the tensors
+    saved for the backward) are taken the same way.  The backward is
+    counted alike from the two short loops' backwards
+    (:class:`_CountedLoop`).  A full-size trace dispatches a step's ops
+    on fake tensors at about a millisecond each: 32,768 steps × 32
+    layers would take an hour."""
+    counter = active_counter()
+    if counter is None or x.shape[1] <= LOOP_STEPS:
+        return func(x, state)
+    return _CountedLoop.apply(func, counter, x, state)
+
+
+def _tally(sub, since=None) -> dict:
+    """What ``sub`` (a ``TraceCounter``) counted, less ``since`` (a tally
+    of it taken earlier, its peak then reset to what was live)."""
+    base = since or {"flops": 0, "bytes": 0, "collective_bytes": {},
+                     "collective_ops": {}, "live": 0}
+    return {
+        "flops": sub.flops - base["flops"],
+        "bytes": sub.bytes_accessed - base["bytes"],
+        "collective_bytes": {k: v - base["collective_bytes"].get(k, 0.0)
+                             for k, v in sub.collective_bytes.items()},
+        "collective_ops": {k: v - base["collective_ops"].get(k, 0)
+                           for k, v in sub.collective_ops.items()},
+        "peak": sub.peak - base["live"], "live": sub.live_bytes}
+
+
+def _extrapolated(a: dict, b: dict, S: int) -> dict:
+    """The tally at S steps from the tallies at 2 and 3 (affine)."""
+    def at(u, v):
+        if isinstance(u, dict):
+            return {k: at(u.get(k, 0), v.get(k, 0)) for k in set(u) | set(v)}
+        return v + (S - 3) * (v - u)
+
+    return {k: at(a[k], b[k]) for k in a}
+
+
+def _at_length(a, b, S: int):
+    """A new tensor like ``a`` and ``b``, a loop's output at 2 and 3 steps,
+    at S steps: the sizes and strides (affine in the step count) taken
+    the same way, so the ops after it see the loop's own layout."""
+    def at(u, v):
+        return tuple(j + (S - 3) * (j - i) for i, j in zip(u, v))
+
+    # a method of the (fake) tensor: a new fake tensor of its mode
+    return a.new_empty_strided(at(a.shape, b.shape), at(a.stride(),
+                                                        b.stride()))
+
+
+def _count(counter, work) -> None:
+    counter.add(work["flops"], work["bytes"], work["collective_bytes"],
+                work["collective_ops"])
+    counter.reach(work["peak"])
+
+
+class _CountedLoop(torch.autograd.Function):
+    """:func:`counted_loop`'s long loop: the outputs are new tensors of
+    the loop's shapes, the counts those of the loop (see there).  The
+    backward runs the short loops' backwards under their forwards'
+    counters, so the storages their forwards saved are freed as the
+    backward goes, as the loop's are."""
+
+    @staticmethod
+    def forward(ctx, func, counter, x, state):
+        S, grad = x.shape[1], x.requires_grad
+        runs, tallies = [], []
+        for n in (2, 3):
+            # the first n steps, as views: the same strides as the loop's
+            xn = x[:, :n].detach().requires_grad_(grad)
+            sn = None if state is None else state.detach()
+            with counter.aside() as sub, torch.enable_grad() if grad \
+                    else torch.no_grad():
+                out = func(xn, sn)
+            tallies.append(_tally(sub))
+            runs.append((sub, xn, out))
+        work = _extrapolated(*tallies, S)
+        _count(counter, work)
+        with counter.paused():
+            y, s = (_at_length(a, b, S)
+                    for a, b in zip(runs[0][2], runs[1][2]))
+        counter.account((), {}, (y, s))
+        # what the loop keeps beside its outputs: the backward's tensors
+        ctx.held = counter.hold(work["live"] - sum(
+            t.untyped_storage().nbytes() for t in (y, s)), ctx)
+        ctx.set_materialize_grads(False)   # the last state's, unused
+        ctx.counter, ctx.S = counter, S
+        ctx.runs = list(zip(runs, tallies)) if grad else None
+        return y, s
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        counter, tallies, gxs = ctx.counter, [], []
+        for (sub, xn, (yn, sn)), since in ctx.runs:
+            n = xn.shape[1]
+            outs, grads = [yn], [gy[:, :n].detach()]
+            if gs is not None:
+                outs.append(sn)
+                grads.append(gs.detach())
+            since = dict(since, live=sub.live_bytes)
+            sub.peak = sub.live_bytes
+            with counter.paused(), sub:
+                gx, = torch.autograd.grad(outs, [xn], grads)
+            tallies.append(_tally(sub, since))
+            gxs.append(gx)
+        _count(counter, _extrapolated(*tallies, ctx.S))
+        counter.release(ctx.held)       # the saved tensors, freed
+        with counter.paused():
+            gx = _at_length(*gxs, ctx.S)
+        counter.account((), {}, gx)
+        return None, None, gx, None
+
+
+# calls the dry run runs on the local shards: function -> its runner
+LOCAL_CALLS = {wkv_scan: _local_wkv_scan}
 
 
 @contextmanager

@@ -14,6 +14,13 @@ A default process group is process-wide, so the meshes are context
 managers that create the group on entry and destroy it on exit, and they
 refuse to run beside a group that is already initialised.  Nothing here
 acts at import.
+
+The multi-pod mesh's ``DTensor``s live on :func:`dtensor_mesh`, a
+(pod·data, model) mesh over the same ranks: the reference's FSDP axes
+('pod', 'data') always shard a tensor dim together, pod-major, which is
+one flattened mesh dim's split (torch 2.11's DTensor refuses an index
+into a dim sharded over two mesh dims; 2.13's redistribute planner
+searches its states through every dim's shard order).
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ from repro_torch import resolve_device
 
 PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
+# the name of the flattened ('pod', 'data') dim of dtensor_mesh
+POD_DATA = "pod_data"
 
 
 @contextmanager
@@ -81,14 +90,38 @@ def make_debug_mesh(device="cuda") -> Iterator[DeviceMesh]:
                                mesh_dim_names=("data", "model"))
 
 
+def dtensor_mesh(mesh) -> DeviceMesh:
+    """The mesh a step's ``DTensor``s are placed on: ``mesh`` itself, or
+    for a ("pod", "data", "model") mesh the (pod·data, model) mesh over
+    the same ranks in the same order (row-major: rank pod·D·M + data·M +
+    model is (pod·D + data)·M + model), made once a mesh."""
+    if "pod" not in mesh.mesh_dim_names:
+        return mesh
+    if tuple(mesh.mesh_dim_names) != PRODUCTION[True][1]:
+        raise ValueError(f"a pod mesh is {PRODUCTION[True][1]}, not "
+                         f"{mesh.mesh_dim_names}")
+    flat = getattr(mesh, "_pod_data_mesh", None)
+    if flat is None:
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+        pod, data, model = mesh.shape
+        with unset_fake_temporarily():   # the mesh's own rank tensors
+            flat = init_device_mesh(mesh.device_type, (pod * data, model),
+                                    mesh_dim_names=(POD_DATA, "model"))
+        mesh._pod_data_mesh = flat
+    return flat
+
+
 def mesh_sizes(mesh) -> dict:
     """Axis name -> size (``jax.sharding.Mesh.shape``'s form)."""
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def fsdp_axes(mesh) -> Tuple[str, ...]:
-    """The batch/FSDP axes: ('pod','data') on multipod, ('data',) otherwise."""
-    return tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+    """The batch/FSDP axes: ('pod','data') on multipod, ('data',) otherwise
+    (('pod_data',) on :func:`dtensor_mesh`'s flattened mesh)."""
+    return tuple(a for a in mesh.mesh_dim_names
+                 if a in ("pod", "data", POD_DATA))
 
 
 def model_axis(mesh):

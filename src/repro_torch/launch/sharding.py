@@ -12,7 +12,10 @@ A spec is what the reference's ``PartitionSpec`` holds, as a tuple: one
 entry a tensor dim, each None (replicated), a mesh axis name, or a tuple
 of names (FSDP over ('pod', 'data')).  :func:`placements` turns it into
 ``DTensor`` placements, one a mesh dim: a tensor dim over two mesh dims is
-``Shard`` on both, split pod-major as JAX splits it.  The reference's
+``Shard`` on both, split pod-major as JAX splits it;
+:func:`dtensor_placements` merges the two into the one flattened dim of
+``launch/mesh.py::dtensor_mesh``, where the step's ``DTensor``s live (the
+same shard on every device).  The reference's
 override hook (the module global ``OVERRIDES``) is an argument here:
 ``overrides``, e.g. :func:`head_aligned_overrides`.  A tree is a nested
 dict/list tree of tensors or shapes; its paths join keys with '/', as the
@@ -113,6 +116,25 @@ def placements(mesh, spec: tuple) -> tuple:
             if mesh.size(names.index(name)) > 1:
                 out[names.index(name)] = Shard(dim)
     return tuple(out)
+
+
+def dtensor_placements(mesh, spec: tuple) -> tuple:
+    """A spec -> placements over ``dtensor_mesh(mesh)``: those of
+    :func:`placements`, the 'pod' and 'data' dims merged into one (a
+    tensor dim the two shard together, pod-major, is that dim's
+    ``Shard``)."""
+    out = placements(mesh, spec)
+    names = list(mesh.mesh_dim_names)
+    if "pod" not in names:
+        return out
+    i, j = names.index("pod"), names.index("data")
+    a, b = out[i], out[j]
+    if a != b and not (isinstance(a, Replicate) and mesh.size(i) == 1) \
+            and not (isinstance(b, Replicate) and mesh.size(j) == 1):
+        raise ValueError(f"{spec}: 'pod' and 'data' shard apart "
+                         f"({a}, {b}); the flattened mesh cannot hold it")
+    merged = b if isinstance(a, Replicate) else a
+    return (merged,) + tuple(p for d, p in enumerate(out) if d not in (i, j))
 
 
 def _tree_map_with_path(f, tree, prefix: str = ""):

@@ -44,6 +44,7 @@ from repro_torch.core import embedding_table as tbl
 from repro_torch.core import gst as G
 from repro_torch.core.embedding_table import EmbeddingTable
 from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import dtensor_mesh, fsdp_axes
 from repro_torch.models import encdec, transformer
 from repro_torch.models.common import ParamTree
 from repro_torch.models.registry import Model
@@ -324,7 +325,8 @@ def unshard_fsdp(tree):
             return t
         mesh = t.device_mesh
         whole = re.search(r"(^|/)embed$", path) is not None
-        want = [Replicate() if whole or name in ("pod", "data") else p
+        fsdp = fsdp_axes(mesh)
+        want = [Replicate() if whole or name in fsdp else p
                 for name, p in zip(mesh.mesh_dim_names, t.placements)]
         return t.redistribute(mesh, want)
     return SH._tree_map_with_path(one, tree)
@@ -496,18 +498,23 @@ def _map2(f, spec_tree, sh_tree, val_tree):
 
 
 def materialize(spec: StepSpec, mesh, device, values=None) -> tuple:
-    """The step's arguments as ``DTensor``s on ``mesh``, each placed by its
-    spec: new tensors of the specs' shapes on ``device`` (fake ones inside
-    a ``FakeTensorMode``; their contents are undefined), or ``values`` (the
+    """The step's arguments as ``DTensor``s on ``dtensor_mesh(mesh)`` (on
+    a multi-pod mesh, 'pod' and 'data' flattened into one dim), each
+    placed by its spec: new tensors of the specs' shapes on ``device``
+    (fake ones inside a ``FakeTensorMode``; their contents are
+    undefined), or ``values`` (the
     same trees of tensors) moved to ``device`` and distributed.  Floating
     parameters of the train step require grad through the step's own
     ``ParamTree``."""
+    dmesh = dtensor_mesh(mesh)
+
     def leaf(s, sh, v):
         if v is None:
             v = torch.empty(tuple(s.shape), dtype=s.dtype, device=device)
         else:
             v = v.to(device)
-        return distribute_tensor(v, mesh, SH.placements(mesh, sh or ()))
+        return distribute_tensor(v, dmesh,
+                                 SH.dtensor_placements(mesh, sh or ()))
 
     vals = values if values is not None else (None,) * len(spec.args)
     return tuple(_map2(leaf, a, sh, v)

@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import dense_init
@@ -86,6 +87,38 @@ def _group_norm(p, y, H: int, N: int, eps: float = 1e-5):
             + p["out_gn_bias"].float()).to(y.dtype)
 
 
+def wkv_scan(wrkv, state=None):
+    """The recurrence over S tokens.  wrkv: w, r, k, v stacked, time
+    before batch, (4, S, B, H, N); state: (B, H, N, N) or None (zeros);
+    all f32.  Returns (y (B, S, H, N) without the bonus term, the last
+    state, a new tensor).
+
+    It is a torch function, so a torch function mode may run it its own
+    way: the dry run runs it on each device's batch rows and heads
+    (``launch/dryrun.py``).  Its ops suit a DTensor of the dry run too:
+    one stack lays the four inputs out alike (w first: DTensor then
+    keeps r, k and v's heads sharded), and the zero state takes r's
+    layout, so every step runs on the local shards."""
+    if has_torch_function((wrkv, state)):
+        return handle_torch_function(wkv_scan, (wrkv, state), wrkv, state)
+    _, S, B, H, N = wrkv.shape
+    w, r, k, v = wrkv.reshape(4, S, B * H, N).unbind(0)
+    if state is None:
+        s = torch.zeros_like(r[0].unsqueeze(-1).expand(B * H, N, N))
+    else:
+        s = state.reshape(B * H, N, N)
+    ys = []
+    # S views a tensor, a unit axis where the step's product wants it
+    for r_t, k_t, v_t, w_t in zip(r.unsqueeze(2).unbind(0),
+                                  k.unsqueeze(3).unbind(0),
+                                  v.unsqueeze(2).unbind(0),
+                                  w.unsqueeze(3).unbind(0)):
+        ys.append(torch.bmm(r_t, s))                     # (B·H, 1, N)
+        s = torch.addcmul(s * w_t, k_t, v_t)             # w ∘ S + k ⊗ v
+    y = torch.cat(ys, dim=1).reshape(B, H, S, N).transpose(1, 2)
+    return y, s.reshape(B, H, N, N)
+
+
 def rwkv_timemix(p, x, cfg: ArchConfig, state=None, shift_prev=None):
     """x: (B, S, d); state: (B, H, N, N); shift_prev: (B, d).
     Returns (out, (state, last x)); the state is a new tensor."""
@@ -105,29 +138,17 @@ def rwkv_timemix(p, x, cfg: ArchConfig, state=None, shift_prev=None):
     g = mixed("g") @ p["wg"]
     # the data-dependent decay (Finch): w in (0, 1)
     dd = torch.tanh(mixed("w") @ p["w_decay_a"]) @ p["w_decay_b"]
-    w = torch.exp(-torch.exp((p["decay_base"] + dd).float()))
+    w = torch.exp(-torch.exp((p["decay_base"] + dd).float())).reshape(
+        B, S, H, N)
     u = p["bonus_u"].float().reshape(H, N)
 
-    if state is None:
-        state = torch.zeros(B, H, N, N, dtype=torch.float32, device=x.device)
     bonus = (r * u * k).sum(-1, keepdim=True) * v        # (B, S, H, N)
-
-    def steps(t, axis):  # S views of (B·H, N), a unit axis at ``axis``
-        # time leads before the unbind, so it is never a sharded axis (a
-        # DTensor of the dry run, launch/specs.py); each step is a view
-        t = t.reshape(B, S, H, N).transpose(0, 1).contiguous()
-        return [x.reshape(B * H, N).unsqueeze(axis) for x in t.unbind(0)]
-
-    s = state.float().reshape(B * H, N, N)
-    ys = []
-    for r_t, k_t, v_t, w_t in zip(steps(r, 1), steps(k, 2), steps(v, 1),
-                                  steps(w, 2)):
-        ys.append(torch.bmm(r_t, s))                     # (B·H, 1, N)
-        s = torch.addcmul(s * w_t, k_t, v_t)             # w ∘ S + k ⊗ v
-    y = torch.cat(ys, dim=1).reshape(B, H, S, N).transpose(1, 2) + bonus
+    y, s = wkv_scan(torch.stack([t.transpose(0, 1) for t in (w, r, k, v)]),
+                    None if state is None else state.float())
+    y = y + bonus
     y = _group_norm(p, y.reshape(B, S, d).to(x.dtype), H, N)
     y = y * F.silu(g)
-    return y @ p["wo"], (s.reshape(B, H, N, N), x[:, -1, :])
+    return y @ p["wo"], (s, x[:, -1, :])
 
 
 def rwkv_channelmix_params(generator: torch.Generator, cfg: ArchConfig,

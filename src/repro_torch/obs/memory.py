@@ -178,6 +178,11 @@ class LiveBytes(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        self.account(args, kwargs, out)
+        return out
+
+    def account(self, args, kwargs, out) -> None:
+        """Take in the storages ``out`` creates (see the class)."""
         known = {_storage_key(t) for t in _strided((args, kwargs))}
         for t in _strided(out):
             st = t.untyped_storage()
@@ -192,7 +197,6 @@ class LiveBytes(TorchDispatchMode):
                 self.peak = max(self.peak, self.live_bytes)
                 self.largest = max(self.largest, nb)
             weakref.finalize(st, self._release, key)
-        return out
 
 
 class _ShardMeter:

@@ -27,13 +27,21 @@ local op it counts
 * collectives: each functional collective's max(result bytes, operand
   bytes), by kind, and their count (the reference's convention).
 
+In a fake trace only ops on the trace's own fake tensors count: DTensor's
+host bookkeeping and its sharding propagation's global-shape stand-ins
+(another fake mode) are no work of the device, nor is a ``.device``
+query.  Work no op of the counter runs (a loop counted from shorter runs,
+``launch/dryrun.py::counted_loop``) is added with :meth:`TraceCounter.add`.
+
 Per-device figures are rank 0's; global ones multiply by the chip count,
 as the reference does with XLA's per-device module.
 """
 from __future__ import annotations
 
+import weakref
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,7 +104,9 @@ class TraceCounter(LiveBytes):
     docstring): FLOPs (``flops``), operand + result bytes
     (``bytes_accessed``), live bytes (``peak``, ``largest``, from
     ``LiveBytes``) and collectives (``collective_bytes``,
-    ``collective_ops``) of the local ops that run under it."""
+    ``collective_ops``) of the local ops that run under it.  In a fake
+    trace an op on host tensors only is DTensor's bookkeeping and is not
+    counted."""
 
     def __init__(self, fake_mode=None):
         super().__init__()
@@ -110,19 +120,78 @@ class TraceCounter(LiveBytes):
         self.collective_bytes: Dict[str, float] = dict.fromkeys(COLLECTIVES,
                                                                 0.0)
         self.collective_ops: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
+        self.extra_flops = 0        # counted by add(), not by an op
+        self._paused = 0
 
     @property
     def flops(self) -> int:
-        return self.flop_counter.get_total_flops()
+        return self.flop_counter.get_total_flops() + self.extra_flops
+
+    @contextmanager
+    def paused(self) -> Iterator[None]:
+        """Ops run inside pass through uncounted."""
+        self._paused += 1
+        try:
+            yield
+        finally:
+            self._paused -= 1
+
+    @contextmanager
+    def aside(self) -> Iterator["TraceCounter"]:
+        """A fresh counter, yielded, for the ops run inside; this one
+        counts none of them."""
+        sub = TraceCounter(self.fake_mode)
+        with self.paused(), sub:
+            yield sub
+
+    def add(self, flops: float, bytes_accessed: float,
+            collective_bytes: Dict[str, float],
+            collective_ops: Dict[str, float]) -> None:
+        """Count work no op of this counter ran (``launch/dryrun.py``'s
+        counted loops)."""
+        self.extra_flops += int(flops)
+        self.bytes_accessed += int(bytes_accessed)
+        for k, v in collective_bytes.items():
+            self.collective_bytes[k] = self.collective_bytes.get(k, 0.0) + v
+        for k, v in collective_ops.items():
+            self.collective_ops[k] = self.collective_ops.get(k, 0) + int(v)
+
+    def reach(self, nbytes: int) -> None:
+        """``nbytes`` above what is live now were live at once."""
+        self.peak = max(self.peak, self.live_bytes + int(nbytes))
+
+    def hold(self, nbytes: int, owner):
+        """``nbytes`` more are live until ``owner`` is freed or the
+        returned key released."""
+        key = ("held", id(owner))
+        nbytes = int(nbytes)
+        if nbytes > 0:
+            with self._mu:
+                self._live[key] = self._live.get(key, 0) + nbytes
+                self.live_bytes += nbytes
+                self.peak = max(self.peak, self.live_bytes)
+            weakref.finalize(owner, self._release, key)
+        return key
+
+    def release(self, key) -> None:
+        """What :meth:`hold` took under ``key`` is no longer live."""
+        self._release(key)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if self._paused:
+            return func(*args, **kwargs)
         if any(issubclass(t, DTensor) for t in types):
             # DTensor splits the op over the mesh; its local ops come back
             return NotImplemented
-        kwargs = kwargs or {}
+        ins = _tensors((args, kwargs))
         if any(t.is_meta or (isinstance(t, FakeTensor)
                              and t.fake_mode is not self.fake_mode)
-               for t in _tensors((args, kwargs))):
+               for t in ins):
+            return func(*args, **kwargs)
+        if ins and not any(self._ours(t) for t in ins):
+            # host tensors in a fake trace: DTensor's own bookkeeping
+            # (shard sizes and offsets), no work of the device
             return func(*args, **kwargs)
         registry = self.flop_counter.flop_registry
         if func not in registry and func is not torch.ops.prim.device.default:
@@ -131,8 +200,14 @@ class TraceCounter(LiveBytes):
                 r = func.decompose(*args, **kwargs)
             if r is not NotImplemented:
                 return r
-        out = super().__torch_dispatch__(func, types, args, kwargs)
-        ins, outs = _tensors((args, kwargs)), _tensors(out)
+        out = func(*args, **kwargs)
+        outs = _tensors(out)
+        if not ins and not any(self._ours(t) for t in outs):
+            # made from nothing outside the trace's tensors: DTensor's
+            # bookkeeping, or its sharding propagation's global-shape
+            # stand-ins (a fake mode of its own)
+            return out
+        self.account(args, kwargs, out)
         kind = _collective_kind(func)
         if kind is not None:
             self.collective_ops[kind] = self.collective_ops.get(kind, 0) + 1
@@ -141,9 +216,25 @@ class TraceCounter(LiveBytes):
             return out
         self.flop_counter._count_flops(func._overloadpacket, out, args,
                                        kwargs)
-        if not _is_view(func):
+        if outs and not _is_view(func):     # a metadata query moves none
             self.bytes_accessed += _nbytes(ins) + _nbytes(outs)
         return out
+
+    def _ours(self, t: torch.Tensor) -> bool:
+        """A tensor of the trace: of its fake mode, or any in a real
+        trace."""
+        return self.fake_mode is None or (
+            isinstance(t, FakeTensor) and t.fake_mode is self.fake_mode)
+
+
+def active_counter() -> Optional[TraceCounter]:
+    """The :class:`TraceCounter` on the dispatch mode stack, if any."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        if isinstance(mode, TraceCounter):
+            return mode
+    return None
 
 
 def _is_view(func) -> bool:

@@ -69,12 +69,12 @@ def trace_small(arch, shape_name, **kw):
     return cfg, row
 
 
-def check_row(cfg, shape_name, row):
+def check_row(cfg, shape_name, row, chips=4, mesh="fake(2,2)"):
     shape = SMALL[shape_name]
     assert row["status"] == "ok"
     assert REF_KEYS | {"trace_s"} <= set(row)
     assert ("decode_plan" in row) == (shape.kind == "decode")
-    assert row["chips"] == 4 and row["mesh"] == "fake(2,2)"
+    assert row["chips"] == chips and row["mesh"] == mesh
     assert row["opts"]["use_kernels"] is False
     train = shape.kind == "train"
     assert row["variant"] == ("gst_efd" if train else None)
@@ -157,9 +157,11 @@ def test_run_one_skips_what_the_reference_skips():
 
 def test_local_scatter_writes_the_shards_it_may():
     """The in-place scatter of a decode step's cache write on the local
-    shards (torch versions whose DTensor has no scatter strategy): the
-    plain scatter's values on a real 1x1 mesh; refused where the scatter
-    dim is sharded."""
+    shards (torch versions whose DTensor has no scatter strategy, or none
+    that keeps a sequence-sharded target): the plain scatter's values on
+    a real 1x1 mesh, the target sharded along its batch or along the
+    scatter dim; refused where the scatter dim is sharded and an index
+    names two slots of a row."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     gen = torch.Generator().manual_seed(0)
@@ -172,5 +174,8 @@ def test_local_scatter_writes_the_shards_it_may():
         assert dryrun._local_scatter(c, 1, at, new)
         assert torch.equal(c.full_tensor(), want)
         seq = distribute_tensor(cache.clone(), mesh, [Replicate(), Shard(1)])
-        assert not dryrun._local_scatter(seq, 1, at, new)
+        assert dryrun._local_scatter(seq, 1, at, new)
+        assert torch.equal(seq.full_tensor(), want)
+        two = torch.zeros(4, 2, 3, dtype=torch.long)
+        assert not dryrun._local_scatter(seq, 1, two, new.expand(4, 2, 3))
     assert not dist.is_initialized()

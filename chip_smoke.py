@@ -12,7 +12,8 @@ track's training (GST and LM) and serving paths on internlm2-1.8b at
 full width and depth, and its serving path on
 qwen2-vl-7b, arctic-480b, deepseek-v3-671b, whisper-large-v3,
 zamba2-1.2b and rwkv6-7b at full width (the two MoE models cut in depth
-to fit the card), with random weights from a seed, and the paper's
+to fit the card), with random weights from a seed, also under the
+models' exact rewrites (the dry run's switches), and the paper's
 experiments (``repro_torch.paper`` and the two graph-track examples),
 and holds each hand-written kernel against its plain PyTorch version.
 Phases, in order; an error in any of them fails the run (none catches
@@ -218,6 +219,23 @@ its own):
                 its own); (d) encode_segment 8 x 512 tokens (whisper 8 x
                 1500 frames), kernel = plain; a profiled decode step.
                 swa_attention launches a pass: 28, 1, 0 (MLA), 32, 6, 0
+ 10b. seq_switches  the models' exact rewrites (models/common.py,
+                moe.py, mla.py) at full width, f32, random weights from
+                seed 0, each mode held to the default: (a) MoE dispatch
+                einsum / gather in a kernel-path prefill B 1, S 2048 of
+                arctic-480b (1 layer) and deepseek-v3-671b (1 dense + 1
+                MoE layer): logits and caches 5e-4, seconds, peak memory
+                above the weights; (b) GQA repeat / grouped in serving of
+                arctic-480b and internlm2-1.8b (B 2, prompt 16, 16
+                generated): the same tokens, the decode loop's logits and
+                caches 5e-4, ms a token; a profiled internlm2-1.8b decode
+                step at a 32,768-slot cache under each; (c) deepseek-v3's
+                MLA decode absorbed / naive, as (b); (d) internlm2-1.8b's
+                cache write dus / onehot, as (b) but bitwise; (e)
+                internlm2-1.8b prefill B 1, S 2048 and 8192: the kernel
+                path, the plain path under naive and chunked attention,
+                5e-4, seconds and peak memory.  swa_attention launches: 1
+                a pass of (a)'s arctic, 24 of (e)'s kernel path
  11. recurrent  the plain-torch pieces without a kernel in the reference,
                 one layer at full width: zamba2's ssd_chunked and rwkv6's
                 rwkv_timemix at B 1, S 2048, one decode step of each
@@ -239,11 +257,17 @@ its own):
                 zamba2-1.2b train_4k, arctic-480b long_500k,
                 internlm2-1.8b decode_32k on multi(2,16,16), rwkv6-7b
                 train_4k, each ok, each train row's FLOPs at least
-                6 x active projection parameters x tokens
+                6 x active projection parameters x tokens; and two rows
+                under the exact rewrites beside their default rows on
+                single(16,16): arctic-480b prefill_32k with gather
+                dispatch, grouped GQA and chunked attention,
+                deepseek-v3-671b decode_32k with the naive MLA decode,
+                each ok, its opts as set, both rows' terms printed
  12. kernels    one JSON line: per kernel, launches on the main path
                 (serving, training, distributed training, dist_prefetch,
                 the store's (a), (c) and (d), telemetry, memory, paper,
-                seq_train, seq_serve and seq_families; the memory and
+                seq_train, seq_serve, seq_families and seq_switches; the
+                memory and
                 paper phases' apart in launches_by_path for B1, its
                 backward, sed_pool and sed_pool_aged),
                 error, times and bound
@@ -441,6 +465,23 @@ FAMILY_PREFILL = (1, 2048)
 RECURRENT = ("ssm", "hybrid")
 WHISPER_DECODER_S = 448
 FAMILY_DOCS = (8, 512)
+# seq_switches: the models' exact rewrites at full width.  (a) the MoE
+# dispatch of SWITCH_MOE (arch, layers kept, swa_attention launches a
+# pass) in a kernel-path prefill at FAMILY_PREFILL; (b) GQA in serving of
+# SWITCH_GQA at SEQ_SERVE and one profiled SEQ_ARCH decode step with a
+# cache of SWITCH_LONG_CACHE slots; (c) deepseek-v3's MLA decode; (d) the
+# cache write; (e) SEQ_ARCH's prefill attention at B 1 and each S of
+# SWITCH_PREFILL_S
+SWITCH_MOE = [("arctic-480b", 1, 1), ("deepseek-v3-671b", 2, 0)]
+SWITCH_GQA = ("arctic-480b", SEQ_ARCH)
+SWITCH_LONG_CACHE = 32768
+SWITCH_PREFILL_S = (2048, 8192)
+# dryrun (d): full-size rows traced under the exact rewrites, each beside
+# its default row on single(16,16)
+DRYRUN_SWITCHED = (
+    ("arctic-480b", "prefill_32k",
+     {"dispatch": "gather", "gqa": "grouped", "attn_impl": "chunked"}),
+    ("deepseek-v3-671b", "decode_32k", {"mla_naive": True}))
 
 
 def log(msg: str) -> None:
@@ -3815,6 +3856,235 @@ def phase_seq_families(torch, dev):
     return main, out
 
 
+def switch_prefills(torch, dev, params, inp, runs, counted):
+    """Each run (label, model, the dry run's switch options, swa_attention
+    launches): a warm-up prefill outside the counts, then one counted:
+    {label: (last logits, caches, seconds, peak bytes above what was
+    allocated before)}."""
+    from repro_torch.launch.dryrun import switched
+
+    res = {}
+    for label, model, switches, want in runs:
+        with switched(**switches):
+            model.prefill(params, inp)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            (lg, c), secs = counted(lambda: model.prefill(params, inp), want)
+            res[label] = (lg, c, secs,
+                          torch.cuda.max_memory_allocated(dev) - base)
+    return res
+
+
+def held_to_first(torch, runs, tag, what):
+    """Every run of ``switch_prefills`` against the first: finite last
+    logits, and logits and caches within SEQ_TOL; the diffs, seconds and
+    peaks printed and returned."""
+    (first, (l0, c0, _, _)), out = next(iter(runs.items())), {}
+    for label, (lg, c, secs, peak) in runs.items():
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"[seq_switches] {tag} {label}: non-finite")
+        torch.testing.assert_close(lg, l0, rtol=SEQ_TOL, atol=SEQ_TOL)
+        out[label] = {"s": secs, "peak_bytes": peak,
+                      "max_diff_logits": max_diff(torch, lg, l0),
+                      "max_diff_caches": tree_max_diff(torch, c, c0)}
+    log(f"[seq_switches] {tag} {what}: " + "; ".join(
+        f"{label} {r['s']:.4f} s, peak {r['peak_bytes'] / 2**30:.3f} GiB"
+        + ("" if label == first else
+           f", against {first} max diff logits {r['max_diff_logits']:.3e}, "
+           f"caches {r['max_diff_caches']:.3e}")
+        for label, r in out.items()) + f" (tol {SEQ_TOL})")
+    return out
+
+
+def switch_decodes(torch, dev, model, params, cfg, runs, exact, tag):
+    """Serving under each run (label, the dry run's switch options,
+    ``launch/dryrun.py::switched``): launch.serve.serve
+    at SEQ_SERVE after a warm-up call, its ms a token and tokens; and the
+    teacher-forced decode loop over a prompt from an empty cache, whose
+    last logits and caches are held to the first run's: bitwise where
+    ``exact``, else within SEQ_TOL; the generated tokens equal."""
+    import types
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import switched
+
+    B, prompt, n_gen = SEQ_SERVE
+    steps = prompt + n_gen - 1
+    args = types.SimpleNamespace(arch=cfg.name, reduced=False, batch=B,
+                                 prompt_len=prompt, gen=n_gen, seed=0,
+                                 device=dev.type)
+    toks = seq_tokens(torch, cfg.vocab_size, B, prompt, 6, dev)
+    res, first = {}, None
+    for label, switches in runs:
+        with switched(**switches):
+            serve.serve(args, params, cfg)
+            gen, secs = synced_s(torch, lambda: serve.serve(args, params, cfg))
+            caches = model.init_cache(B, prompt)
+            for t in range(prompt):
+                ld, caches = model.decode_step(
+                    params, toks[:, t:t + 1], caches,
+                    torch.full((B,), t, device=dev), moe_cap_len=prompt)
+        r = {"ms_per_token": secs / steps * 1e3, "sample": gen[0][:8].tolist()}
+        if first is None:
+            first = (label, gen, ld, caches)
+        else:
+            label0, gen0, ld0, c0 = first
+            if not (gen == gen0).all():
+                raise AssertionError(f"[seq_switches] {tag} {label}: "
+                                     f"tokens {gen} vs {label0}'s {gen0}")
+            if exact:
+                from repro_torch.models.common import flatten_tree
+
+                pairs = [(ld, ld0)] + list(zip(
+                    (t for _, t in flatten_tree(caches)),
+                    (t for _, t in flatten_tree(c0))))
+                if not all(bitwise_equal(torch, a, b) for a, b in pairs):
+                    raise AssertionError(f"[seq_switches] {tag} {label}: "
+                                         f"not bitwise {label0}")
+            else:
+                torch.testing.assert_close(ld, ld0, rtol=SEQ_TOL,
+                                           atol=SEQ_TOL)
+            r.update(max_diff_logits=max_diff(torch, ld, ld0),
+                     max_diff_caches=tree_max_diff(torch, caches, c0))
+        res[label] = r
+    label0 = first[0]
+    log(f"[seq_switches] {tag} serve B {B} prompt {prompt} gen {n_gen}: "
+        + "; ".join(f"{label} {r['ms_per_token']:.3f} ms a token"
+                    + (f", tokens = {label0}'s, decode loop over "
+                       f"{prompt} tokens: max diff logits "
+                       f"{r['max_diff_logits']:.3e}, caches "
+                       f"{r['max_diff_caches']:.3e}"
+                       if "max_diff_logits" in r else "")
+                    for label, r in res.items())
+        + (" (bitwise)" if exact else f" (tol {SEQ_TOL})"))
+    return res
+
+
+def phase_seq_switches(torch, dev):
+    """The reference's exact rewrites of the sequence models at full width,
+    f32, random weights from seed 0 drawn on the card, each mode held to
+    the default's: (a) the MoE dispatch, einsum against gather, in a
+    kernel-path prefill at B 1, S 2048 of arctic-480b (1 layer) and
+    deepseek-v3-671b (1 dense + 1 MoE layer): last logits and caches
+    within SEQ_TOL, seconds after a warm-up call and peak memory above
+    the weights; (b) GQA, repeat against grouped, in serving of
+    arctic-480b (56 / 8 heads) and internlm2-1.8b (16 / 8) at B 2, prompt
+    16, 16 generated: the same tokens, the decode loop's logits and
+    caches within SEQ_TOL, ms a token; one profiled internlm2-1.8b
+    decode step with a 32,768-slot cache under each (device ms, busy
+    share); (c) deepseek-v3-671b's MLA decode, absorbed against naive,
+    as (b); (d) internlm2-1.8b's cache write, dus against onehot, as (b)
+    but bitwise; (e) internlm2-1.8b prefill at B 1, S 2048 and 8192: the
+    plain path under naive and chunked attention and the kernel path,
+    within SEQ_TOL, seconds and peak memory.  swa_attention launches of
+    (a) and (e) are on the main path, counted as seq_families counts them
+    ((b)-(d) decode only: none).  Returns (launches, summary)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import switched
+    from repro_torch.models import build_model
+
+    main, out = 0, {}
+
+    def counted(fn, want):
+        nonlocal main
+        ops.reset_kernel_launches()
+        res, secs = synced_s(torch, fn)
+        got = launched(ops.kernel_launches())
+        if got != ({"swa_attention": want} if want else {}):
+            raise AssertionError(f"launches {got}, want {want} swa_attention")
+        main += want
+        return res, secs
+
+    def build(cfg):
+        before = torch.cuda.memory_allocated(dev)
+        kern = build_model(cfg, use_kernels=True, device=dev)
+        params, init_s = synced_s(torch, lambda: kern.init(
+            torch.Generator(dev).manual_seed(0)))
+        log(f"[seq_switches] {cfg.name} ({cfg.num_layers} layers, "
+            f"{family_shape(cfg)}), f32, drawn on the card in {init_s:.3f} s")
+        return before, kern, params
+
+    def freed(before, name):
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated(dev) - before
+        if left > 2**30:
+            raise AssertionError(f"{name}: {left / 2**30:.3f} GiB still "
+                                 "allocated after its model was freed")
+
+    gqa = [(mode, {"gqa": mode}) for mode in ("repeat", "grouped")]
+    for arch, layers, per_pass in SWITCH_MOE:
+        cfg = family_config(arch, layers)
+        before, kern, params = build(cfg)
+        res = {}
+        # (a) the MoE dispatch in a kernel-path prefill
+        inp = family_inputs(torch, cfg, *FAMILY_PREFILL, 1, dev)
+        runs = switch_prefills(torch, dev, params, inp, [
+            (mode, kern, {"dispatch": mode}, per_pass)
+            for mode in ("einsum", "gather")], counted)
+        res["dispatch"] = held_to_first(
+            torch, runs, f"(a) {arch}",
+            f"kernel-path prefill B, S {FAMILY_PREFILL}, MoE dispatch")
+        del runs, inp
+        if arch in SWITCH_GQA:
+            # (b) GQA in serving
+            res["gqa"] = switch_decodes(torch, dev, kern, params, cfg, gqa,
+                                        False, f"(b) {arch} GQA")
+        if cfg.use_mla:
+            # (c) the MLA decode
+            res["mla"] = switch_decodes(
+                torch, dev, kern, params, cfg,
+                [("absorbed", {}), ("naive", {"mla_naive": True})], False,
+                f"(c) {arch} MLA decode")
+        out[arch] = res
+        del kern, params
+        freed(before, arch)
+
+    cfg = get_config(SEQ_ARCH)
+    before, kern, params = build(cfg)
+    plain = build_model(cfg, use_kernels=False, device=dev)
+    res = {}
+    # (b) GQA in serving, and one decode step at a long cache
+    res["gqa"] = switch_decodes(torch, dev, kern, params, cfg, gqa, False,
+                                f"(b) {SEQ_ARCH} GQA")
+    B = SEQ_SERVE[0]
+    toks = seq_tokens(torch, cfg.vocab_size, B, 1, 5, dev)
+    caches = kern.init_cache(B, SWITCH_LONG_CACHE)
+    pos = torch.full((B,), SWITCH_LONG_CACHE - 1, device=dev)
+    res["gqa_long_decode"] = {}
+    for label, switches in gqa:
+        with switched(**switches):
+            res["gqa_long_decode"][label] = profiled(
+                torch, lambda: kern.decode_step(params, toks, caches, pos),
+                f"(b) {SEQ_ARCH} decode step B {B}, cache "
+                f"{SWITCH_LONG_CACHE}, GQA {label}", tag="seq_switches")
+    del caches
+    torch.cuda.empty_cache()
+    # (d) the cache write
+    res["cache_write"] = switch_decodes(
+        torch, dev, kern, params, cfg,
+        [("dus", {}), ("onehot", {"cache_update": "onehot"})], True,
+        f"(d) {SEQ_ARCH} cache write")
+    # (e) the prefill attention
+    L = cfg.num_layers
+    res["attention"] = {}
+    for S in SWITCH_PREFILL_S:
+        inp = {"tokens": seq_tokens(torch, cfg.vocab_size, 1, S, 7, dev)}
+        runs = switch_prefills(torch, dev, params, inp, [
+            ("kernel", kern, {}, L), ("naive", plain, {}, 0),
+            ("chunked", plain, {"attn_impl": "chunked"}, 0)], counted)
+        res["attention"][S] = held_to_first(
+            torch, runs, f"(e) {SEQ_ARCH}",
+            f"prefill B 1, S {S}, plain path under ATTN_IMPL")
+        del runs, inp
+    out[SEQ_ARCH] = res
+    del kern, plain, params
+    freed(before, SEQ_ARCH)
+    return main, out
+
+
 def phase_recurrent_pieces(torch, dev):
     """The plain-torch pieces of the recurrent families that no kernel of
     the reference covers, one layer each at full width, f32, weights from
@@ -4044,6 +4314,8 @@ def phase_dryrun(torch, dev):
     # (d)
     out["cleared"] = [dryrun_cleared_row(arch, shape, multi, dev)
                       for arch, shape, multi in DRYRUN_CLEARED]
+    out["switched"] = [dryrun_switched_row(arch, shape, switches, dev)
+                       for arch, shape, switches in DRYRUN_SWITCHED]
     return out
 
 
@@ -4104,6 +4376,42 @@ def dryrun_cleared_row(arch, shape, multi, dev):
                                 "bytes_per_device",
                                 "collective_op_counts", "replicated_calls",
                                 "local_scatter_calls")} | {"floor": floor}
+
+
+def dryrun_switched_row(arch, shape, switches, dev):
+    """(d) of phase_dryrun for a row of DRYRUN_SWITCHED: the full-size row
+    on single(16,16) under the default switches and under ``switches``,
+    both ok, the switched row's opts as set; both rows' trace seconds,
+    terms and gathered calls printed side by side."""
+    from repro_torch.launch import dryrun
+
+    rows = {}
+    for label, kw in (("default", {}), ("switched", switches)):
+        row = dryrun.run_one(arch, shape, False, device=dev.type,
+                             verbose=False, **kw)
+        if row["status"] != "ok":
+            raise AssertionError(f"[dryrun] (d) {arch} {shape} {label} "
+                                 f"{kw}: {row['status']}")
+        rows[label] = {k: row[k] for k in (
+            "trace_s", "dominant", "terms_seconds", "flops_per_device",
+            "bytes_per_device", "collective_op_counts", "opts",
+            "replicated_calls", "local_scatter_calls")}
+    opts = rows["switched"]["opts"]
+    with dryrun.switched(**switches) as want:
+        pass
+    if any(opts[k] != v for k, v in want.items()):
+        raise AssertionError(f"[dryrun] (d) {arch} {shape}: opts {opts}")
+    log(f"[dryrun] (d) {arch} {shape} on single(16,16) under {switches}: "
+        + "; ".join(
+            f"{label} ok in {r['trace_s']} s, dominant {r['dominant']}, "
+            f"terms " + ", ".join(f"{k} {v:.4e}" for k, v in
+                                  r["terms_seconds"].items())
+            + f", FLOPs/dev {r['flops_per_device']:.4e}, bytes/dev "
+            f"{r['bytes_per_device']:.4e}, replicated_calls "
+            f"{r['replicated_calls']}, local_scatter_calls "
+            f"{r['local_scatter_calls']}"
+            for label, r in rows.items()))
+    return {"arch": arch, "shape": shape, "switches": switches, **rows}
 
 
 def kernel_entry(name, source, replaces, launches, rows, headline):
@@ -4254,6 +4562,8 @@ def main() -> int:
         "swa_attention", 0) + serve_launches
     family_launches, seq_families = phase_seq_families(torch, dev)
     main_launches["swa_attention"] += family_launches
+    switch_launches, seq_switches = phase_seq_switches(torch, dev)
+    main_launches["swa_attention"] += switch_launches
     recurrent = phase_recurrent_pieces(torch, dev)
     dryrun = phase_dryrun(torch, dev)
     base = DIST_ARGS[:DIST_ARGS.index("--epochs")]
@@ -4294,7 +4604,8 @@ def main() -> int:
     kernels[-1].update(
         launches_by_path={
             "seq_train": train_launches.get("swa_attention", 0),
-            "seq_serve": serve_launches, "seq_families": family_launches},
+            "seq_serve": serve_launches, "seq_families": family_launches,
+            "seq_switches": switch_launches},
         tc_bound_ms=swa_rows[SWA_HEADLINE]["tc_bound_ms"],
         fma_bound_ms=swa_rows[SWA_HEADLINE]["fma_bound_ms"],
         build=swa_build)
@@ -4315,6 +4626,7 @@ def main() -> int:
                     "dist_profile": dist_profile,
                     "dist_scaling_ms": dist_scaling, "seq_serve": seq_serve,
                     "seq_families": seq_families,
+                    "seq_switches": seq_switches,
                     "recurrent_pieces": recurrent, "dryrun": dryrun,
                     "card": smi,
                     "seconds": time.perf_counter() - t0}))

@@ -38,13 +38,17 @@ the trace does what GSPMD does, and the row counts it:
 * rwkv6's token loop runs on each device's batch and heads, with no
   collective inside (:data:`LOCAL_CALLS`); a long loop is counted from
   its runs at 2 and 3 steps (:func:`counted_loop`).
-The reference's six speed switches (``--no-unroll``, ``--dispatch
-gather``, ``--cache-update dus``, ``--attn-impl chunked``,
-``--mla-naive``, ``--gqa grouped``) raise: the port keeps only their
-defaults (``models/common.py``, ``moe.py``, ``mla.py``) and runs its
-layers as a Python loop, so there is nothing to switch and no scan to
-unroll.  The kernels cannot run on a fake tensor (they launch through
-ctypes), so the traced steps run their plain versions; ``opts`` says so.
+The reference's exact rewrites act as its flags set them, for the row
+being traced (:func:`trace_one` sets the module attributes and restores
+them after): ``--dispatch`` (``models/moe.py::DISPATCH_MODE``),
+``--cache-update`` (``models/common.py::CACHE_UPDATE``; the port's
+default is "dus", the in-place write, where the reference's is
+"onehot"), ``--attn-impl`` (``ATTN_IMPL``), ``--gqa`` (``GQA_IMPL``) and
+``--mla-naive`` (``models/mla.py::ABSORBED_DECODE``); ``opts`` records
+what ran.  ``--no-unroll`` raises: the port runs its layers as a Python
+loop, every layer traced, and has no scan to keep rolled.  The kernels
+cannot run on a fake tensor (they launch through ctypes), so the traced
+steps run their plain versions; ``opts`` says so.
 """
 from __future__ import annotations
 
@@ -72,35 +76,39 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.sharding import head_aligned_overrides
 from repro_torch.launch.specs import (StepSpec, build_step_spec,
                                       decode_plan, gst_geometry, materialize)
+from repro_torch.models import common as common_mod, mla as mla_mod, \
+    moe as moe_mod
 from repro_torch.models.rwkv6 import wkv_scan
 from repro_torch.roofline.analysis import HW, active_counter, \
     analyze_trace, param_counts
 
-# the reference's speed switches: flag -> (its default, what the port does)
-SPEED_SWITCHES = {
-    "no_unroll": (False, "the port's layers are a Python loop: every layer "
-                         "is traced, there is no scan to keep rolled"),
-    "dispatch": ("einsum", "the port's MoE dispatch is the einsum form "
-                           "(models/moe.py)"),
-    "cache_update": ("onehot", "the port writes the cache in place "
-                               "(models/common.py)"),
-    "attn_impl": ("naive", "the port's attention is the naive form "
-                           "(models/common.py)"),
-    "mla_naive": (False, "the port's MLA decode is the absorbed form "
-                         "(models/mla.py)"),
-    "gqa": ("repeat", "the port's GQA repeats K/V (models/common.py)"),
-}
-OPTS = {"dispatch": "einsum", "cache_update": "onehot", "attn_impl": "naive",
-        "mla_absorbed": True, "unroll": True, "gqa": "repeat",
-        "use_kernels": False}
+# the dry run's options for the reference's exact rewrites (switched)
+SWITCHES = ("dispatch", "cache_update", "attn_impl", "gqa", "mla_naive")
+NO_UNROLL = ("--no-unroll cannot act in the port: its layers are a Python "
+             "loop, every layer traced; there is no scan to keep rolled")
 
 
-def check_speed_switches(args) -> None:
-    """Raise for a reference speed switch set away from its default."""
-    for name, (default, why) in SPEED_SWITCHES.items():
-        if getattr(args, name) != default:
-            flag = "--" + name.replace("_", "-")
-            raise ValueError(f"{flag} cannot act in the port: {why}")
+@contextmanager
+def switched(dispatch: str = "einsum", cache_update: str = "dus",
+             attn_impl: str = "naive", gqa: str = "repeat",
+             mla_naive: bool = False):
+    """The models' switches set as the dry run's options say and restored
+    on exit, also when the body raises; yields ``opts``, what runs."""
+    values = {(moe_mod, "DISPATCH_MODE"): dispatch,
+              (common_mod, "CACHE_UPDATE"): cache_update,
+              (common_mod, "ATTN_IMPL"): attn_impl,
+              (common_mod, "GQA_IMPL"): gqa,
+              (mla_mod, "ABSORBED_DECODE"): not mla_naive}
+    saved = {key: getattr(*key) for key in values}
+    try:
+        for (mod, attr), value in values.items():
+            setattr(mod, attr, value)
+        yield {"dispatch": dispatch, "cache_update": cache_update,
+               "attn_impl": attn_impl, "mla_absorbed": not mla_naive,
+               "unroll": True, "gqa": gqa, "use_kernels": False}
+    finally:
+        for (mod, attr), value in saved.items():
+            setattr(mod, attr, value)
 
 
 # what DTensor says where it cannot partition an op at its operands'
@@ -535,18 +543,20 @@ def trace_spec(cfg: ArchConfig, shape: InputShape, spec: StepSpec, mesh, *,
 def trace_one(cfg: ArchConfig, shape: InputShape, mesh, *, mesh_name: str,
               variant: str = "gst_efd", dtype=torch.bfloat16,
               head_aligned: bool = False, device="cuda",
-              verbose: bool = True) -> Dict:
-    """One (config, shape) traced on ``mesh``: the dry run's row."""
+              verbose: bool = True, **switches) -> Dict:
+    """One (config, shape) traced on ``mesh``: the dry run's row.
+    ``switches``: :func:`switched`'s options, set for this trace alone."""
     t0 = time.time()
     overrides = head_aligned_overrides(cfg, mesh) if head_aligned else ()
     spec = build_step_spec(cfg, shape, mesh, dtype=dtype, variant=variant,
                            device=device, overrides=overrides)
-    rep = trace_spec(cfg, shape, spec, mesh, device=device)
+    with switched(**switches) as opts:
+        rep = trace_spec(cfg, shape, spec, mesh, device=device)
     t_trace = time.time() - t0
     rep.update({
         "arch": cfg.name, "shape": shape.name, "mesh": mesh_name,
         "status": "ok", "variant": variant if shape.kind == "train" else None,
-        "opts": {**OPTS, "head_aligned": head_aligned},
+        "opts": {**opts, "head_aligned": head_aligned},
         "device": torch.device(device).type,
         "trace_s": round(t_trace, 2),
     })
@@ -568,7 +578,7 @@ def trace_one(cfg: ArchConfig, shape: InputShape, mesh, *, mesh_name: str,
 def run_one(arch_id: str, shape_name: str, multi_pod: bool, *,
             variant: str = "gst_efd", dtype=torch.bfloat16,
             head_aligned: bool = False, device="cuda",
-            verbose: bool = True) -> Dict:
+            verbose: bool = True, **switches) -> Dict:
     cfg = get_config(arch_id)
     shape = INPUT_SHAPES[shape_name]
     if not cfg.supports_shape(shape):
@@ -581,7 +591,7 @@ def run_one(arch_id: str, shape_name: str, multi_pod: bool, *,
                          if multi_pod else "single(16,16)",
                          variant=variant, dtype=dtype,
                          head_aligned=head_aligned, device=device,
-                         verbose=verbose)
+                         verbose=verbose, **switches)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -596,28 +606,33 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the mesh's device type; the traced tensors are "
                          "fake either way (cuda asks for a visible card)")
     ap.add_argument("--head-aligned-sharding", action="store_true")
-    # the reference's speed switches: accepted at their defaults only
     ap.add_argument("--no-unroll", action="store_true",
-                    help="raises: " + SPEED_SWITCHES["no_unroll"][1])
+                    help="raises: the port has no layer scan")
     ap.add_argument("--dispatch", default="einsum",
                     choices=["einsum", "gather"],
-                    help="gather raises: " + SPEED_SWITCHES["dispatch"][1])
-    ap.add_argument("--cache-update", default="onehot",
-                    choices=["onehot", "dus"],
-                    help="dus raises: " + SPEED_SWITCHES["cache_update"][1])
+                    help="the MoE forward's dispatch (models/moe.py)")
+    ap.add_argument("--cache-update", default="dus",
+                    choices=["dus", "onehot"],
+                    help="the decode cache write (models/common.py): the "
+                         "port's default dus writes the slot in place, "
+                         "onehot rewrites the cache (the reference's "
+                         "default); both give the same values")
     ap.add_argument("--attn-impl", default="naive",
                     choices=["naive", "chunked"],
-                    help="chunked raises: " + SPEED_SWITCHES["attn_impl"][1])
+                    help="the plain prefill attention (models/common.py)")
     ap.add_argument("--mla-naive", action="store_true",
-                    help="raises: " + SPEED_SWITCHES["mla_naive"][1])
+                    help="MLA decode in the naive form (models/mla.py)")
     ap.add_argument("--gqa", default="repeat", choices=["repeat", "grouped"],
-                    help="grouped raises: " + SPEED_SWITCHES["gqa"][1])
+                    help="GQA attention with K/V repeated or grouped "
+                         "(models/common.py)")
     return ap
 
 
 def main(argv=None) -> List[Dict]:
     args = build_parser().parse_args(argv)
-    check_speed_switches(args)
+    if args.no_unroll:
+        raise ValueError(NO_UNROLL)
+    switches = {name: getattr(args, name) for name in SWITCHES}
     archs = list(ARCH_IDS) if args.arch == "all" else args.arch.split(",")
     shapes = list(INPUT_SHAPES) if args.shape == "all" \
         else args.shape.split(",")
@@ -632,7 +647,7 @@ def main(argv=None) -> List[Dict]:
                     results.append(run_one(
                         arch, shape, mp, variant=args.variant,
                         head_aligned=args.head_aligned_sharding,
-                        device=args.device))
+                        device=args.device, **switches))
                 except Exception as e:   # a FAIL row; the sweep goes on
                     traceback.print_exc()
                     results.append({"arch": arch, "shape": shape,

@@ -157,7 +157,8 @@ def block_forward(
 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """One layer.  ``p`` and ``cache`` are the layer's own (unstacked);
     decode writes into ``cache`` in place (the recurrent kinds copy their
-    new states and last inputs into it)."""
+    new states and last inputs into it), but for the attention caches
+    under ``common.CACHE_UPDATE`` "onehot", which come back new."""
     if kind not in KINDS:
         raise ValueError(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -196,8 +197,9 @@ def block_forward(
             o, (ckv, kr) = mla_mod.mla_forward(p["mla"], h, cfg, positions)
             new_cache = {"ckv": ckv, "kr": kr} if emit_cache else None
         else:
-            o, ckv, kr = mla_mod.mla_decode(p["mla"], h, cache["ckv"],
-                                            cache["kr"], cache_pos, cfg)
+            o, ckv, kr = mla_mod.mla_decode(
+                p["mla"], h, cache["ckv"], cache["kr"], cache_pos, cfg,
+                absorbed=mla_mod.ABSORBED_DECODE)
             new_cache = {"ckv": ckv, "kr": kr}
     elif mode == "full":
         o, (k, v) = attn_forward(

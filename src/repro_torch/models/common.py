@@ -4,14 +4,19 @@ blocks, plus the carry-over of parameters initialised by the JAX package.
 
 Counterpart of ``src/repro/models/common.py``.  As there, the components
 are functions over nested-dict parameter trees of tensors, with the
-reference's parameter names.  The reference's speed switches
-(``GQA_IMPL``, ``ATTN_IMPL``, ``CACHE_UPDATE``) are not ported: they
-compute the same function (``tests/test_perf_toggles.py``), and the port
-keeps the values of their defaults ("repeat", "naive", "onehot"; the cache
-write is made in place).  Instead, the causal self-attention of a
+reference's parameter names.  The causal self-attention of a
 full-sequence forward goes through ``kernels/ops.py::
 sliding_window_attention``: the hand-written kernel when ``use_kernels``
 is set, its plain version otherwise.
+
+The reference's exact rewrites are module attributes with its names, read
+at call time (``tests/test_torch_perf_toggles.py`` holds each mode to the
+JAX package's same mode): ``GQA_IMPL`` ("repeat" | "grouped"),
+``ATTN_IMPL`` ("naive" | "chunked") with ``ATTN_CHUNK``, and
+``CACHE_UPDATE`` ("dus" | "onehot").  The port's cache default is "dus",
+the in-place write, where the reference's is "onehot": both give the same
+values, and a decode on the card should not rewrite its whole cache a
+token.
 """
 from __future__ import annotations
 
@@ -233,11 +238,25 @@ def sinusoidal_positions(seq: int, d: int, dtype=torch.float32, device=None):
 # ---------------------------------------------------------------------------
 
 
+# Decode-cache write:
+#   "dus"    - the new entry scattered into its slot, in place (the
+#              reference's vmapped dynamic_update_slice under donation);
+#   "onehot" - cache·(1 − oh) + oh·new, a new cache: two reads and a write
+#              of the whole cache (the reference's default).
+CACHE_UPDATE = "dus"
+
+
 def write_cache(cache, new, idx):
-    """cache: (B, C, ...); new: (B, 1, ...); idx: (B,) target slot.  Writes
-    ``new`` into slot ``idx`` of each row of ``cache`` in place and returns
-    ``cache``: the values of the reference's default "onehot" update,
-    cache·(1 − oh) + oh·new, without rewriting the whole cache."""
+    """cache: (B, C, ...); new: (B, 1, ...); idx: (B,) target slot.
+    Returns the cache with ``new`` in slot ``idx`` of each row: ``cache``
+    itself, written in place, under "dus"; a new tensor under "onehot".
+    For finite values both give the same bits."""
+    if CACHE_UPDATE == "onehot":
+        # the reference's jax.nn.one_hot: a comparison with the slot index
+        slots = torch.arange(cache.shape[1], device=cache.device)
+        oh = (slots[None, :] == idx[:, None]).to(cache.dtype)  # (B, C)
+        oh = oh.reshape(oh.shape + (1,) * (cache.dim() - 2))
+        return cache * (1.0 - oh) + oh * new
     at = idx.long().reshape((-1, 1) + (1,) * (cache.dim() - 2))
     # a scatter along the slot axis keeps the batch and head axes free to
     # be sharded (a DTensor cache of the dry run, launch/specs.py)
@@ -269,13 +288,36 @@ def _repeat_kv(k, num_heads: int):
     return k.repeat_interleave(num_heads // num_kv, dim=-2)
 
 
+# GQA attention:
+#   "repeat"  - K/V repeated to H heads (at decode a re-read of the cache
+#               H/KV times);
+#   "grouped" - einsums against the KV heads with a query-group axis: the
+#               same function, K/V never repeated.  Taken where KV != H.
+GQA_IMPL = "repeat"
+
+
+def _grouped_attn(q, k, v, mask_fn):
+    """q: (B, Sq, H, D); k/v: (B, Sk, KV, D) -> (B, Sq, H, D); query head
+    h reads KV head h // (H // KV).  ``mask_fn`` masks the f32 logits
+    (B, KV, G, Sq, Sk)."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, D)
+    scale = 1.0 / math.sqrt(D)
+    logits = torch.einsum("bqkgd,bckd->bkgqc", qg, k).float() * scale
+    probs = torch.softmax(mask_fn(logits), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqc,bckd->bqkgd", probs, v)
+    return out.reshape(B, Sq, H, D)
+
+
 def sdpa(q, k, v, *, causal: bool, window: int = 0):
     """Reference scaled-dot-product attention with optional causal +
     sliding-window masking.  q: (B, Sq, H, D), k/v: (B, Sk, KV, D).
     ``window``: if > 0, keys older than ``window`` positions are masked.
-    Materialises the (B, H, Sq, Sk) logits.  (The reference's decode-only
-    ``q_offset`` and ``kv_valid_len`` have no caller here: the port's
-    decode masks its cache itself, as the reference's does.)
+    Materialises the (B, H, Sq, Sk) logits; under ``GQA_IMPL`` "grouped"
+    with KV != H, the grouped form (``_grouped_attn``).  (The reference's
+    decode-only ``q_offset`` and ``kv_valid_len`` have no caller here: the
+    port's decode masks its cache itself, as the reference's does.)
     """
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -286,6 +328,9 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0):
         mask &= k_pos[None, :] <= q_pos[:, None]
     if window > 0:
         mask &= k_pos[None, :] > q_pos[:, None] - window
+    if GQA_IMPL == "grouped" and k.shape[2] != H:
+        return _grouped_attn(q, k, v, lambda lg: torch.where(
+            mask[None, None, None], lg, -1e30))
     k = _repeat_kv(k, H)
     v = _repeat_kv(v, H)
     scale = 1.0 / math.sqrt(D)
@@ -293,6 +338,14 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0):
     logits = torch.where(mask[None, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# Prefill attention without the kernel:
+#   "naive"   - the (B, H, S, S) logits at once;
+#   "chunked" - online softmax over ATTN_CHUNK keys at a time (peak
+#               O(S·chunk)), where S > ATTN_CHUNK and S % ATTN_CHUNK == 0.
+ATTN_IMPL = "naive"
+ATTN_CHUNK = 1024
 
 
 def chunked_causal_attention(q, k, v, *, window: int = 0, chunk: int = 1024):
@@ -369,21 +422,32 @@ def attn_forward(p, x, *, num_heads: int, num_kv: int, head_dim: int,
     (k, v)) so the prefill path can emit the cache.  ``kv_override``: (k, v)
     from an encoder for cross-attention.
 
-    Causal self-attention runs ``ops.sliding_window_attention`` (the
-    kernel with ``use_kernels``, else its plain version), with the window
-    S where ``window`` is 0 (full causal): the op takes its window
-    literally.  Cross- and non-causal attention run ``sdpa``."""
+    Causal self-attention with ``use_kernels`` runs the kernel
+    (``ops.sliding_window_attention``, the window S where ``window`` is
+    0: the op takes its window literally) under every switch: it is the
+    chunked schedule, K/V read once a query group.  Without it: under
+    ``ATTN_IMPL`` "chunked", where S > ATTN_CHUNK and S % ATTN_CHUNK == 0,
+    ``chunked_causal_attention``; else under ``GQA_IMPL`` "grouped" with
+    KV != H, ``sdpa``'s grouped form; else the kernel's plain version
+    (``ref.swa_attention_ref``).  Cross- and non-causal attention run
+    ``sdpa``."""
     B, S, _ = x.shape
     q, k, v = attn_qkv(p, x, num_heads=num_heads, num_kv=num_kv,
                        head_dim=head_dim, positions=positions,
                        rope_theta=rope_theta, mrope_sections=mrope_sections,
                        positions_thw=positions_thw, kv_override=kv_override)
-    if causal and kv_override is None:
+    if not causal or kv_override is not None:
+        out = sdpa(q, k, v, causal=False, window=window)
+    elif (not use_kernels and ATTN_IMPL == "chunked" and S > ATTN_CHUNK
+          and S % ATTN_CHUNK == 0):
+        out = chunked_causal_attention(q, k, v, window=window,
+                                       chunk=ATTN_CHUNK)
+    elif not use_kernels and GQA_IMPL == "grouped" and num_kv != num_heads:
+        out = sdpa(q, k, v, causal=True, window=window)
+    else:
         out = ops.sliding_window_attention(
             q, k, v, window=window if window > 0 else S,
             use_kernels=use_kernels)
-    else:
-        out = sdpa(q, k, v, causal=False, window=window)
     out = out.reshape(B, S, num_heads * head_dim) @ p["wo"]
     return out, (k, v)
 
@@ -393,7 +457,9 @@ def attn_decode(p, x, cache_k, cache_v, cache_pos, *, num_heads: int,
                 ring: bool = False, mrope_sections: Tuple[int, ...] = (),
                 positions_thw=None):
     """One-token cached decode.  x: (B, 1, d); cache_k/v: (B, C, KV, D),
-    written in place (``write_cache``) and returned; cache_pos: (B,)
+    written by ``write_cache`` (in place under "dus") and returned, the
+    attention over them grouped under ``GQA_IMPL`` "grouped" where
+    KV != H; cache_pos: (B,)
     absolute position of the new token; positions_thw: (B, 1, 3) its
     M-RoPE ids where ``mrope_sections`` is set.
 
@@ -417,13 +483,17 @@ def attn_decode(p, x, cache_k, cache_v, cache_pos, *, num_heads: int,
     valid = torch.clamp(cache_pos + 1, max=C)  # (B,)
     k_pos = torch.arange(C, device=x.device)[None, :]  # slot index
     vmask = k_pos < valid[:, None]  # (B, C)
-    kh = _repeat_kv(cache_k, num_heads)
-    vh = _repeat_kv(cache_v, num_heads)
-    scale = 1.0 / math.sqrt(head_dim)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, kh).float() * scale
-    logits = torch.where(vmask[:, None, None, :], logits, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
+    if GQA_IMPL == "grouped" and num_kv != num_heads:
+        out = _grouped_attn(q, cache_k, cache_v, lambda lg: torch.where(
+            vmask[:, None, None, None, :], lg, -1e30))
+    else:
+        kh = _repeat_kv(cache_k, num_heads)
+        vh = _repeat_kv(cache_v, num_heads)
+        scale = 1.0 / math.sqrt(head_dim)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, kh).float() * scale
+        logits = torch.where(vmask[:, None, None, :], logits, -1e30)
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
     out = out.reshape(B, 1, num_heads * head_dim) @ p["wo"]
     return out, cache_k, cache_v
 

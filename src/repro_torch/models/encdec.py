@@ -133,8 +133,9 @@ def init_self_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
 
 def decode_step(params, cfg: ArchConfig, token, self_cache, xkv, cache_pos):
     """token: (B, 1); self_cache: stacked (L, B, C, KV, hd), written in
-    place and returned; xkv: the cross K/V of ``cross_kv``; cache_pos: (B,).
-    Returns (logits (B, 1, vocab), self_cache)."""
+    place and returned (a new one under ``common.CACHE_UPDATE`` "onehot");
+    xkv: the cross K/V of ``cross_kv``; cache_pos: (B,).  Returns (logits
+    (B, 1, vocab), self_cache)."""
     x = F.embedding(token.long(), params["embed"])
     # the sinusoidal position embedding at the current step
     C = self_cache["k"].shape[2]
@@ -142,11 +143,17 @@ def decode_step(params, cfg: ArchConfig, token, self_cache, xkv, cache_pos):
                                  x.device)[cache_pos][:, None, :]
     pos = cache_pos[:, None]
     xk, xv = xkv
+    fresh = None
     for i in range(cfg.num_layers):
         p = _layer(params["dec_blocks"], i)
-        o, _, _ = attn_decode(p["self_attn"], layernorm(p["norm1"], x),
-                              self_cache["k"][i], self_cache["v"][i],
-                              cache_pos, **_heads(cfg), rope_theta=0.0)
+        ck, cv = self_cache["k"][i], self_cache["v"][i]
+        o, nk, nv = attn_decode(p["self_attn"], layernorm(p["norm1"], x),
+                                ck, cv, cache_pos, **_heads(cfg),
+                                rope_theta=0.0)
+        if nk is not ck:            # a new cache, not written in place
+            if fresh is None:
+                fresh = {n: torch.empty_like(c) for n, c in self_cache.items()}
+            fresh["k"][i], fresh["v"][i] = nk, nv
         x = x + o
         o, _ = attn_forward(p["cross_attn"], layernorm(p["norm_x"], x),
                             **_heads(cfg), positions=pos, rope_theta=0.0,
@@ -154,4 +161,4 @@ def decode_step(params, cfg: ArchConfig, token, self_cache, xkv, cache_pos):
         x = x + o
         x = x + mlp_forward(p["mlp"], layernorm(p["norm2"], x), cfg.act)
     x = layernorm(params["final_norm"], x)
-    return x @ params["lm_head"], self_cache
+    return x @ params["lm_head"], fresh or self_cache

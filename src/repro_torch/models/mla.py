@@ -7,10 +7,12 @@ Q goes through a low-rank projection too.  The decode cache holds only
 
 Full sequences (forward, prefill) run the naive expanded form: the latent
 is expanded to per-head K/V and attended with the (B, H, S, S) logits.
-Decode runs the absorbed form, the reference's default
-(``ABSORBED_DECODE = True``): W_uk is folded into the query and W_uv into
-the output, so a step attends in latent space.  The reference's naive
-decode is a speed switch and is not ported.
+Decode runs the absorbed form by default (``ABSORBED_DECODE = True``, as
+the reference): W_uk is folded into the query and W_uv into the output,
+so a step attends in latent space.  ``ABSORBED_DECODE = False``, read at
+call time by ``blocks.py``, runs the reference's naive decode, the
+paper-era baseline: the latent cache expanded to per-head K/V every
+step.  Both compute the same function.
 
 Everything here is plain torch, as the reference runs it in jnp.  The
 sliding-window attention kernel does not apply: MLA's q·k width (nope +
@@ -27,6 +29,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import apply_rope, dense_init, write_cache
+
+# Decode form: absorbed (True) attends in latent space; naive (False)
+# expands the latent cache to per-head K/V at every step.
+ABSORBED_DECODE = True
 
 
 def mla_params(generator: torch.Generator, cfg: ArchConfig,
@@ -87,14 +93,18 @@ def mla_forward(p, x, cfg: ArchConfig, positions, causal: bool = True):
     return out, (c_kv, k_rope)
 
 
-def mla_decode(p, x, cache_ckv, cache_krope, cache_pos, cfg: ArchConfig):
-    """One-token MLA decode against the compressed cache, absorbed form:
+def mla_decode(p, x, cache_ckv, cache_krope, cache_pos, cfg: ArchConfig,
+               absorbed: bool = True):
+    """One-token MLA decode against the compressed cache.  ``absorbed``:
 
         logits = (q_nope @ W_uk^T) @ c_kv^T + q_rope @ k_rope^T
-        out    = (probs @ c_kv) @ W_uv, then the head merge through wo.
+        out    = (probs @ c_kv) @ W_uv, then the head merge through wo;
+
+    else the naive form: c_kv expanded to per-head k_nope and v (B, C, H,
+    ·) and attended as in ``mla_forward``.
 
     x: (B, 1, d); cache_ckv: (B, C, r_kv); cache_krope: (B, C, dr), both
-    written in place at slot cache_pos (B,) and returned.
+    written at slot cache_pos (B,) by ``write_cache`` and returned.
     """
     B = x.shape[0]
     C = cache_ckv.shape[1]
@@ -108,17 +118,26 @@ def mla_decode(p, x, cache_ckv, cache_krope, cache_pos, cfg: ArchConfig):
     cache_krope = write_cache(cache_krope, k_rope_new, write_idx)
     valid = torch.clamp(cache_pos + 1, max=C)
     scale = 1.0 / math.sqrt(dn + dr)
-    # absorb W_uk into q: (B, 1, H, dn) x (r, H, dn) -> (B, 1, H, r)
-    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
-                         p["wk_b"].reshape(r_kv, H, dn))
-    logits = (torch.einsum("bqhr,bkr->bhqk", q_lat, cache_ckv)
-              + torch.einsum("bqhd,bkd->bhqk", q_rope, cache_krope)
+    if absorbed:
+        # absorb W_uk into q: (B, 1, H, dn) x (r, H, dn) -> (B, 1, H, r)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
+                             p["wk_b"].reshape(r_kv, H, dn))
+        nope = torch.einsum("bqhr,bkr->bhqk", q_lat, cache_ckv)
+    else:
+        k_nope = (cache_ckv @ p["wk_b"]).reshape(B, C, H, dn)
+        nope = torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+    logits = (nope + torch.einsum("bqhd,bkd->bhqk", q_rope, cache_krope)
               ).float() * scale
     k_idx = torch.arange(C, device=x.device)[None, :]
     logits = torch.where((k_idx < valid[:, None])[:, None, None, :], logits,
                          -1e30)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    ctx = torch.einsum("bhqk,bkr->bqhr", probs, cache_ckv)  # (B, 1, H, r)
-    out = torch.einsum("bqhr,rhd->bqhd", ctx, p["wv_b"].reshape(r_kv, H, dv))
+    if absorbed:
+        ctx = torch.einsum("bhqk,bkr->bqhr", probs, cache_ckv)  # (B,1,H,r)
+        out = torch.einsum("bqhr,rhd->bqhd", ctx,
+                           p["wv_b"].reshape(r_kv, H, dv))
+    else:
+        v = (cache_ckv @ p["wv_b"]).reshape(B, C, H, dv)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     out = out.reshape(B, 1, H * dv) @ p["wo"]
     return out, cache_ckv, cache_krope

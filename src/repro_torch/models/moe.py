@@ -1,10 +1,13 @@
 """Mixture-of-Experts FFN with GShard-style one-hot dispatch.
 
-Counterpart of ``src/repro/models/moe.py``.  Tokens are routed to experts
-by one-hot dispatch and combine tensors and einsums, the reference's
-default ``DISPATCH_MODE = "einsum"`` (its scatter/gather mode is a speed
-switch and is not ported).  The router and the expert products are plain
-torch: the reference computes them in jnp, outside any Pallas kernel.
+Counterpart of ``src/repro/models/moe.py``.  ``DISPATCH_MODE``, read at
+call time as the reference reads it, picks how the forward routes tokens
+to experts: "einsum" (the default), one-hot dispatch and combine tensors
+(B, S, E, C) and einsums; or "gather", the same function with no one-hot
+planes and no dispatch FLOPs: the kept tokens are scattered into their
+(expert, slot) cells, the experts' outputs gathered back and summed with
+their gates.  The router and the expert products are plain torch: the
+reference computes them in jnp, outside any Pallas kernel.
 
 Capacity accounting is per batch row (each sequence is one GShard
 dispatch group): token t of row b is dropped at expert e iff the tokens of
@@ -84,6 +87,14 @@ def _aux_loss(mask, probs, E: int, K: int, dims):
         * (E / K)
 
 
+# Dispatch of moe_forward:
+#   "einsum" - GShard one-hot dispatch / combine einsums, O(T·E·C·d)
+#              FLOPs;
+#   "gather" - a scatter of each kept (token, expert) into its (expert,
+#              slot) cell and a gather back, O(T·k·d) data movement.
+DISPATCH_MODE = "einsum"
+
+
 def _expert_ffn(we, expert_in, act: str):
     """expert_in: (B, E, C, D) -> (B, E, C, D), each expert's FFN."""
     if act in ("silu", "swiglu"):
@@ -101,6 +112,40 @@ def _add_shared_and_dense(p, routed, xt, act: str):
         if name in p:
             out = out + mlp_forward(p[name], xt, act)
     return out
+
+
+def _gather_dispatch(we, x, gates, pos_c, keep, cap: int, K: int, act: str):
+    """The routed output (B, S, D) of ``moe_forward`` by scatter and
+    gather: each of a token's k (expert, gate) pairs goes to its slot of
+    the (B, E, C + 1, D) expert input, a dropped one to the overflow slot
+    C, cut off before the FFN; the outputs come back by a gather and a
+    sum weighted by the gates (0 for a dropped pair).  Kept pairs own
+    distinct (row, expert, slot) cells and dropped ones add zeros, so the
+    accumulating scatter gives the same values in any order."""
+    B, S, D = x.shape
+    E = gates.shape[-1]
+    top_gates, top_idx = torch.topk(gates, K, dim=-1)  # (B, S, K)
+    slot = torch.gather(pos_c, 2, top_idx)
+    kept = torch.gather(keep, 2, top_idx)
+    e_flat = top_idx.reshape(B, S * K)
+    s_flat = slot.reshape(B, S * K)
+    k_flat = kept.reshape(B, S * K)
+    w_flat = torch.where(kept, top_gates, 0.0).reshape(B, S * K).to(x.dtype)
+    s_safe = torch.where(k_flat, s_flat, cap)
+    x_rep = x.repeat_interleave(K, dim=1)  # (B, S*K, D)
+    # each row's (expert, slot) cells flattened to one axis: a scatter and
+    # a gather along it keep the batch and feature axes free to be sharded
+    # (the dry run's DTensors)
+    cell = (e_flat * (cap + 1) + s_safe)[..., None].expand(B, S * K, D)
+    expert_in = x.new_zeros((B, E * (cap + 1), D)).scatter_add(
+        1, cell, torch.where(k_flat[..., None], x_rep, 0.0))
+    expert_out = _expert_ffn(
+        we, expert_in.reshape(B, E, cap + 1, D)[:, :, :cap], act)
+    cell = (e_flat * cap + torch.clamp(s_flat, max=cap - 1))[..., None]
+    gathered = torch.gather(expert_out.reshape(B, E * cap, D), 1,
+                            cell.expand(B, S * K, D))
+    return torch.sum((gathered * w_flat[..., None]).reshape(B, S, K, D),
+                     dim=2)
 
 
 def moe_forward(p, x, cfg: MoEConfig, act: str, *, with_counts: bool = False):
@@ -124,13 +169,17 @@ def moe_forward(p, x, cfg: MoEConfig, act: str, *, with_counts: bool = False):
     pos_in_expert = torch.cumsum(mask, dim=1) * mask - 1.0  # (B, S, E)
     keep = (pos_in_expert < cap) & (mask > 0)
     pos_c = torch.clamp(pos_in_expert, 0, cap - 1).long()
-    # dispatch: (B, S, E, C), one-hot over the capacity slot of kept tokens
-    oh_cap = x.new_zeros((B, S, E, cap)).scatter_(
-        -1, pos_c[..., None], keep[..., None].to(x.dtype))
-    combine = oh_cap * gates[..., None].to(x.dtype)
-    expert_in = torch.einsum("bsec,bsd->becd", oh_cap, x)  # (B, E, C, D)
-    expert_out = _expert_ffn(p["experts"], expert_in, act)
-    routed = torch.einsum("bsec,becd->bsd", combine, expert_out)
+    if DISPATCH_MODE == "einsum":
+        # dispatch: (B, S, E, C), one-hot over the slot of kept tokens
+        oh_cap = x.new_zeros((B, S, E, cap)).scatter_(
+            -1, pos_c[..., None], keep[..., None].to(x.dtype))
+        combine = oh_cap * gates[..., None].to(x.dtype)
+        expert_in = torch.einsum("bsec,bsd->becd", oh_cap, x)  # (B, E, C, D)
+        expert_out = _expert_ffn(p["experts"], expert_in, act)
+        routed = torch.einsum("bsec,becd->bsd", combine, expert_out)
+    else:
+        routed = _gather_dispatch(p["experts"], x, gates, pos_c, keep, cap,
+                                  K, act)
     out = _add_shared_and_dense(p, routed.reshape(B * S, D),
                                 x.reshape(B * S, D), act).reshape(B, S, D)
     if with_counts:

@@ -145,7 +145,8 @@ class Model:
                     moe_cap_len: int = 0):
         """One token through the model: (logits, caches).  The new cache
         entries are written into ``caches`` in place, and ``caches`` is
-        returned (the reference returns a new tree).  ``extras`` is
+        returned (the reference returns a new tree; so does the port under
+        ``common.CACHE_UPDATE`` "onehot": use the caches it returns).  ``extras`` is
         accepted and unused, as in the reference.  ``moe_cap_len`` (MoE
         archs): the sequence length the per-row expert capacity is computed
         from; 0 = the allocated cache length.  Pin it to the reference

@@ -127,9 +127,11 @@ def _run_layers(kind, stacked_p, x, cfg, *, n, mode, positions,
                 moe_cap_len, use_kernels):
     """Apply one run of ``n`` layers in order.  Decode writes each layer's
     new cache entries into the stacked ``caches`` in place (through the
-    layer's views) and returns them.  Prefill writes its caches into one
-    stacked buffer a leaf (allocated at the first layer), not stacked
-    afterwards, so a long prefill holds its caches once.  A
+    layer's views) and returns them; a leaf that a layer returns as a new
+    tensor instead (the attention caches under ``common.CACHE_UPDATE``
+    "onehot") is returned as a new stacked leaf.  Prefill writes its
+    caches into one stacked buffer a leaf (allocated at the first layer),
+    not stacked afterwards, so a long prefill holds its caches once.  A
     ``shared_attn`` run is one layer of the shared parameters
     (``stacked_p``) with an unstacked cache."""
     kw = dict(mode=mode, positions=positions, positions_thw=positions_thw,
@@ -139,21 +141,24 @@ def _run_layers(kind, stacked_p, x, cfg, *, n, mode, positions,
     if kind == "shared_attn":
         x, new_c, aux = B.block_forward(kind, stacked_p, x, cfg,
                                         cache=caches, **kw)
-        return x, caches if mode == "decode" else new_c, aux
+        return x, caches if mode == "decode" and all(
+            new_c[k] is caches[k] for k in new_c) else new_c, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    out_caches = caches if mode == "decode" else None
+    fresh = {}
     for i in range(n):
-        x, new_c, a = B.block_forward(
-            kind, _layer(stacked_p, i), x, cfg,
-            cache=None if caches is None else _layer(caches, i), **kw)
+        layer_cache = None if caches is None else _layer(caches, i)
+        x, new_c, a = B.block_forward(kind, _layer(stacked_p, i), x, cfg,
+                                      cache=layer_cache, **kw)
         aux = aux + a
-        if new_c is not None and mode != "decode":
-            if out_caches is None:
-                out_caches = {k: c.new_empty((n,) + tuple(c.shape))
-                              for k, c in new_c.items()}
-            for k, c in new_c.items():
-                out_caches[k][i] = c
-    return x, out_caches, aux
+        for k, c in (new_c or {}).items():
+            if layer_cache is not None and c is layer_cache[k]:
+                continue            # written in place
+            if k not in fresh:
+                fresh[k] = c.new_empty((n,) + tuple(c.shape))
+            fresh[k][i] = c
+    if mode == "decode":
+        return x, {**caches, **fresh} if fresh else caches, aux
+    return x, fresh or None, aux
 
 
 def forward_hidden(params, cfg: ArchConfig, tokens, *, patches=None,
@@ -163,9 +168,11 @@ def forward_hidden(params, cfg: ArchConfig, tokens, *, patches=None,
     """Core stack application.  Returns (hidden, new_caches, aux_loss, the
     sum over the layers).  ``use_kernels``: the full-sequence attention
     through the kernel.  Decode updates ``caches`` in place and returns
-    them.  ``moe_cap_len``: the sequence length decode's MoE capacity is
-    computed from (0 = the cache length); pin it to the teacher-forced
-    length when the cache is allocated longer."""
+    them (the attention caches as new tensors under
+    ``common.CACHE_UPDATE`` "onehot").  ``moe_cap_len``: the sequence
+    length decode's MoE capacity is computed from (0 = the cache length);
+    pin it to the teacher-forced length when the cache is allocated
+    longer."""
     batch, seq = tokens.shape
     if mode == "decode":
         positions = cache_pos[:, None]

@@ -8,12 +8,15 @@ and the CLI's):
     reference's keys (``trace_s`` for ``lower_s``/``compile_s``), FLOPs
     at least those of its projections, ``useful_flops_ratio`` positive;
     zamba2-1.2b and rwkv6-7b: tests/test_torch_dryrun_{zamba2,rwkv6}.py;
-  * the reference's six speed switches raise, and
-    ``--head-aligned-sharding`` acts;
+  * the reference's five exact rewrites act through their flags, each
+    traced on a row that runs it and recorded in ``opts``;
+    ``--no-unroll`` raises, and ``--head-aligned-sharding`` acts;
   * no process group is left after a trace, and a mesh refuses to start
     beside one;
   * ``run_one`` skips exactly the pairs the reference skips.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -27,8 +30,10 @@ from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import sharding as SH  # noqa: E402
 from repro_torch.launch.mesh import fake_mesh, make_debug_mesh, \
     make_production_mesh  # noqa: E402
+from repro_torch.models import common, mla, moe  # noqa: E402
 
 SMALL = {"train_4k": InputShape("train_4k", 16, 4, "train"),
+         "prefill_32k": InputShape("prefill_32k", 16, 4, "prefill"),
          "decode_32k": InputShape("decode_32k", 32, 4, "decode")}
 # the keys of a row of src/repro/launch/dryrun.py::run_one (its
 # analyze_compiled report and what run_one adds), less lower_s/compile_s
@@ -59,12 +64,14 @@ def projection_params(cfg, train: bool) -> int:
                and not (train and p.endswith("lm_head")))
 
 
-def trace_small(arch, shape_name, **kw):
+def trace_small(arch, shape_name, replace=None, mesh_shape=(2, 2), **kw):
     cfg = reduced(get_config(arch))
-    with fake_mesh((2, 2), ("data", "model"), "cpu") as mesh:
+    if replace:
+        cfg = dataclasses.replace(cfg, **replace)
+    with fake_mesh(mesh_shape, ("data", "model"), "cpu") as mesh:
         row = dryrun.trace_one(cfg, SMALL[shape_name], mesh,
-                               mesh_name="fake(2,2)", device="cpu",
-                               verbose=False, **kw)
+                               mesh_name="fake(%d,%d)" % mesh_shape,
+                               device="cpu", verbose=False, **kw)
     assert not dist.is_initialized()
     return cfg, row
 
@@ -114,13 +121,53 @@ def test_head_aligned_sharding_acts():
         rows[0]["memory_analysis"]["arg_bytes"]
 
 
-@pytest.mark.parametrize("flag", [
-    ["--no-unroll"], ["--dispatch", "gather"], ["--cache-update", "dus"],
-    ["--attn-impl", "chunked"], ["--mla-naive"], ["--gqa", "grouped"]])
+@pytest.mark.parametrize("flag", [["--no-unroll"]])
 def test_speed_switches_raise(flag):
     with pytest.raises(ValueError, match="cannot act in the port"):
         dryrun.main(["--arch", "internlm2-1.8b", "--shape", "train_4k",
                      "--device", "cpu", *flag])
+
+
+# flag -> (arch, its reduced config's changes, a shape whose step runs the
+# switched code, the mesh, what opts records).  A new op's first
+# placements send DTensor's redistribute planner into a search of seconds
+# on a (2, 2) mesh: the rows take a model axis of 1 (the gather dispatch
+# with sharded experts: tests/test_torch_dryrun_faults.py, C11; the full
+# meshes: the chip's sweep)
+SWITCH_ROWS = {
+    "--dispatch gather": ("arctic-480b", None, "prefill_32k", (2, 1),
+                          {"dispatch": "gather"}),
+    "--cache-update onehot": ("internlm2-1.8b", None, "decode_32k", (2, 1),
+                              {"cache_update": "onehot"}),
+    # 16 tokens in chunks of 8 (the test sets ATTN_CHUNK)
+    "--attn-impl chunked": ("internlm2-1.8b", None, "prefill_32k", (2, 1),
+                            {"attn_impl": "chunked"}),
+    "--mla-naive": ("deepseek-v3-671b", None, "decode_32k", (2, 1),
+                    {"mla_absorbed": False}),
+    "--gqa grouped": ("internlm2-1.8b", {"num_kv_heads": 2}, "decode_32k",
+                      (2, 1), {"gqa": "grouped"}),
+}
+
+
+@pytest.mark.parametrize("flag", list(SWITCH_ROWS))
+def test_speed_switches_act(flag, monkeypatch):
+    """Each flag of the reference's exact rewrites, parsed as the CLI
+    parses it, traces an ok row with the switch recorded in ``opts`` (and
+    the port's defaults beside it), the models' attributes restored."""
+    arch, replace, shape_name, mesh_shape, want = SWITCH_ROWS[flag]
+    monkeypatch.setattr(common, "ATTN_CHUNK", 8)
+    args = dryrun.build_parser().parse_args(flag.split())
+    switches = {name: getattr(args, name) for name in dryrun.SWITCHES}
+    before = (moe.DISPATCH_MODE, common.CACHE_UPDATE, common.ATTN_IMPL,
+              common.GQA_IMPL, mla.ABSORBED_DECODE)
+    _, row = trace_small(arch, shape_name, replace, mesh_shape, **switches)
+    assert (moe.DISPATCH_MODE, common.CACHE_UPDATE, common.ATTN_IMPL,
+            common.GQA_IMPL, mla.ABSORBED_DECODE) == before
+    assert row["status"] == "ok"
+    defaults = {"dispatch": "einsum", "cache_update": "dus",
+                "attn_impl": "naive", "mla_absorbed": True, "unroll": True,
+                "gqa": "repeat", "use_kernels": False, "head_aligned": False}
+    assert row["opts"] == {**defaults, **want}
 
 
 def test_no_group_is_left_and_a_mesh_refuses_a_live_group():

@@ -31,6 +31,12 @@ of tests/test_torch_dryrun.py):
     counted loop's temp bytes are the plain trace's without a backward
     and at most 5% above with one.
 
+  * C11: the gather dispatch (``--dispatch gather``,
+    ``models/moe.py::_gather_dispatch``) keeps its expert input's batch
+    sharded over 'data', as the einsum dispatch does: fewer FLOPs a
+    device than the einsum dispatch on a mesh whose model axis shards
+    the experts.
+
 Every train row keeps ``check_row``'s floor of 6·N_proj·tokens FLOPs: the
 backward was traced.  One file, so that one process pays DTensor's first
 trace once.
@@ -235,3 +241,27 @@ def test_local_loop_counts_what_the_plain_trace_counts(shape_name,
         check_row(cfg, "train_4k", counted)    # the backward is counted
     else:
         assert got == want
+
+
+def test_gather_dispatch_keeps_the_batch_sharded():
+    """C11: a one-layer arctic-480b with 32 experts on a (4, 16) mesh
+    (the experts over the 16-way model axis), prefill: the gather
+    dispatch's scatter and gather along the flattened (expert, slot)
+    cells keep the expert input sharded over 'data' by batch, so it
+    traces fewer FLOPs a device than the einsum dispatch (its dispatch
+    and combine einsums gone).  Scattered by ``index_put``, the expert
+    input came out replicated over 'data' and every device ran every
+    row's experts: ×1.22 the einsum dispatch's FLOPs here, ×14.7 a device
+    on the card's full-size train_4k rows."""
+    cfg = reduced(get_config("arctic-480b"))
+    cfg = replace(cfg, num_layers=1, moe=replace(cfg.moe, num_experts=32))
+    flops = {}
+    for mode in ("einsum", "gather"):
+        with fake_mesh((4, 16), ("data", "model"), "cpu") as mesh:
+            row = dryrun.trace_one(
+                cfg, InputShape("prefill_32k", 64, 8, "prefill"), mesh,
+                mesh_name="fake(4,16)", device="cpu", verbose=False,
+                dispatch=mode)
+        assert row["status"] == "ok" and row["opts"]["dispatch"] == mode
+        flops[mode] = row["flops_per_device"]
+    assert flops["gather"] < flops["einsum"]

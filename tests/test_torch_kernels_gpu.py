@@ -962,6 +962,46 @@ def test_swa_kernel_odd_group_ratio(cuda, B, S, H, KV, D, W):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["grouped", "chunked"])
+def test_swa_kernel_matches_the_switched_plain_path(cuda, mode):
+    """B6 at internlm2-1.8b's heads (S 2048, 16 / 8 heads of 128) against
+    the plain attention under GQA_IMPL "grouped" (sdpa's grouped form)
+    and under ATTN_IMPL "chunked" (chunks of 1024), within 1e-5; a
+    layer's attn_forward with the kernels still launches B6 once under
+    the switch."""
+    from repro_torch.models import common
+
+    B, S, H, KV, D = 1, 2048, 16, 8, 128
+    q, k, v = _swa_inputs(B, S, H, KV, D, seed=11, cuda=cuda)
+    ops.reset_kernel_launches()
+    got = ops.sliding_window_attention(q, k, v, window=S)
+    attr = {"grouped": "GQA_IMPL", "chunked": "ATTN_IMPL"}[mode]
+    saved = getattr(common, attr)
+    setattr(common, attr, mode)
+    try:
+        if mode == "grouped":
+            want = common.sdpa(q, k, v, causal=True)
+        else:
+            want = common.chunked_causal_attention(q, k, v,
+                                                   chunk=common.ATTN_CHUNK)
+        g = torch.Generator(cuda).manual_seed(12)
+        p = {n: torch.randn(256, c, device=cuda, generator=g) / 16
+             for n, c in (("wq", H * D), ("wk", KV * D), ("wv", KV * D))}
+        p["wo"] = torch.randn(H * D, 256, device=cuda, generator=g) / 45
+        x = torch.randn(B, S, 256, device=cuda, generator=g)
+        kw = dict(num_heads=H, num_kv=KV, head_dim=D, rope_theta=1e4,
+                  positions=torch.arange(S, device=cuda)[None])
+        kern, _ = common.attn_forward(p, x, **kw)
+        plain, _ = common.attn_forward(p, x, use_kernels=False, **kw)
+    finally:
+        setattr(common, attr, saved)
+    torch.cuda.synchronize()
+    assert ops.kernel_launches()["swa_attention"] == 2
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(kern, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
 def test_swa_kernel_reads_strided_heads(cuda):
     """q, k, v as column slices of one fused projection (strided heads),
     and a window larger than S."""

@@ -245,7 +245,11 @@ its own):
                 and long_500k on single(16,16), a fake group of 256 ranks,
                 fake cuda tensors as DTensors placed by the reference's
                 rules: every row ok, trace seconds and terms printed,
-                rows under chiprun_out/dryrun/; (b) a reduced
+                rows under DRYRUN_DIR, the prefill and decode
+                rows' FLOPs a device at most 1.10 x the closed form over
+                the devices the step splits over (2 N_proj T + 4 B H Sq
+                Sk D L, launch/dryrun.py::analytic_flops) and x the plain
+                step's, no contraction gathered (ROADMAP C15); (b) a reduced
                 internlm2-1.8b train step (seq 64, batch 4, f32) run for
                 real on DTensors on the 1x1 debug mesh: loss and updated
                 parameters (gradient above 1e-6) within 1e-5 of the plain
@@ -256,13 +260,22 @@ its own):
                 (d) one full-size row per cleared fault: arctic-480b and
                 zamba2-1.2b train_4k, arctic-480b long_500k,
                 internlm2-1.8b decode_32k on multi(2,16,16), rwkv6-7b
-                train_4k, each ok, each train row's FLOPs at least
-                6 x active projection parameters x tokens; and two rows
+                train_4k, internlm2-20b prefill_32k (C15, under (a)'s
+                ceiling), whisper-large-v3 train_4k (C19, at most 1.10 x
+                its plain step's share), each ok, each train row's FLOPs
+                at least 6 x active projection parameters x tokens; and
+                rows
                 under the exact rewrites beside their default rows on
                 single(16,16): arctic-480b prefill_32k with gather
-                dispatch, grouped GQA and chunked attention,
+                dispatch, grouped GQA and chunked attention (fewer FLOPs),
                 deepseek-v3-671b decode_32k with the naive MLA decode,
-                each ok, its opts as set, both rows' terms printed
+                internlm2-1.8b long_500k grouped (C13: FLOPs at most 1.05
+                x, bytes no higher), prefill_32k chunked (C14: FLOPs at
+                most 1.05 x, collective bytes no higher), arctic-480b
+                prefill_32k gather (C12: fewer FLOPs, bytes and
+                collective bytes no higher), each ok, its opts as set,
+                both rows' terms printed, a row that misses its criteria
+                failing the phase
  12. kernels    one JSON line: per kernel, launches on the main path
                 (serving, training, distributed training, dist_prefetch,
                 the store's (a), (c) and (d), telemetry, memory, paper,
@@ -367,7 +380,15 @@ DRYRUN_CLEARED = (("arctic-480b", "train_4k", False),     # C7: MoE backward
                   ("zamba2-1.2b", "train_4k", False),     # C7: aten.flip
                   ("arctic-480b", "long_500k", False),    # C8: seq_shard
                   ("internlm2-1.8b", "decode_32k", True),  # C9: pod mesh
-                  ("rwkv6-7b", "train_4k", False))        # C10: token loop
+                  ("rwkv6-7b", "train_4k", False),        # C10: token loop
+                  ("internlm2-20b", "prefill_32k", False),  # C15: ceiling
+                  ("whisper-large-v3", "train_4k", False))  # C19: ceiling
+# (d): the cleared train rows held under DRYRUN_CEILING x their plain
+# step's share (a serving row always is)
+DRYRUN_TRAIN_CEILING = ("whisper-large-v3",)
+# (a) and (d): a serving row's FLOPs a device over the closed form (and
+# the plain step) over the devices its work splits over (ROADMAP C15)
+DRYRUN_CEILING = 1.10
 # the memory phase: the sweep's files and the --mem-probe streams; the
 # gate's bounds (--mem-growth-floor 2.0, 1 + --mem-epsilon 1.25), and
 # (m2)'s bar on GST's bytes a segment: at most 1/100 of full's
@@ -477,11 +498,22 @@ SWITCH_GQA = ("arctic-480b", SEQ_ARCH)
 SWITCH_LONG_CACHE = 32768
 SWITCH_PREFILL_S = (2048, 8192)
 # dryrun (d): full-size rows traced under the exact rewrites, each beside
-# its default row on single(16,16)
+# its default row on single(16,16), and what the switched row must meet
+# against it: FLOPs a device at most DRYRUN_SAME x ("flops") or below
+# ("fewer_flops"), bytes a device ("bytes") and collective bytes a device
+# ("collective") no higher (ROADMAP C12-C14)
+DRYRUN_SAME = 1.05
 DRYRUN_SWITCHED = (
     ("arctic-480b", "prefill_32k",
-     {"dispatch": "gather", "gqa": "grouped", "attn_impl": "chunked"}),
-    ("deepseek-v3-671b", "decode_32k", {"mla_naive": True}))
+     {"dispatch": "gather", "gqa": "grouped", "attn_impl": "chunked"},
+     ("fewer_flops",)),
+    ("deepseek-v3-671b", "decode_32k", {"mla_naive": True}, ()),
+    ("internlm2-1.8b", "long_500k", {"gqa": "grouped"},          # C13
+     ("flops", "bytes")),
+    ("internlm2-1.8b", "prefill_32k", {"attn_impl": "chunked"},  # C14
+     ("flops", "collective")),
+    ("arctic-480b", "prefill_32k", {"dispatch": "gather"},       # C12
+     ("fewer_flops", "bytes", "collective")))
 
 
 def log(msg: str) -> None:
@@ -4282,6 +4314,7 @@ def phase_dryrun(torch, dev):
     bad = [r for r in rows if r["status"] != "ok"]
     if bad:
         raise AssertionError(f"[dryrun] rows not ok: {bad}")
+    ceilings = [dryrun_ceiling(r) for r in rows if r["shape"] != "train_4k"]
     DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     path = DRYRUN_DIR / "dryrun_single.json"
     path.write_text(json.dumps(rows, indent=1, default=str))
@@ -4296,8 +4329,12 @@ def phase_dryrun(torch, dev):
                                       "flops_per_device", "bytes_per_device",
                                       "collective_bytes_per_device",
                                       "memory_analysis", "replicated_calls",
-                                      "local_scatter_calls")}
+                                      "local_scatter_calls", "gathered_calls",
+                                      "work_split", "plain_flops_per_device",
+                                      "flops_over_plain")}
                    for r in rows]
+    out["ceilings"] = ceilings
+    defaults = {(SEQ_ARCH, r["shape"]): r for r in rows}
 
     # (b)
     out["debug_step"] = dryrun_debug_step(torch, dev)
@@ -4314,17 +4351,54 @@ def phase_dryrun(torch, dev):
     # (d)
     out["cleared"] = [dryrun_cleared_row(arch, shape, multi, dev)
                       for arch, shape, multi in DRYRUN_CLEARED]
-    out["switched"] = [dryrun_switched_row(arch, shape, switches, dev)
-                       for arch, shape, switches in DRYRUN_SWITCHED]
+    out["switched"] = [
+        dryrun_switched_row(arch, shape, switches, criteria, dev, defaults)
+        for arch, shape, switches, criteria in DRYRUN_SWITCHED]
     return out
+
+
+def dryrun_ceiling(row):
+    """(a) and (d) of phase_dryrun for a prefill or decode row: FLOPs a
+    device at most DRYRUN_CEILING x the plain step's over the devices the
+    step splits over and, for a dense decoder, x its closed form
+    (launch/dryrun.py::analytic_flops), and no contraction that dropped
+    an operand's shard (ROADMAP C15).  Returns the ratios."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+
+    cfg = get_config(row["arch"])
+    analytic = row["plain_flops_per_device"]
+    if cfg.family in ("dense", "vlm"):
+        analytic = dryrun.analytic_flops(
+            cfg, INPUT_SHAPES[row["shape"]]) / row["work_split"]
+    ratio = row["flops_per_device"] / analytic
+    log(f"[dryrun] {row['arch']} {row['shape']} on {row['mesh']}: FLOPs a "
+        f"device {row['flops_per_device']:.4e}, closed form "
+        f"{analytic:.4e} over {row['work_split']} devices (x{ratio:.4f}), "
+        f"plain step x{row['flops_over_plain']:.4f}, gathered_calls "
+        f"{row['gathered_calls']}")
+    if ratio > DRYRUN_CEILING or row["flops_over_plain"] > DRYRUN_CEILING \
+            or row["gathered_calls"]:
+        raise AssertionError(
+            f"[dryrun] {row['arch']} {row['shape']}: FLOPs a device over "
+            f"{DRYRUN_CEILING} x the closed form (x{ratio:.4f}) or the plain "
+            f"step (x{row['flops_over_plain']:.4f}), or gathered "
+            f"{row['gathered_calls']}")
+    return {"arch": row["arch"], "shape": row["shape"],
+            "flops_per_device": row["flops_per_device"],
+            "analytic_per_device": analytic, "ratio": ratio,
+            "flops_over_plain": row["flops_over_plain"]}
 
 
 def active_projection_params(cfg, train: bool) -> float:
     """The parameters of the projections a token's step multiplies by:
     the sharding rules' projections (not the embedding, a lookup, nor the
     depthwise conv), an expert's counted top_k / num_experts times (the
-    roofline's active count), and no LM head in GST's train step, which
-    encodes segments."""
+    roofline's active count), and in GST's train step, which encodes
+    segments, no LM head and no decoder of an encoder-decoder (its
+    segments are the encoder's frames, models/registry.py::
+    encode_segment)."""
     import re
 
     from repro_torch.launch import sharding as SH
@@ -4336,8 +4410,8 @@ def active_projection_params(cfg, train: bool) -> float:
                            param_shapes(cfg))
     n = 0.0
     for path, leaf in leaves.items():
-        if not any(re.search(p, path) for p in pats) or (
-                train and path.endswith("lm_head")):
+        if not any(re.search(p, path) for p in pats) or train and (
+                path.endswith("lm_head") or path.startswith("dec_blocks")):
             continue
         share = cfg.moe.top_k / cfg.moe.num_experts \
             if "experts" in path and cfg.moe.num_experts else 1.0
@@ -4347,9 +4421,11 @@ def active_projection_params(cfg, train: bool) -> float:
 
 def dryrun_cleared_row(arch, shape, multi, dev):
     """(d) of phase_dryrun: one full-size row of the dry run that did not
-    trace before its fault was cleared; ok, and a train row's FLOPs at
-    least 6 x the active projection parameters x its tokens (the backward
-    was traced)."""
+    trace, or split its work, before its fault was cleared; ok, a train
+    row's FLOPs at least 6 x the active projection parameters x its tokens
+    (the backward was traced), a serving row under dryrun_ceiling and a
+    train row of DRYRUN_TRAIN_CEILING at most DRYRUN_CEILING x its plain
+    step's share."""
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
 
@@ -4359,6 +4435,14 @@ def dryrun_cleared_row(arch, shape, multi, dev):
         raise AssertionError(f"[dryrun] (d) {arch} {shape} on {mesh}: "
                              f"{row['status']}")
     floor = None
+    if shape != "train_4k":
+        dryrun_ceiling(row)
+    elif arch in DRYRUN_TRAIN_CEILING and \
+            row["flops_over_plain"] > DRYRUN_CEILING:
+        raise AssertionError(
+            f"[dryrun] (d) {arch} {shape}: FLOPs a device x"
+            f"{row['flops_over_plain']:.4f} the plain step's share, over "
+            f"{DRYRUN_CEILING}")
     if shape == "train_4k":
         floor = 6 * active_projection_params(get_config(arch), True) * \
             row["tokens_per_step"]
@@ -4369,33 +4453,43 @@ def dryrun_cleared_row(arch, shape, multi, dev):
     log(f"[dryrun] (d) {arch} {shape} on {mesh}: ok in {row['trace_s']} s, "
         f"dominant {row['dominant']}, FLOPs {row['flops_global']:.4e}"
         + (f" (floor 6·N_proj·tokens {floor:.4e})" if floor else "")
-        + f", replicated_calls {row['replicated_calls']}, "
+        + f", x{row['flops_over_plain']:.4f} the plain step's share, "
+        f"replicated_calls {row['replicated_calls']}, "
         f"local_scatter_calls {row['local_scatter_calls']}")
     return {k: row[k] for k in ("arch", "shape", "mesh", "trace_s",
                                 "dominant", "terms_seconds", "flops_global",
                                 "bytes_per_device",
                                 "collective_op_counts", "replicated_calls",
-                                "local_scatter_calls")} | {"floor": floor}
+                                "local_scatter_calls", "flops_over_plain")
+            } | {"floor": floor}
 
 
-def dryrun_switched_row(arch, shape, switches, dev):
+def dryrun_switched_row(arch, shape, switches, criteria, dev, defaults):
     """(d) of phase_dryrun for a row of DRYRUN_SWITCHED: the full-size row
-    on single(16,16) under the default switches and under ``switches``,
-    both ok, the switched row's opts as set; both rows' trace seconds,
-    terms and gathered calls printed side by side."""
+    on single(16,16) under the default switches (from ``defaults``, rows
+    by (arch, shape) traced before, or traced here and kept there) and
+    under ``switches``, both ok, the switched
+    row's opts as set and its ``criteria`` met against the default row;
+    both rows' trace seconds, terms and gathered calls printed side by
+    side."""
     from repro_torch.launch import dryrun
 
+    keys = ("trace_s", "dominant", "terms_seconds", "flops_per_device",
+            "bytes_per_device", "collective_bytes_per_device",
+            "collective_op_counts", "opts", "replicated_calls",
+            "local_scatter_calls", "gathered_calls", "flops_over_plain")
     rows = {}
     for label, kw in (("default", {}), ("switched", switches)):
-        row = dryrun.run_one(arch, shape, False, device=dev.type,
-                             verbose=False, **kw)
+        row = defaults.get((arch, shape)) if label == "default" else None
+        if row is None:
+            row = dryrun.run_one(arch, shape, False, device=dev.type,
+                                 verbose=False, **kw)
+        if label == "default":
+            defaults[(arch, shape)] = row
         if row["status"] != "ok":
             raise AssertionError(f"[dryrun] (d) {arch} {shape} {label} "
                                  f"{kw}: {row['status']}")
-        rows[label] = {k: row[k] for k in (
-            "trace_s", "dominant", "terms_seconds", "flops_per_device",
-            "bytes_per_device", "collective_op_counts", "opts",
-            "replicated_calls", "local_scatter_calls")}
+        rows[label] = {k: row[k] for k in keys}
     opts = rows["switched"]["opts"]
     with dryrun.switched(**switches) as want:
         pass
@@ -4407,11 +4501,30 @@ def dryrun_switched_row(arch, shape, switches, dev):
             f"terms " + ", ".join(f"{k} {v:.4e}" for k, v in
                                   r["terms_seconds"].items())
             + f", FLOPs/dev {r['flops_per_device']:.4e}, bytes/dev "
-            f"{r['bytes_per_device']:.4e}, replicated_calls "
-            f"{r['replicated_calls']}, local_scatter_calls "
-            f"{r['local_scatter_calls']}"
+            f"{r['bytes_per_device']:.4e}, collective/dev "
+            f"{r['collective_bytes_per_device']['total']:.4e}, "
+            f"replicated_calls {r['replicated_calls']}, local_scatter_calls "
+            f"{r['local_scatter_calls']}, gathered_calls "
+            f"{r['gathered_calls']}"
             for label, r in rows.items()))
-    return {"arch": arch, "shape": shape, "switches": switches, **rows}
+    base, new = rows["default"], rows["switched"]
+    ratios = {"flops": new["flops_per_device"] / base["flops_per_device"],
+              "bytes": new["bytes_per_device"] / base["bytes_per_device"],
+              "collective": new["collective_bytes_per_device"]["total"]
+              / base["collective_bytes_per_device"]["total"]}
+    limits = {"flops": ("flops", DRYRUN_SAME),
+              "fewer_flops": ("flops", 1.0 - 1e-12),
+              "bytes": ("bytes", 1.0), "collective": ("collective", 1.0)}
+    missed = [c for c in criteria if ratios[limits[c][0]] > limits[c][1]]
+    log(f"[dryrun] (d) {arch} {shape} {switches} / default: "
+        + ", ".join(f"{k} x{v:.4f}" for k, v in ratios.items())
+        + f"; criteria {list(criteria)}: "
+        + (f"missed {missed}" if missed else "met"))
+    if missed:
+        raise AssertionError(f"[dryrun] (d) {arch} {shape} {switches}: "
+                             f"missed {missed} ({ratios})")
+    return {"arch": arch, "shape": shape, "switches": switches,
+            "criteria": list(criteria), "ratios": ratios, **rows}
 
 
 def kernel_entry(name, source, replaces, launches, rows, headline):

@@ -26,6 +26,20 @@ a row with ``status: "FAIL: ..."``.  ``--head-aligned-sharding`` acts.
 Where the reference's partitioner (GSPMD) partitions what DTensor cannot,
 the trace does what GSPMD does, and the row counts it:
 
+* each step does on each device the share of the work the reference's
+  shardings give it (:class:`DTensorCalls`): a product's partial sums
+  are reduced at once (Megatron's layout: a row-parallel projection's
+  output all-reduced, not carried into the next projection, whose
+  weight DTensor would gather); an einsum or a matmul whose operands
+  split one index alike on each mesh dim runs on the local shards
+  (:func:`_local_einsum`, :func:`_local_matmul`); heads that do not
+  divide the mesh dim are split in blocks (:func:`_split_again`); a
+  stack of a sharded tensor is split as it (:func:`_stacked`); products
+  of mixed dtypes run in the promoted type, as ``jnp``'s do.  A product
+  that still drops an operand's shard is counted (``gathered_calls``),
+  and each row carries the plain step's FLOPs over the devices its work
+  splits over (``plain_flops_per_device``, ``work_split``) and its ratio
+  to them (``flops_over_plain``);
 * an op with no DTensor strategy at its operands' placements, in the
   forward (:class:`DTensorCalls`) or in a backward (:class:`AtenCalls`,
   one aten op at a time, inside the graph), runs on operands gathered
@@ -36,8 +50,9 @@ the trace does what GSPMD does, and the row counts it:
 * on the multi-pod mesh the FSDP axes ('pod', 'data') are one flattened
   mesh dim (``launch/mesh.py::dtensor_mesh``): the same shards;
 * rwkv6's token loop runs on each device's batch and heads, with no
-  collective inside (:data:`LOCAL_CALLS`); a long loop is counted from
-  its runs at 2 and 3 steps (:func:`counted_loop`).
+  collective inside, and grouped GQA and the gather dispatch on each
+  device's query heads and experts (:data:`LOCAL_CALLS`); a long loop is
+  counted from its runs at 2 and 3 steps (:func:`counted_loop`).
 The reference's exact rewrites act as its flags set them, for the row
 being traced (:func:`trace_one` sets the module attributes and restores
 them after): ``--dispatch`` (``models/moe.py::DISPATCH_MODE``),
@@ -55,6 +70,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import re
 import time
 import traceback
 from contextlib import contextmanager
@@ -63,7 +79,7 @@ from typing import Dict, List
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode, \
     unset_fake_temporarily
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -72,10 +88,12 @@ from torch.utils._pytree import tree_leaves, tree_map_only
 from repro_torch import resolve_device
 from repro_torch.configs.base import ARCH_IDS, INPUT_SHAPES, ArchConfig, \
     InputShape, get_config
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import fsdp_axes, make_production_mesh
 from repro_torch.launch.sharding import head_aligned_overrides
 from repro_torch.launch.specs import (StepSpec, build_step_spec,
-                                      decode_plan, gst_geometry, materialize)
+                                      decode_plan, gst_geometry, materialize,
+                                      param_shapes)
 from repro_torch.models import common as common_mod, mla as mla_mod, \
     moe as moe_mod
 from repro_torch.models.rwkv6 import wkv_scan
@@ -160,15 +178,21 @@ class DTensorCalls(TorchFunctionMode):
     decode step's cache write, ``models/common.py::write_cache``, batch-
     or sequence-sharded; the MoE's one-hot masks; the card's torch 2.11
     has no scatter strategy).  A call listed in :data:`LOCAL_CALLS`
-    (rwkv6's token loop) runs on the local shards as its entry says.
-    ``replicated`` ("<call> over <axes>", an aten op under its aten
-    name) and ``local`` count these calls, and the dry run's row reports
-    them."""
+    (rwkv6's token loop, grouped GQA, the gather dispatch) runs on the
+    local shards as its entry says, or, where its runner declines, its
+    ops one by one (:data:`OP_BY_OP`).  A product (:data:`_PRODUCTS`)
+    runs in its operands' promoted dtype, on the local shards where they
+    are laid out for it, and its partial sums, and a lookup's, are
+    reduced at once.  ``replicated`` ("<call> over <axes>", an aten op
+    under its aten name), ``local`` and ``gathered`` (a product that
+    dropped an operand's shard) count these calls, and the dry run's row
+    reports them."""
 
     def __init__(self):
         super().__init__()
         self.replicated: Dict[str, int] = {}
         self.local: Dict[str, int] = {}
+        self.gathered: Dict[str, int] = {}
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -181,10 +205,48 @@ class DTensorCalls(TorchFunctionMode):
                 with AtenCalls(self):
                     return func(*args, **kwargs)
             if func in LOCAL_CALLS:
-                self.count_local(name)
-                return LOCAL_CALLS[func](func, *args, **kwargs)
-            return self.partitioned(func, name, args, kwargs,
-                                    name.endswith("_"))
+                out = LOCAL_CALLS[func](func, *args, **kwargs)
+                if out is not NotImplemented:
+                    self.count_local(name)
+                    return out
+                with self:      # its ops one by one, as the model's
+                    return OP_BY_OP[func](*args, **kwargs)
+            if name in _FACTORIES:
+                out = _stacked(func, args, kwargs)
+                if out is not NotImplemented:
+                    return out
+            out = NotImplemented
+            if name in _PRODUCTS:
+                args = _promoted(name, args)
+            if name == "einsum":
+                args = _cosharded(args)
+                out = _local_einsum(func, args, kwargs)
+            elif name in ("matmul", "__matmul__", "mm", "bmm") and \
+                    not kwargs:
+                out = _local_matmul(func, *args)
+            if out is NotImplemented:
+                out = self.partitioned(func, name, args, kwargs,
+                                       name.endswith("_"))
+            if name in _CONTRACTIONS:
+                self.count_gathers(name, (args, kwargs), out)
+                out = tree_map_only(DTensor, _reduced, out)
+            return out
+
+    def count_gathers(self, name: str, operands, out) -> None:
+        """Count a contraction that dropped an operand's shard over a mesh
+        dim: its output replicated there, or a partial sum there computed
+        against a sharded operand DTensor gathered (``gathered``)."""
+        if not isinstance(out, DTensor):
+            return
+        ins = [t.placements for t in tree_leaves(operands)
+               if isinstance(t, DTensor)]
+        for d, p in enumerate(out.placements):
+            shard = any(isinstance(q[d], Shard) for q in ins)
+            partial = any(q[d].is_partial() for q in ins)
+            if shard and (isinstance(p, Replicate)
+                          or (p.is_partial() and partial)):
+                key = f"{name} over {out.device_mesh.mesh_dim_names[d]}"
+                self.gathered[key] = self.gathered.get(key, 0) + 1
 
     def count_local(self, name: str) -> None:
         self.local[name] = self.local.get(name, 0) + 1
@@ -209,10 +271,12 @@ class DTensorCalls(TorchFunctionMode):
             a, kw = tree_map_only(DTensor, lambda t: _gathered_from(t, k),
                                   (args, kwargs))
             try:
-                return self._replicated(name, names[k:], func(*a, **kw))
+                out = self._replicated(name, names[k:], func(*a, **kw))
             except _ERRORS as e:
                 if not _no_strategy(e):
                     raise
+            else:
+                return _split_again(args[0], out) if name in _VIEWS else out
         # no strategy even replicated: the whole tensors on every device,
         # laid out densely (DTensor's gather can leave a layout a view
         # cannot take), the op run on them
@@ -255,6 +319,307 @@ class AtenCalls(TorchDispatchMode):
 
 _AUTOGRAD_CALLS = (torch.autograd.grad, torch.autograd.backward,
                    torch.Tensor.backward)
+
+
+# the products (projections, attention einsums), and with them the
+# lookups (a vocab-sharded embedding's masked rows), whose partial sums
+# the dry run reduces at once
+_PRODUCTS = ("matmul", "__matmul__", "__rmatmul__", "mm", "bmm", "einsum",
+             "linear")
+_CONTRACTIONS = _PRODUCTS + ("embedding",)
+
+
+def _reduced(t: DTensor) -> DTensor:
+    """``t`` with its partial sums reduced (an all-reduce over each mesh
+    dim where it is ``Partial``)."""
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in t.placements])
+
+
+# a DTensor's methods that make a new tensor of a given size
+_FACTORIES = ("new_empty", "new_zeros", "new_ones", "new_full")
+
+
+def _stacked(func, args, kwargs):
+    """``t.new_empty((n,) + t.shape)`` (or new_zeros, new_ones,
+    new_full) of a ``DTensor`` t: a stack of n tensors laid out as t,
+    split as t is (each of its shards one dim on), where DTensor would make
+    it whole on every device (a prefill's stacked caches: each layer's
+    batch-sharded cache then gathered into it).  NotImplemented for any
+    other size."""
+    t, size = args[0], args[1] if len(args) > 1 else kwargs.get("size")
+    if not isinstance(t, DTensor) or not isinstance(size, (tuple, list,
+                                                            torch.Size)):
+        return NotImplemented
+    size = tuple(size)
+    if len(size) != t.ndim + 1 or size[1:] != tuple(t.shape):
+        return NotImplemented
+    place = [Shard(p.dim + 1) if isinstance(p, Shard) else Replicate()
+             for p in t.placements]
+    if any(p.is_partial() for p in t.placements):
+        return NotImplemented
+    local = t.to_local()
+    out = func(local, (size[0],) + tuple(local.shape), *args[2:], **kwargs)
+    return _global(out, t.device_mesh, place, size)
+
+
+# views whose unflatten of a sharded dim DTensor may refuse
+_VIEWS = ("reshape", "view")
+
+
+def _split_again(src, out):
+    """A view's result ``out``, gathered over the mesh dims that split the
+    dim of ``src`` it unflattens (H·D heads into (H, D) where H does not
+    divide the mesh dim), split again there along its leading part H:
+    ceil(H / n) heads a device (torch.chunk's blocks, the last devices
+    fewer or none), as GSPMD pads a head axis that does not divide.  A
+    local chunk; only where H has a block for every device (a KV axis of
+    8 heads over 16 stays whole)."""
+    if not (isinstance(src, DTensor) and isinstance(out, DTensor)) or \
+            out.ndim != src.ndim + 1:
+        return out
+    mesh, place = out.device_mesh, list(out.placements)
+    for d, p in enumerate(src.placements):
+        if not isinstance(p, Shard) or not isinstance(place[d], Replicate):
+            continue
+        j = p.dim
+        if tuple(out.shape[:j]) == tuple(src.shape[:j]) and \
+                out.shape[j] * out.shape[j + 1] == src.shape[j] and \
+                out.shape[j] >= mesh.size(d) and \
+                all(not isinstance(q, Shard) or q.dim != j for q in place):
+            place[d] = Shard(j)
+    if place == list(out.placements):
+        return out
+    return out.redistribute(mesh, place)
+
+
+def _global(local, mesh, placements, shape):
+    """``local`` as its shard of a ``shape`` DTensor laid out in the
+    local tensor's dim order (a shard that may be uneven: the global shape
+    given, not inferred)."""
+    order = sorted(range(local.ndim), key=lambda i: (-local.stride(i), -i))
+    stride, n = [0] * local.ndim, 1
+    for i in reversed(order):
+        stride[i] = n
+        n *= shape[i]
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def _promoted(name: str, args):
+    """A contraction's arguments (an einsum's after its equation) in one
+    dtype, the operands' promoted type: the reference's ``jnp`` products
+    promote (whisper's f32 encoder output against its bf16 decoder);
+    torch's raise."""
+    lead = 1 if name == "einsum" else 0
+    ops = args[lead:]
+    if not all(isinstance(t, torch.Tensor) and t.is_floating_point()
+               for t in ops) or len({t.dtype for t in ops}) < 2:
+        return args
+    dt = ops[0].dtype
+    for t in ops[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return (*args[:lead], *(t.to(dt) for t in ops))
+
+
+class PlainCalls(TorchFunctionMode):
+    """The plain step of :func:`plain_flops` as the dry run runs its
+    calls: products of mixed dtypes in their promoted type
+    (:func:`_promoted`), rwkv6's token loop counted from its short runs
+    (:func:`counted_loop`; run whole, a prefill's 32,768 steps × 32
+    layers would take most of an hour)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func is wkv_scan:
+            return counted_loop(func, *args, **kwargs)
+        name = getattr(func, "__name__", "")
+        if name in _PRODUCTS:
+            args = _promoted(name, args)
+        return func(*args, **kwargs)
+
+
+def _cosharded(args):
+    """An einsum's ``(equation, *operands)`` with each operand that is
+    replicated over a mesh dim where another shards an index the two share
+    split there too (a local chunk, no collective), as GSPMD partitions a
+    dot along a batch or head index both sides carry.  DTensor would
+    rather gather the sharded side: a query's heads, where the keys are
+    replicated over 'model' (8 KV heads on a 16-way axis)."""
+    eq, ops = args[0], list(args[1:])
+    if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
+        ops = list(ops[0])
+    if not isinstance(eq, str) or "." in eq or not all(
+            isinstance(t, DTensor) for t in ops):
+        return args
+    subs = eq.replace(" ", "").split("->")[0].split(",")
+    mesh = ops[0].device_mesh
+    for d in range(mesh.ndim):
+        if any(t.placements[d].is_partial() for t in ops):
+            continue
+        letters = {subs[i][t.placements[d].dim] for i, t in enumerate(ops)
+                   if isinstance(t.placements[d], Shard)}
+        if len(letters) != 1:
+            continue
+        idx = letters.pop()
+        size = {t.shape[subs[i].find(idx)] for i, t in enumerate(ops)
+                if isinstance(t.placements[d], Shard)}
+        for i, t in enumerate(ops):
+            j = subs[i].find(idx)
+            if j < 0 or not isinstance(t.placements[d], Replicate) or \
+                    {t.shape[j]} != size:
+                continue
+            place = list(t.placements)
+            place[d] = Shard(j)
+            ops[i] = t.redistribute(mesh, place)
+    return (eq, *ops)
+
+
+def _local_einsum(func, args, kwargs):
+    """An einsum on the local shards where each mesh dim shards one index
+    (or none) and every operand that carries it is split along it alike,
+    the others replicated there: its local einsum is its shard of the
+    result, split along that index where the result keeps it, a partial
+    sum where the index is contracted.  GSPMD partitions a dot so; DTensor
+    (torch 2.11) flattens a batch and a head axis sharded over two mesh
+    dims into one and gathers the heads.  NotImplemented where the
+    operands are laid out any other way."""
+    eq, ops = args[0], list(args[1:])
+    if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
+        ops = list(ops[0])
+    if kwargs or not isinstance(eq, str) or "." in eq or "->" not in eq \
+            or not all(isinstance(t, DTensor) for t in ops):
+        return NotImplemented
+    ins, res = eq.replace(" ", "").split("->")
+    subs = ins.split(",")
+    mesh = ops[0].device_mesh
+    grads = [list(t.placements) for t in ops]
+    out = []
+    for d in range(mesh.ndim):
+        place = [t.placements[d] for t in ops]
+        if any(not isinstance(p, (Shard, Replicate)) for p in place):
+            return NotImplemented
+        letters = {subs[i][p.dim] for i, p in enumerate(place)
+                   if isinstance(p, Shard)}
+        if not letters:
+            out.append(Replicate())
+            continue
+        if len(letters) > 1:
+            return NotImplemented
+        idx = letters.pop()
+        sizes = set()
+        for i, (p, t) in enumerate(zip(place, ops)):
+            j = subs[i].find(idx)
+            if j < 0:
+                # its gradient is this shard's share
+                grads[i][d] = Partial()
+            elif not (isinstance(p, Shard) and p.dim == j):
+                return NotImplemented
+            else:
+                sizes.add(t.shape[j])
+        if len(sizes) != 1:     # a block of one is not a block of another
+            return NotImplemented
+        out.append(Shard(res.index(idx)) if idx in res else Partial())
+    size = {}
+    for sub, t in zip(subs, ops):
+        for c, n in zip(sub, t.shape):      # a size-1 index broadcasts
+            size[c] = max(size.get(c, 1), n)
+    local = func(eq, *[t.to_local(grad_placements=g)
+                       for t, g in zip(ops, grads)])
+    return _global(local, mesh, out, [size[c] for c in res])
+
+
+def _local_matmul(func, a, b):
+    """``a @ b`` on the local shards where each mesh dim splits one of
+    its indices alike on both (or on one, the other replicated there): a
+    batch index (a size-1 or missing one of the other side broadcasts; a
+    replicated one is split there too, a local chunk), the rows of ``a``,
+    the columns of ``b``, or the contracted index on both (a partial
+    sum); where ``a`` splits the contracted index and ``b`` its columns,
+    ``a`` is gathered there first (a column-parallel projection's
+    input).  GSPMD partitions a dot so; DTensor gathers the sharded side of
+    a batched product whose other side broadcasts (zamba2's SSD state
+    against its C).  NotImplemented where the operands are laid out any
+    other way."""
+    if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or \
+            a.ndim < 2 or b.ndim < 2:
+        return NotImplemented
+    mesh = a.device_mesh
+    nb = max(a.ndim, b.ndim) - 2             # the result's batch dims
+
+    def role(t, p):
+        """What the shard of operand t (a or b) splits."""
+        if isinstance(p, Replicate):
+            return None
+        if not isinstance(p, Shard):
+            return "other"
+        last = p.dim - t.ndim
+        if last == -1:
+            return "k" if t is a else "n"
+        if last == -2:
+            return "m" if t is a else "k"
+        return nb - (t.ndim - 2) + p.dim       # a batch dim of the result
+
+    def batch_dim(t, i):
+        """Operand t's dim at the result's batch dim i, or None."""
+        j = i - (nb - (t.ndim - 2))
+        return j if j >= 0 else None
+
+    out, grads = [], [list(a.placements), list(b.placements)]
+    ops = [a, b]
+    for d in range(mesh.ndim):
+        ra, rb = role(a, a.placements[d]), role(b, b.placements[d])
+        if "other" in (ra, rb):
+            return NotImplemented
+        if ra is None and rb is None:
+            out.append(Replicate())
+        elif "k" in (ra, rb) and None in (ra, rb) or ra == rb == "k":
+            for k, (t, r) in enumerate(((a, ra), (b, rb))):
+                if r is None:           # split along k there too
+                    place = list(ops[k].placements)
+                    place[d] = Shard(t.ndim - (1 if k == 0 else 2))
+                    ops[k] = ops[k].redistribute(mesh, place)
+                    grads[k][d] = place[d]
+            out.append(Partial())
+        elif ra == "k" and rb == "n":
+            # Megatron's column-parallel product: the input gathered
+            place = list(ops[0].placements)
+            place[d] = Replicate()
+            ops[0] = ops[0].redistribute(mesh, place)
+            grads[0][d] = Replicate()
+            out.append(Shard(nb + 1))
+        elif ra == "m" and rb is None:
+            out.append(Shard(nb))
+            grads[1][d] = Partial()
+        elif rb == "n" and ra is None:
+            out.append(Shard(nb + 1))
+            grads[0][d] = Partial()
+        elif isinstance(ra, int) and rb in (ra, None) or \
+                isinstance(rb, int) and ra is None:
+            i = ra if isinstance(ra, int) else rb
+            for k, (t, r) in enumerate(((a, ra), (b, rb))):
+                if r is not None:
+                    continue
+                j = batch_dim(t, i)
+                if j is None or t.shape[j] == 1:
+                    grads[k][d] = Partial()    # it broadcasts
+                    continue
+                place = list(ops[k].placements)
+                place[d] = Shard(j)
+                ops[k] = ops[k].redistribute(mesh, place)
+                grads[k][d] = Shard(j)
+            out.append(Shard(i))
+        else:
+            return NotImplemented
+    for t in ops:
+        for d, p in enumerate(t.placements):
+            if isinstance(p, Shard) and t.shape[p.dim] % mesh.size(d):
+                return NotImplemented
+    local = func(*[t.to_local(grad_placements=g)
+                   for t, g in zip(ops, grads)])
+    return DTensor.from_local(local, mesh, out, run_check=False)
 
 
 def _mesh_of(tree):
@@ -491,8 +856,119 @@ class _CountedLoop(torch.autograd.Function):
         return None, None, gx, None
 
 
-# calls the dry run runs on the local shards: function -> its runner
-LOCAL_CALLS = {wkv_scan: _local_wkv_scan}
+def _local_grouped_attn(func, q, k, v, mask):
+    """``models/common.py::_grouped_attn`` on each device's batch rows
+    and query heads, against the KV heads those read: q (B, Sq, H, D)
+    keeps its shards of B and H (an uneven split of H too, ``_split_again``;
+    a replicated k, v or mask takes q's batch split, a local chunk), k and
+    v (B, Sk, KV, D) their shard of KV where both H and KV divide the mesh
+    dim that splits H, else the KV heads the local query heads read (a
+    slice of the gathered heads: one KV head where the local heads share
+    it, else one a query head).  GSPMD partitions the reference's grouped
+    einsums so; DTensor cannot unflatten H sharded heads into (KV, G)
+    where KV does not divide the mesh dim, and would gather q (every
+    device all heads).  NotImplemented (the ops one by one) where q or
+    the keys are split any other way."""
+    mesh = q.device_mesh
+    B, _, H, _ = q.shape
+    KV = k.shape[2]
+    G = H // KV
+
+    def dt(t):
+        return t if isinstance(t, DTensor) else DTensor.from_local(
+            t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    q, k, v, mask = (dt(t) for t in (q, k, v, mask))
+    q_at, kv_at, m_at, heads = [], [], [], []
+    for d in range(mesh.ndim):
+        n = mesh.size(d)
+        dims = {p.dim for t in (q, k, v) for p in [t.placements[d]]
+                if isinstance(p, Shard)}
+        if any(t.placements[d].is_partial() for t in (q, k, v, mask)) or \
+                isinstance(mask.placements[d], Shard) and \
+                mask.placements[d].dim != 0 or not dims <= {0, 2} or \
+                dims == {0, 2}:
+            return NotImplemented
+        if dims == {0} and B % n == 0:
+            q_at.append(Shard(0))
+            kv_at.append(Shard(0))
+            m_at.append(Shard(0) if mask.shape[0] == B else Replicate())
+        elif dims == {2} and not heads and H >= n:
+            heads.append(d)
+            q_at.append(Shard(2))
+            kv_at.append(Shard(2) if H % n == 0 and KV % n == 0
+                         else Replicate())
+            m_at.append(Replicate())
+        elif dims:
+            return NotImplemented
+        else:
+            q_at.append(Replicate())
+            kv_at.append(Replicate())
+            m_at.append(Replicate())
+    ql, kl, vl = (t.redistribute(mesh, at).to_local() for t, at in
+                  ((q, q_at), (k, kv_at), (v, kv_at)))
+    if heads and isinstance(kv_at[heads[0]], Replicate):
+        # the KV heads of the local query heads h0 … h0 + hl − 1
+        n = mesh.size(heads[0])
+        h0 = mesh.get_coordinate()[heads[0]] * -(-H // n)
+        hl = ql.shape[2]
+        if hl and h0 // G == (h0 + hl - 1) // G:
+            kl, vl = (t.narrow(2, h0 // G, 1) for t in (kl, vl))
+        elif hl:
+            at = torch.div(torch.arange(h0, h0 + hl, device=kl.device), G,
+                           rounding_mode="floor")
+            kl, vl = (t.index_select(2, at) for t in (kl, vl))
+    out = func(ql, kl, vl, mask.redistribute(mesh, m_at).to_local())
+    return _global(out, mesh, q_at, q.shape)
+
+
+def _local_gather_dispatch(func, we, x, gates, pos_c, keep, cap, K, act,
+                           first=0):
+    """``models/moe.py::_gather_dispatch`` on each device's experts: the
+    expert weights keep their shard of E (over 'model'), the tokens, gates
+    and slots (B, S, ·) their shard of B and come whole over the mesh dims
+    that shard E; each device scatters the pairs routed to its experts
+    into its experts' cells, runs their FFNs and gathers their outputs
+    back (``first``: its first expert), and the devices' sums over their
+    experts are reduced over those dims (an all-reduce of (B, S, D), the
+    einsum dispatch's combine; where no mesh dim shards E, each device
+    runs every expert on its rows).  What GSPMD makes of the reference's
+    scatter and gather with expert-sharded weights; DTensor would build
+    the (B, E·(C + 1), D) expert input whole on every device and move the
+    expert outputs to a shard of D for the gather.  NotImplemented (the
+    ops one by one) where a weight is split along another dim."""
+    w = we["w_in"]
+    mesh = w.device_mesh
+    along = [d for d, p in enumerate(w.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    if any(isinstance(p, Shard) for d, p in enumerate(w.placements)
+           if d not in along):
+        return NotImplemented
+    tokens = [Shard(0) if d not in along and isinstance(p, Shard)
+              and p.dim == 0 else Replicate()
+              for d, p in enumerate(x.placements)]
+    # a gradient of the whole tokens is each device's experts' share
+    grads = [Partial() if d in along else p for d, p in enumerate(tokens)]
+    xl, gl, pl, kl = (t.redistribute(mesh, tokens).to_local(
+        grad_placements=grads) for t in (x, gates, pos_c, keep))
+    wl = {k: v.to_local() for k, v in we.items()}
+    block = 0
+    coord = mesh.get_coordinate()
+    for d in along:
+        block = block * mesh.size(d) + coord[d]
+    out = func(wl, xl, gl, pl, kl, cap, K, act,
+               first + block * w.to_local().shape[0])
+    return _reduced(DTensor.from_local(out, mesh, grads, run_check=False))
+
+
+# calls the dry run runs on the local shards: function -> its runner,
+# which may return NotImplemented for the call's ops one by one, run as
+# OP_BY_OP has them
+LOCAL_CALLS = {wkv_scan: _local_wkv_scan,
+               common_mod._grouped_attn: _local_grouped_attn,
+               moe_mod._gather_dispatch: _local_gather_dispatch}
+OP_BY_OP = {common_mod._grouped_attn: common_mod.grouped_einsums,
+            moe_mod._gather_dispatch: moe_mod.gather_dispatch_ops}
 
 
 @contextmanager
@@ -523,10 +999,66 @@ def step_tokens(cfg: ArchConfig, shape: InputShape):
     return shape.global_batch, "infer"
 
 
+def plain_flops(spec: StepSpec, device) -> float:
+    """The FLOPs of ``spec``'s step on one device, unsharded: the plain
+    step traced on fake tensors under the roofline's counter (no
+    ``DTensor``, no collective), the work its formulation does."""
+    with FakeTensorMode(), PlainCalls():
+        rep, _ = analyze_trace(spec.fn, materialize(spec, None, device),
+                               chips=1)
+    return rep["flops_per_device"]
+
+
+def work_split(mesh, batch: int) -> int:
+    """The devices a step's work splits over: the mesh, less the FSDP
+    axes where the batch does not divide them (``sharding.batch_spec``
+    replicates it there: a long_500k batch of 1 runs on every data
+    replica)."""
+    if SH.batch_spec(mesh, batch, 1)[0] is not None:
+        return mesh.size()
+    n = 1
+    for name, size in zip(mesh.mesh_dim_names, mesh.shape):
+        if name not in fsdp_axes(mesh):
+            n *= size
+    return n
+
+
+def analytic_flops(cfg: ArchConfig, shape: InputShape) -> float:
+    """The closed form of a dense or VLM decoder's serving step (prefill
+    or decode), all devices together: 2·N_proj·T for the layers'
+    projections (the sharding rules' projections; T = B·S tokens at
+    prefill, B at decode), 2·d·V·B for the LM head (the last position's
+    logits), and 4·B·H·Sq·Sk·D·L for the attention's two einsums (Sq = Sk
+    = S at prefill, whose plain forms compute every masked pair; Sq = 1,
+    Sk the cache's slots at decode)."""
+    if cfg.family not in ("dense", "vlm") or shape.kind == "train":
+        raise ValueError(f"no closed form for {cfg.name} {shape.name}")
+    proj = [pat for pat, _ in SH._RULES if "embed" not in pat
+            and "conv_w" not in pat]
+    leaves = {}
+    SH._tree_map_with_path(lambda p, leaf: leaves.__setitem__(p, leaf),
+                           param_shapes(cfg)["runs"])
+    n_proj = sum(leaf.numel() for p, leaf in leaves.items()
+                 if any(re.search(pat, p) for pat in proj))
+    B = shape.global_batch
+    if shape.kind == "prefill":
+        T, Sq, Sk = B * shape.seq_len, shape.seq_len, shape.seq_len
+    else:
+        T, Sq, Sk = B, 1, decode_plan(cfg, shape).cache_len
+    return (2.0 * n_proj * T + 2.0 * cfg.d_model * cfg.vocab_size * B
+            + 4.0 * B * cfg.num_heads * Sq * Sk * cfg.resolved_head_dim
+            * cfg.num_layers)
+
+
 def trace_spec(cfg: ArchConfig, shape: InputShape, spec: StepSpec, mesh, *,
                device, hw: HW = HW()) -> Dict:
     """Trace ``spec``'s step once on fake ``DTensor``s on ``mesh``: the
-    roofline report with the parameter counts and tokens."""
+    roofline report with the parameter counts and tokens, and beside it
+    the plain step's FLOPs over the devices its work splits over
+    (``plain_flops_per_device``: :func:`plain_flops` over
+    ``work_split``, :func:`work_split`) and the row's ratio to them
+    (``flops_over_plain``): above 1 where a device repeats work another
+    does."""
     n_total, n_active = param_counts(spec.params, cfg.moe.top_k,
                                      cfg.moe.num_experts)
     tokens, kind = step_tokens(cfg, shape)
@@ -536,7 +1068,12 @@ def trace_spec(cfg: ArchConfig, shape: InputShape, spec: StepSpec, mesh, *,
                                n_active=n_active, tokens=tokens, kind=kind)
     rep.update(params_total=n_total, params_active=n_active,
                tokens_per_step=tokens, replicated_calls=calls.replicated,
-               local_scatter_calls=calls.local)
+               local_scatter_calls=calls.local,
+               gathered_calls=calls.gathered)
+    split = work_split(mesh, shape.global_batch)
+    plain = plain_flops(spec, device) / split
+    rep.update(work_split=split, plain_flops_per_device=plain,
+               flops_over_plain=rep["flops_per_device"] / plain)
     return rep
 
 

@@ -309,22 +309,24 @@ def sharded_update_sampled(table: EmbeddingTable, graph_ids, seg_idx, h_new,
     return table
 
 
-def unshard_fsdp(tree):
+def unshard_fsdp(tree, whole_embed: bool = True):
     """The parameters as the step computes with them: each ``DTensor``
     gathered over the FSDP axes ('pod', 'data'), its 'model' sharding
     kept, as FSDP does (an all-gather before use; autograd's reverse is a
     reduce-scatter of the gradient back to the stored placement).  Left
     sharded, DTensor's propagation would rather shard the activations'
-    feature axis over 'data' than the batch.  The token embedding, which
-    a lookup reads by row, is gathered whole: a lookup into a
-    vocab-sharded table gives a masked partial sum whose gradient the
-    card's DTensor (torch 2.11) cannot carry back.  Plain tensors as they
-    are."""
+    feature axis over 'data' than the batch.  With ``whole_embed`` (a
+    step that trains) the token embedding, which a lookup reads by row,
+    is gathered whole: a lookup into a vocab-sharded table gives a masked
+    partial sum whose gradient the card's DTensor (torch 2.11) cannot
+    carry back.  A serving step keeps its vocab shard, so a tied LM head
+    (``hidden @ embed.T``) is column-parallel as an untied one.  Plain
+    tensors as they are."""
     def one(path, t):
         if not isinstance(t, DTensor):
             return t
         mesh = t.device_mesh
-        whole = re.search(r"(^|/)embed$", path) is not None
+        whole = whole_embed and re.search(r"(^|/)embed$", path) is not None
         fsdp = fsdp_axes(mesh)
         want = [Replicate() if whole or name in fsdp else p
                 for name, p in zip(mesh.mesh_dim_names, t.placements)]
@@ -409,7 +411,7 @@ def build_prefill_spec(cfg: ArchConfig, shape: InputShape, mesh, *,
     B, S = shape.global_batch, shape.seq_len
 
     def prefill_step(params, inputs):
-        return model.prefill(unshard_fsdp(params), inputs)
+        return model.prefill(unshard_fsdp(params, whole_embed=False), inputs)
 
     params = param_shapes(cfg, dtype)
     inputs = serve_input_specs(cfg, B, S, dtype)
@@ -441,9 +443,9 @@ def build_decode_spec(cfg: ArchConfig, shape: InputShape, mesh, *,
     plan = decode_plan(cfg, shape)
 
     def decode_step(params, token, caches, cache_pos):
-        return model.decode_step(unshard_fsdp(params), token, caches,
-                                 cache_pos, window=plan.window,
-                                 ring=plan.ring)
+        return model.decode_step(unshard_fsdp(params, whole_embed=False),
+                                 token, caches, cache_pos,
+                                 window=plan.window, ring=plan.ring)
 
     params = param_shapes(cfg, dtype)
     caches = cache_shapes(cfg, B, plan.cache_len, dtype)
@@ -505,14 +507,16 @@ def materialize(spec: StepSpec, mesh, device, values=None) -> tuple:
     undefined), or ``values`` (the
     same trees of tensors) moved to ``device`` and distributed.  Floating
     parameters of the train step require grad through the step's own
-    ``ParamTree``."""
-    dmesh = dtensor_mesh(mesh)
+    ``ParamTree``.  ``mesh`` None: the plain tensors, on one device."""
+    dmesh = None if mesh is None else dtensor_mesh(mesh)
 
     def leaf(s, sh, v):
         if v is None:
             v = torch.empty(tuple(s.shape), dtype=s.dtype, device=device)
         else:
             v = v.to(device)
+        if dmesh is None:
+            return v
         return distribute_tensor(v, dmesh,
                                  SH.dtensor_placements(mesh, sh or ()))
 

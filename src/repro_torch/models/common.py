@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from repro_torch.kernels import ops
 
@@ -296,16 +297,30 @@ def _repeat_kv(k, num_heads: int):
 GQA_IMPL = "repeat"
 
 
-def _grouped_attn(q, k, v, mask_fn):
+def _grouped_attn(q, k, v, mask):
     """q: (B, Sq, H, D); k/v: (B, Sk, KV, D) -> (B, Sq, H, D); query head
-    h reads KV head h // (H // KV).  ``mask_fn`` masks the f32 logits
-    (B, KV, G, Sq, Sk)."""
+    h reads KV head h // (H // KV).  ``mask``: bool, broadcastable to the
+    f32 logits (B, KV, G, Sq, Sk), False where a key is masked.
+
+    It is a torch function, so a torch function mode may run it its own
+    way: the dry run runs it on each device's batch rows and query heads
+    against the KV heads they read (``launch/dryrun.py``), where the
+    unflatten of H sharded heads into (KV, G) cannot keep the shard."""
+    if has_torch_function((q, k, v, mask)):
+        return handle_torch_function(_grouped_attn, (q, k, v, mask), q, k,
+                                     v, mask)
+    return grouped_einsums(q, k, v, mask)
+
+
+def grouped_einsums(q, k, v, mask):
+    """The einsums of ``_grouped_attn`` (see there), as plain ops."""
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, D)
     scale = 1.0 / math.sqrt(D)
     logits = torch.einsum("bqkgd,bckd->bkgqc", qg, k).float() * scale
-    probs = torch.softmax(mask_fn(logits), dim=-1).to(q.dtype)
+    probs = torch.softmax(torch.where(mask, logits, -1e30),
+                          dim=-1).to(q.dtype)
     out = torch.einsum("bkgqc,bckd->bqkgd", probs, v)
     return out.reshape(B, Sq, H, D)
 
@@ -329,8 +344,7 @@ def sdpa(q, k, v, *, causal: bool, window: int = 0):
     if window > 0:
         mask &= k_pos[None, :] > q_pos[:, None] - window
     if GQA_IMPL == "grouped" and k.shape[2] != H:
-        return _grouped_attn(q, k, v, lambda lg: torch.where(
-            mask[None, None, None], lg, -1e30))
+        return _grouped_attn(q, k, v, mask[None, None, None])
     k = _repeat_kv(k, H)
     v = _repeat_kv(v, H)
     scale = 1.0 / math.sqrt(D)
@@ -484,8 +498,8 @@ def attn_decode(p, x, cache_k, cache_v, cache_pos, *, num_heads: int,
     k_pos = torch.arange(C, device=x.device)[None, :]  # slot index
     vmask = k_pos < valid[:, None]  # (B, C)
     if GQA_IMPL == "grouped" and num_kv != num_heads:
-        out = _grouped_attn(q, cache_k, cache_v, lambda lg: torch.where(
-            vmask[:, None, None, None, :], lg, -1e30))
+        out = _grouped_attn(q, cache_k, cache_v,
+                            vmask[:, None, None, None, :])
     else:
         kh = _repeat_kv(cache_k, num_heads)
         vh = _repeat_kv(cache_v, num_heads)

@@ -28,6 +28,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.common import dense_init, gelu, mlp_forward, mlp_params
@@ -114,37 +115,59 @@ def _add_shared_and_dense(p, routed, xt, act: str):
     return out
 
 
-def _gather_dispatch(we, x, gates, pos_c, keep, cap: int, K: int, act: str):
+def _gather_dispatch(we, x, gates, pos_c, keep, cap: int, K: int, act: str,
+                     first: int = 0):
     """The routed output (B, S, D) of ``moe_forward`` by scatter and
     gather: each of a token's k (expert, gate) pairs goes to its slot of
     the (B, E, C + 1, D) expert input, a dropped one to the overflow slot
     C, cut off before the FFN; the outputs come back by a gather and a
     sum weighted by the gates (0 for a dropped pair).  Kept pairs own
     distinct (row, expert, slot) cells and dropped ones add zeros, so the
-    accumulating scatter gives the same values in any order."""
+    accumulating scatter gives the same values in any order.
+
+    ``we`` may hold a run of the experts, ``first`` … ``first`` + its
+    count − 1: a pair routed to another adds nothing (dropped here), so
+    the runs' outputs sum to the whole.  It is a torch function, so a
+    torch function mode may run it its own way: the dry run runs each
+    device's experts on their run (``launch/dryrun.py``)."""
+    operands = (x, gates, pos_c, keep, *we.values())
+    if has_torch_function(operands):
+        return handle_torch_function(_gather_dispatch, operands, we, x,
+                                     gates, pos_c, keep, cap, K, act, first)
+    return gather_dispatch_ops(we, x, gates, pos_c, keep, cap, K, act, first)
+
+
+def gather_dispatch_ops(we, x, gates, pos_c, keep, cap: int, K: int,
+                        act: str, first: int = 0):
+    """The ops of ``_gather_dispatch`` (see there), as plain ops."""
     B, S, D = x.shape
-    E = gates.shape[-1]
+    E = we["w_in"].shape[0]
     top_gates, top_idx = torch.topk(gates, K, dim=-1)  # (B, S, K)
     slot = torch.gather(pos_c, 2, top_idx)
     kept = torch.gather(keep, 2, top_idx)
+    if first or E != gates.shape[-1]:
+        top_idx = top_idx - first
+        kept = kept & (top_idx >= 0) & (top_idx < E)
+        top_idx = top_idx.clamp(0, E - 1)
+    # each (row, expert, slot) cell flattened to one axis, the pairs to
+    # another: the scatter and the gather take one index a pair, not one
+    # an element
+    rows = torch.arange(B, device=x.device)[:, None]
     e_flat = top_idx.reshape(B, S * K)
     s_flat = slot.reshape(B, S * K)
     k_flat = kept.reshape(B, S * K)
     w_flat = torch.where(kept, top_gates, 0.0).reshape(B, S * K).to(x.dtype)
     s_safe = torch.where(k_flat, s_flat, cap)
     x_rep = x.repeat_interleave(K, dim=1)  # (B, S*K, D)
-    # each row's (expert, slot) cells flattened to one axis: a scatter and
-    # a gather along it keep the batch and feature axes free to be sharded
-    # (the dry run's DTensors)
-    cell = (e_flat * (cap + 1) + s_safe)[..., None].expand(B, S * K, D)
-    expert_in = x.new_zeros((B, E * (cap + 1), D)).scatter_add(
-        1, cell, torch.where(k_flat[..., None], x_rep, 0.0))
+    cell = ((rows * E + e_flat) * (cap + 1) + s_safe).reshape(-1)
+    expert_in = x.new_zeros((B * E * (cap + 1), D)).index_add(
+        0, cell, torch.where(k_flat[..., None], x_rep, 0.0).reshape(-1, D))
     expert_out = _expert_ffn(
         we, expert_in.reshape(B, E, cap + 1, D)[:, :, :cap], act)
-    cell = (e_flat * cap + torch.clamp(s_flat, max=cap - 1))[..., None]
-    gathered = torch.gather(expert_out.reshape(B, E * cap, D), 1,
-                            cell.expand(B, S * K, D))
-    return torch.sum((gathered * w_flat[..., None]).reshape(B, S, K, D),
+    cell = ((rows * E + e_flat) * cap
+            + torch.clamp(s_flat, max=cap - 1)).reshape(-1)
+    gathered = expert_out.reshape(B * E * cap, D).index_select(0, cell)
+    return torch.sum((gathered * w_flat.reshape(-1, 1)).reshape(B, S, K, D),
                      dim=2)
 
 

@@ -6,7 +6,9 @@ and the CLI's):
 
   * internlm2-1.8b at train and decode traces to an ``ok`` row with the
     reference's keys (``trace_s`` for ``lower_s``/``compile_s``), FLOPs
-    at least those of its projections, ``useful_flops_ratio`` positive;
+    at least those of its projections and, at decode, at most 1.10 × the
+    plain step's split over the devices (and × the closed form,
+    ``dryrun.analytic_flops``), ``useful_flops_ratio`` positive;
     zamba2-1.2b and rwkv6-7b: tests/test_torch_dryrun_{zamba2,rwkv6}.py;
   * the reference's five exact rewrites act through their flags, each
     traced on a row that runs it and recorded in ``opts``;
@@ -43,6 +45,9 @@ REF_KEYS = {"chips", "flops_per_device", "flops_global", "bytes_per_device",
             "useful_flops_ratio", "mfu_upper_bound", "arch", "shape", "mesh",
             "status", "variant", "opts", "params_total", "params_active",
             "tokens_per_step"}
+# a serving row's FLOPs a device over the plain step's split over the
+# devices (ROADMAP §C15)
+CEILING = 1.10
 # the rules' projections: the weights a step multiplies by (the embedding
 # is a lookup, the conv a depthwise filter)
 _PROJ = [pat for pat, _ in SH._RULES if "embed" not in pat
@@ -89,6 +94,15 @@ def check_row(cfg, shape_name, row, chips=4, mesh="fake(2,2)"):
     floor = (6 if train else 2) * projection_params(cfg, train) * \
         row["tokens_per_step"]
     assert row["flops_global"] >= floor
+    if not train:
+        # the ceiling: no device repeats work that the step's split over
+        # the batch and 'model' gives another (the plain step's FLOPs over
+        # the devices it splits over; a dense decoder's closed form too)
+        assert row["flops_per_device"] <= \
+            CEILING * row["plain_flops_per_device"]
+        if cfg.family in ("dense", "vlm"):
+            assert row["flops_per_device"] <= CEILING * \
+                dryrun.analytic_flops(cfg, shape) / row["work_split"]
     assert row["collective_bytes_per_device"]["total"] > 0
     mem = row["memory_analysis"]
     assert mem["peak_bytes"] == mem["arg_bytes"] + mem["temp_bytes"] > 0

@@ -7,9 +7,12 @@ of tests/test_torch_dryrun.py):
     ``replicated_calls`` under its aten name, and its gradient is the
     plain one on the real 1x1 mesh; arctic-480b's train step traces on a
     (1, 8) mesh, whose 8-way model axis does not divide the reduced 4
-    heads (the full size's 56 over 16): its backward meets views of the
-    MoE dispatch's gradient that DTensor cannot take at the operands'
-    placements (torch 2.13), gathered and counted;
+    heads (the full size's 56 over 16), its backward traced, and gathers
+    only the forward's head unflattens: its einsums run on the local
+    shards (``dryrun._local_einsum``), so the MoE dispatch's gradient no
+    longer meets the views that DTensor could not take at the operands'
+    placements (torch 2.13: gathered by ``AtenCalls`` before ROADMAP
+    §C15);
   * C8: a decode write into a cache sharded along its slots goes to the
     shard that owns the slot (owner computes), the plain ``scatter_``'s
     values (on the 1x1 mesh: tests/test_torch_dryrun.py::
@@ -199,7 +202,7 @@ def test_arctic_train_traces_on_an_uneven_head_split():
                                verbose=False)
     assert not dist.is_initialized()
     check_row(cfg, "train_4k", row, chips=8, mesh="fake(1,8)")
-    assert any(k.startswith("aten.") for k in row["replicated_calls"])
+    assert set(row["replicated_calls"]) == {"reshape over model"}
 
 
 def _row(cfg, shape):

@@ -257,14 +257,21 @@ its own):
                 FlopCounterMode count equal to the fake trace's, the fake
                 trace's peak beside max_memory_allocated; (c) the paper
                 suite's roofline entry over (a)'s rows (H100 constants);
-                (d) one full-size row per cleared fault: arctic-480b and
-                zamba2-1.2b train_4k, arctic-480b long_500k,
+                (d) one row per cleared fault, at full width and, where
+                the whole stack takes 15-90 s, a period of its layers
+                (DRYRUN_CUTS: arctic-480b 1, deepseek-v3-671b 4,
+                zamba2-1.2b 6, rwkv6-7b 2, internlm2-20b 2): arctic-480b
+                and zamba2-1.2b train_4k (C7; C17, C20: at most 1.10 x
+                their plain step's share), arctic-480b long_500k,
                 internlm2-1.8b decode_32k on multi(2,16,16), rwkv6-7b
                 train_4k, internlm2-20b prefill_32k (C15, under (a)'s
                 ceiling), whisper-large-v3 train_4k (C19, at most 1.10 x
-                its plain step's share), each ok, each train row's FLOPs
-                at least 6 x active projection parameters x tokens; and
-                rows
+                its plain step's share), arctic-480b and
+                deepseek-v3-671b prefill_32k and decode_32k,
+                deepseek-v3-671b train_4k, zamba2-1.2b prefill_32k (C17,
+                C20: under the same ceilings); each ok, each train row's
+                FLOPs at least 6 x active projection parameters x
+                tokens; and rows
                 under the exact rewrites beside their default rows on
                 single(16,16): arctic-480b prefill_32k with gather
                 dispatch, grouped GQA and chunked attention (fewer FLOPs),
@@ -272,8 +279,9 @@ its own):
                 internlm2-1.8b long_500k grouped (C13: FLOPs at most 1.05
                 x, bytes no higher), prefill_32k chunked (C14: FLOPs at
                 most 1.05 x, collective bytes no higher), arctic-480b
-                prefill_32k gather (C12: fewer FLOPs, bytes and
-                collective bytes no higher), each ok, its opts as set,
+                prefill_32k gather (C12: fewer FLOPs, bytes at most
+                1.10 x, collective bytes no higher), each ok, its opts
+                as set,
                 both rows' terms printed, a row that misses its criteria
                 failing the phase
  12. kernels    one JSON line: per kernel, launches on the main path
@@ -374,18 +382,33 @@ TELEMETRY_DIR = ROOT / "chiprun_out" / "telemetry"
 DRYRUN_DIR = ROOT / "chiprun_out" / "dryrun"
 DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 DRYRUN_DEBUG = (64, 4)
-# (d): one full-size row per fault the dry run cleared (ROADMAP §C7-C10):
-# (arch, shape, multi-pod mesh)
-DRYRUN_CLEARED = (("arctic-480b", "train_4k", False),     # C7: MoE backward
-                  ("zamba2-1.2b", "train_4k", False),     # C7: aten.flip
-                  ("arctic-480b", "long_500k", False),    # C8: seq_shard
-                  ("internlm2-1.8b", "decode_32k", True),  # C9: pod mesh
-                  ("rwkv6-7b", "train_4k", False),        # C10: token loop
-                  ("internlm2-20b", "prefill_32k", False),  # C15: ceiling
-                  ("whisper-large-v3", "train_4k", False))  # C19: ceiling
+# (d): one row per fault the dry run cleared (ROADMAP §C): (arch, shape,
+# multi-pod mesh, layers kept: None for all).  A row keeps full width and,
+# for the phase's time, a period of the arch's layers where the whole
+# stack takes 15-90 s on the card (arctic-480b 1 of 35; deepseek-v3-671b
+# its 3 dense layers and 1 MoE layer of 61; zamba2-1.2b 5 Mamba2 layers
+# and the shared attention of 38; rwkv6-7b 2 of 32; internlm2-20b 2 of
+# 48): the card's sweep holds the full rows (PERF.md §6)
+DRYRUN_CUTS = {"arctic-480b": 1, "deepseek-v3-671b": 4, "zamba2-1.2b": 6,
+               "rwkv6-7b": 2, "internlm2-20b": 2}
+DRYRUN_CLEARED = (
+    ("arctic-480b", "train_4k", False),     # C7: MoE backward, C17
+    ("zamba2-1.2b", "train_4k", False),     # C7: aten.flip, C20
+    ("arctic-480b", "long_500k", False),    # C8: seq_shard
+    ("internlm2-1.8b", "decode_32k", True),  # C9: pod mesh
+    ("rwkv6-7b", "train_4k", False),        # C10: token loop
+    ("internlm2-20b", "prefill_32k", False),  # C15: ceiling
+    ("whisper-large-v3", "train_4k", False),  # C19: ceiling
+    ("arctic-480b", "prefill_32k", False),  # C17: one-hot dispatch
+    ("deepseek-v3-671b", "prefill_32k", False),
+    ("deepseek-v3-671b", "train_4k", False),
+    ("arctic-480b", "decode_32k", False),   # C17: decode's experts
+    ("deepseek-v3-671b", "decode_32k", False),
+    ("zamba2-1.2b", "prefill_32k", False))  # C20: in-projection
 # (d): the cleared train rows held under DRYRUN_CEILING x their plain
 # step's share (a serving row always is)
-DRYRUN_TRAIN_CEILING = ("whisper-large-v3",)
+DRYRUN_TRAIN_CEILING = ("whisper-large-v3", "arctic-480b", "zamba2-1.2b",
+                        "deepseek-v3-671b")
 # (a) and (d): a serving row's FLOPs a device over the closed form (and
 # the plain step) over the devices its work splits over (ROADMAP C15)
 DRYRUN_CEILING = 1.10
@@ -501,7 +524,9 @@ SWITCH_PREFILL_S = (2048, 8192)
 # its default row on single(16,16), and what the switched row must meet
 # against it: FLOPs a device at most DRYRUN_SAME x ("flops") or below
 # ("fewer_flops"), bytes a device ("bytes") and collective bytes a device
-# ("collective") no higher (ROADMAP C12-C14)
+# ("collective") no higher, bytes a device at most DRYRUN_CEILING x
+# ("bytes_ceiling": C12's, restated since the einsum dispatch's one-hot
+# planes are split over 'model', C17) (ROADMAP C12-C14)
 DRYRUN_SAME = 1.05
 DRYRUN_SWITCHED = (
     ("arctic-480b", "prefill_32k",
@@ -513,7 +538,7 @@ DRYRUN_SWITCHED = (
     ("internlm2-1.8b", "prefill_32k", {"attn_impl": "chunked"},  # C14
      ("flops", "collective")),
     ("arctic-480b", "prefill_32k", {"dispatch": "gather"},       # C12
-     ("fewer_flops", "bytes", "collective")))
+     ("fewer_flops", "bytes_ceiling", "collective")))
 
 
 def log(msg: str) -> None:
@@ -4300,10 +4325,10 @@ def phase_dryrun(torch, dev):
     function on plain tensors), gradients within GRAD_TOL, its
     FlopCounterMode count equal to the fake trace's, the fake trace's
     peak printed beside the real step's max_memory_allocated; (c) the
-    paper suite's roofline entry over (a)'s rows; (d) the full-size rows
-    of DRYRUN_CLEARED, each ok, a train row's FLOPs at least
-    6·N_proj·tokens, their trace seconds and gathered and local calls
-    printed."""
+    paper suite's roofline entry over (a)'s rows; (d) the rows of
+    DRYRUN_CLEARED (full size, or at their layer cut), each ok, a train
+    row's FLOPs at least 6·N_proj·tokens, their trace seconds and
+    gathered and local calls printed."""
     from repro_torch.launch import dryrun
     from repro_torch.paper import paper_tables
 
@@ -4334,7 +4359,7 @@ def phase_dryrun(torch, dev):
                                       "flops_over_plain")}
                    for r in rows]
     out["ceilings"] = ceilings
-    defaults = {(SEQ_ARCH, r["shape"]): r for r in rows}
+    defaults = {(SEQ_ARCH, r["shape"], None): r for r in rows}
 
     # (b)
     out["debug_step"] = dryrun_debug_step(torch, dev)
@@ -4357,17 +4382,18 @@ def phase_dryrun(torch, dev):
     return out
 
 
-def dryrun_ceiling(row):
-    """(a) and (d) of phase_dryrun for a prefill or decode row: FLOPs a
-    device at most DRYRUN_CEILING x the plain step's over the devices the
-    step splits over and, for a dense decoder, x its closed form
-    (launch/dryrun.py::analytic_flops), and no contraction that dropped
-    an operand's shard (ROADMAP C15).  Returns the ratios."""
+def dryrun_ceiling(row, cfg=None):
+    """(a) and (d) of phase_dryrun for a prefill or decode row of ``cfg``
+    (the row's arch where None): FLOPs a device at most DRYRUN_CEILING x
+    the plain step's over the devices the step splits over and, for a
+    dense decoder, x its closed form (launch/dryrun.py::analytic_flops),
+    and no contraction that dropped an operand's shard (ROADMAP C15).
+    Returns the ratios."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.launch import dryrun
 
-    cfg = get_config(row["arch"])
+    cfg = cfg or get_config(row["arch"])
     analytic = row["plain_flops_per_device"]
     if cfg.family in ("dense", "vlm"):
         analytic = dryrun.analytic_flops(
@@ -4419,24 +4445,42 @@ def active_projection_params(cfg, train: bool) -> float:
     return n
 
 
-def dryrun_cleared_row(arch, shape, multi, dev):
-    """(d) of phase_dryrun: one full-size row of the dry run that did not
-    trace, or split its work, before its fault was cleared; ok, a train
-    row's FLOPs at least 6 x the active projection parameters x its tokens
-    (the backward was traced), a serving row under dryrun_ceiling and a
-    train row of DRYRUN_TRAIN_CEILING at most DRYRUN_CEILING x its plain
-    step's share."""
+def dryrun_row(arch, shape, multi, dev, **switches):
+    """(the dry run's row of ``arch`` at ``shape``, its config, its mesh's
+    name): at full width and DRYRUN_CUTS' layers of the arch where it has
+    an entry, all of them elsewhere; ``switches`` as the dry run's."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
 
-    row = dryrun.run_one(arch, shape, multi, device=dev.type, verbose=False)
+    cfg = get_config(arch)
     mesh = "multi(2,16,16)" if multi else "single(16,16)"
+    layers = DRYRUN_CUTS.get(arch)
+    if layers is None:
+        return dryrun.run_one(arch, shape, multi, device=dev.type,
+                              verbose=False, **switches), cfg, mesh
+    cut = dataclasses.replace(cfg, num_layers=layers)
+    with make_production_mesh(multi_pod=multi, device=dev.type) as m:
+        row = dryrun.trace_one(cut, INPUT_SHAPES[shape], m, mesh_name=mesh,
+                               device=dev.type, verbose=False, **switches)
+    return row, cut, f"{mesh}, {layers} of {cfg.num_layers} layers"
+
+
+def dryrun_cleared_row(arch, shape, multi, dev):
+    """(d) of phase_dryrun: one row of the dry run that did not trace, or
+    split its work, before its fault was cleared (dryrun_row); ok, a
+    train row's FLOPs at least 6 x the active projection parameters x its
+    tokens (the backward was traced), a serving row under dryrun_ceiling
+    and a train row of DRYRUN_TRAIN_CEILING at most DRYRUN_CEILING x its
+    plain step's share."""
+    row, cfg, mesh = dryrun_row(arch, shape, multi, dev)
     if row["status"] != "ok":
         raise AssertionError(f"[dryrun] (d) {arch} {shape} on {mesh}: "
                              f"{row['status']}")
     floor = None
     if shape != "train_4k":
-        dryrun_ceiling(row)
+        dryrun_ceiling(row, cfg)
     elif arch in DRYRUN_TRAIN_CEILING and \
             row["flops_over_plain"] > DRYRUN_CEILING:
         raise AssertionError(
@@ -4444,7 +4488,7 @@ def dryrun_cleared_row(arch, shape, multi, dev):
             f"{row['flops_over_plain']:.4f} the plain step's share, over "
             f"{DRYRUN_CEILING}")
     if shape == "train_4k":
-        floor = 6 * active_projection_params(get_config(arch), True) * \
+        floor = 6 * active_projection_params(cfg, True) * \
             row["tokens_per_step"]
         if row["flops_global"] < floor:
             raise AssertionError(
@@ -4461,17 +4505,17 @@ def dryrun_cleared_row(arch, shape, multi, dev):
                                 "bytes_per_device",
                                 "collective_op_counts", "replicated_calls",
                                 "local_scatter_calls", "flops_over_plain")
-            } | {"floor": floor}
+            } | {"floor": floor, "layers": cfg.num_layers}
 
 
 def dryrun_switched_row(arch, shape, switches, criteria, dev, defaults):
-    """(d) of phase_dryrun for a row of DRYRUN_SWITCHED: the full-size row
-    on single(16,16) under the default switches (from ``defaults``, rows
-    by (arch, shape) traced before, or traced here and kept there) and
-    under ``switches``, both ok, the switched
-    row's opts as set and its ``criteria`` met against the default row;
-    both rows' trace seconds, terms and gathered calls printed side by
-    side."""
+    """(d) of phase_dryrun for a row of DRYRUN_SWITCHED: the row
+    (dryrun_row) on single(16,16) under the default switches (from
+    ``defaults``, rows by (arch, shape, layer cut) traced before, or
+    traced here and kept there) and under ``switches``, both ok, the
+    switched row's opts as set and its ``criteria`` met against the
+    default row; both rows' trace seconds, terms and gathered calls
+    printed side by side."""
     from repro_torch.launch import dryrun
 
     keys = ("trace_s", "dominant", "terms_seconds", "flops_per_device",
@@ -4479,13 +4523,13 @@ def dryrun_switched_row(arch, shape, switches, criteria, dev, defaults):
             "collective_op_counts", "opts", "replicated_calls",
             "local_scatter_calls", "gathered_calls", "flops_over_plain")
     rows = {}
+    key = (arch, shape, DRYRUN_CUTS.get(arch))
     for label, kw in (("default", {}), ("switched", switches)):
-        row = defaults.get((arch, shape)) if label == "default" else None
+        row = defaults.get(key) if label == "default" else None
         if row is None:
-            row = dryrun.run_one(arch, shape, False, device=dev.type,
-                                 verbose=False, **kw)
+            row = dryrun_row(arch, shape, False, dev, **kw)[0]
         if label == "default":
-            defaults[(arch, shape)] = row
+            defaults[key] = row
         if row["status"] != "ok":
             raise AssertionError(f"[dryrun] (d) {arch} {shape} {label} "
                                  f"{kw}: {row['status']}")
@@ -4514,7 +4558,8 @@ def dryrun_switched_row(arch, shape, switches, criteria, dev, defaults):
               / base["collective_bytes_per_device"]["total"]}
     limits = {"flops": ("flops", DRYRUN_SAME),
               "fewer_flops": ("flops", 1.0 - 1e-12),
-              "bytes": ("bytes", 1.0), "collective": ("collective", 1.0)}
+              "bytes": ("bytes", 1.0), "collective": ("collective", 1.0),
+              "bytes_ceiling": ("bytes", DRYRUN_CEILING)}
     missed = [c for c in criteria if ratios[limits[c][0]] > limits[c][1]]
     log(f"[dryrun] (d) {arch} {shape} {switches} / default: "
         + ", ".join(f"{k} x{v:.4f}" for k, v in ratios.items())

@@ -50,9 +50,11 @@ the trace does what GSPMD does, and the row counts it:
 * on the multi-pod mesh the FSDP axes ('pod', 'data') are one flattened
   mesh dim (``launch/mesh.py::dtensor_mesh``): the same shards;
 * rwkv6's token loop runs on each device's batch and heads, with no
-  collective inside, and grouped GQA and the gather dispatch on each
-  device's query heads and experts (:data:`LOCAL_CALLS`); a long loop is
-  counted from its runs at 2 and 3 steps (:func:`counted_loop`).
+  collective inside, grouped GQA on each device's query heads, both MoE
+  dispatches and the decode's experts on each device's experts or
+  their shard of F, and zamba2's in-projection with each output split
+  (:data:`LOCAL_CALLS`); a long loop is counted from its runs at 2 and
+  3 steps (:func:`counted_loop`).
 The reference's exact rewrites act as its flags set them, for the row
 being traced (:func:`trace_one` sets the module attributes and restores
 them after): ``--dispatch`` (``models/moe.py::DISPATCH_MODE``),
@@ -94,8 +96,8 @@ from repro_torch.launch.sharding import head_aligned_overrides
 from repro_torch.launch.specs import (StepSpec, build_step_spec,
                                       decode_plan, gst_geometry, materialize,
                                       param_shapes)
-from repro_torch.models import common as common_mod, mla as mla_mod, \
-    moe as moe_mod
+from repro_torch.models import common as common_mod, mamba2 as mamba_mod, \
+    mla as mla_mod, moe as moe_mod
 from repro_torch.models.rwkv6 import wkv_scan
 from repro_torch.roofline.analysis import HW, active_counter, \
     analyze_trace, param_counts
@@ -142,6 +144,9 @@ _NO_STRATEGY = (
     "Cannot unflatten unevenly sharded tensor",
     # 2.13: an in-place op whose strategy would move its target
     "require placement changes",
+    # 2.11: index_add's strategy splits the source along the indexed dim
+    # and keeps the index whole (the gather dispatch run op by op)
+    "should be equal to tensor.size(dim)",
 )
 _ERRORS = (RuntimeError, NotImplementedError, ValueError)
 
@@ -178,8 +183,9 @@ class DTensorCalls(TorchFunctionMode):
     decode step's cache write, ``models/common.py::write_cache``, batch-
     or sequence-sharded; the MoE's one-hot masks; the card's torch 2.11
     has no scatter strategy).  A call listed in :data:`LOCAL_CALLS`
-    (rwkv6's token loop, grouped GQA, the gather dispatch) runs on the
-    local shards as its entry says, or, where its runner declines, its
+    (rwkv6's token loop, grouped GQA, the MoE dispatches and decode
+    experts, zamba2's in-projection) runs on the local shards as its
+    entry says, or, where its runner declines, its
     ops one by one (:data:`OP_BY_OP`).  A product (:data:`_PRODUCTS`)
     runs in its operands' promoted dtype, on the local shards where they
     are laid out for it, and its partial sums, and a lookup's, are
@@ -635,6 +641,14 @@ def _gathered_from(t: DTensor, k: int) -> DTensor:
     return t.redistribute(t.device_mesh, place)
 
 
+def _block(mesh, dims) -> int:
+    """This device's block of a dim split over mesh ``dims``, mesh-major."""
+    block, coord = 0, mesh.get_coordinate()
+    for d in dims:
+        block = block * mesh.size(d) + coord[d]
+    return block
+
+
 def _local_scatter(target, dim, index, src=None, **kwargs) -> bool:
     """``target.scatter_(dim, index, src)`` (a tensor or a number) on the
     local shards where the target is a DTensor and index and source have
@@ -679,11 +693,8 @@ def _local_scatter(target, dim, index, src=None, **kwargs) -> bool:
     if not along:
         shard.scatter_(dim, local(index), local(src))
         return True
-    coord, block = mesh.get_coordinate(), 0
-    for d in along:                        # the dim's split, mesh-major
-        block = block * mesh.size(d) + coord[d]
     _owner_scatter(shard, dim, local(index), local(src),
-                   block * shard.shape[dim])
+                   _block(mesh, along) * shard.shape[dim])
     return True
 
 
@@ -697,6 +708,12 @@ def _owner_scatter(shard, dim: int, index, src, offset: int) -> None:
     mine = (at >= 0) & (at < shard.shape[dim])
     at = at.clamp(0, shard.shape[dim] - 1)
     shard.scatter_(dim, at, torch.where(mine, src, shard.gather(dim, at)))
+
+
+def _replicated_dt(t, mesh):
+    """``t`` as a ``DTensor`` on ``mesh``: replicated where a plain tensor."""
+    return t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
 def _local_wkv_scan(func, wrkv, state=None):
@@ -719,11 +736,8 @@ def _local_wkv_scan(func, wrkv, state=None):
     on_y = [Shard(0 if p.dim == 2 else 2) if isinstance(p, Shard) else p
             for p in place]
     if state is not None:
-        if not isinstance(state, DTensor):
-            state = DTensor.from_local(state, mesh,
-                                       [Replicate()] * mesh.ndim,
-                                       run_check=False)
-        state = state.redistribute(mesh, on_state).to_local()
+        state = _replicated_dt(state, mesh).redistribute(
+            mesh, on_state).to_local()
     y, s = counted_loop(func, wrkv.redistribute(mesh, place).to_local(),
                         state)
     return (DTensor.from_local(y, mesh, on_y, run_check=False),
@@ -874,11 +888,7 @@ def _local_grouped_attn(func, q, k, v, mask):
     KV = k.shape[2]
     G = H // KV
 
-    def dt(t):
-        return t if isinstance(t, DTensor) else DTensor.from_local(
-            t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-
-    q, k, v, mask = (dt(t) for t in (q, k, v, mask))
+    q, k, v, mask = (_replicated_dt(t, mesh) for t in (q, k, v, mask))
     q_at, kv_at, m_at, heads = [], [], [], []
     for d in range(mesh.ndim):
         n = mesh.size(d)
@@ -922,43 +932,164 @@ def _local_grouped_attn(func, q, k, v, mask):
     return _global(out, mesh, q_at, q.shape)
 
 
-def _local_gather_dispatch(func, we, x, gates, pos_c, keep, cap, K, act,
-                           first=0):
-    """``models/moe.py::_gather_dispatch`` on each device's experts: the
-    expert weights keep their shard of E (over 'model'), the tokens, gates
-    and slots (B, S, ·) their shard of B and come whole over the mesh dims
-    that shard E; each device scatters the pairs routed to its experts
-    into its experts' cells, runs their FFNs and gathers their outputs
-    back (``first``: its first expert), and the devices' sums over their
-    experts are reduced over those dims (an all-reduce of (B, S, D), the
-    einsum dispatch's combine; where no mesh dim shards E, each device
-    runs every expert on its rows).  What GSPMD makes of the reference's
-    scatter and gather with expert-sharded weights; DTensor would build
-    the (B, E·(C + 1), D) expert input whole on every device and move the
-    expert outputs to a shard of D for the gather.  NotImplemented (the
-    ops one by one) where a weight is split along another dim."""
-    w = we["w_in"]
-    mesh = w.device_mesh
+def _expert_dims(w: DTensor):
+    """The mesh dims that split an expert weight's E (dim 0), or None
+    where it is split along another dim too."""
     along = [d for d, p in enumerate(w.placements)
              if isinstance(p, Shard) and p.dim == 0]
-    if any(isinstance(p, Shard) for d, p in enumerate(w.placements)
-           if d not in along):
+    if any(isinstance(p, Shard) and d not in along or p.is_partial()
+           for d, p in enumerate(w.placements)):
+        return None
+    return along
+
+
+def _rows_of(t: DTensor, skip):
+    """Placements that keep ``t``'s split of its leading (batch) dim over
+    the mesh dims not in ``skip``, replicated elsewhere."""
+    return [Shard(0) if d not in skip and isinstance(p, Shard)
+            and p.dim == 0 else Replicate()
+            for d, p in enumerate(t.placements)]
+
+
+def _rows_share(place, rows):
+    """The gradient placements of a weight laid out as ``place`` that
+    each device multiplies by its own batch rows (``rows``, as
+    :func:`_rows_of` gives them): its share, a partial sum, over the
+    mesh dims that split the rows (the FSDP reduce-scatter then sums
+    it), as ``place`` elsewhere."""
+    return [Partial() if isinstance(r, Shard) else p
+            for p, r in zip(place, rows)]
+
+
+def _local_dispatch(func, we, x, gates, pos_c, keep, *rest, first=0):
+    """``models/moe.py::_einsum_dispatch`` or ``_gather_dispatch`` on each
+    device's experts: the expert weights keep their shard of E (over
+    'model'), the tokens, gates and slots (B, S, ·) their shard of B and
+    come whole over the mesh dims that shard E; each device routes the
+    pairs of its experts into their inputs (the one-hot planes of its
+    E/16 experts, or its experts' cells of the scatter), runs their FFNs
+    and combines their outputs (``first``: its first expert), and the
+    devices' (B, S, D) sums over their experts are reduced over those
+    dims (an all-reduce; where no mesh dim shards E, each device runs
+    every expert on its rows).  What GSPMD makes of the reference's
+    einsums or scatter and gather with expert-sharded weights; DTensor
+    would build the one-hot planes, or the (B, E·(C + 1), D) expert
+    input, whole on every device.  ``rest``: the call's other arguments.
+    NotImplemented (the ops one by one) where a weight is split along
+    another dim."""
+    w = we["w_in"]
+    mesh = w.device_mesh
+    along = _expert_dims(w)
+    if along is None:
         return NotImplemented
-    tokens = [Shard(0) if d not in along and isinstance(p, Shard)
-              and p.dim == 0 else Replicate()
-              for d, p in enumerate(x.placements)]
+    tokens = _rows_of(x, along)
     # a gradient of the whole tokens is each device's experts' share
     grads = [Partial() if d in along else p for d, p in enumerate(tokens)]
     xl, gl, pl, kl = (t.redistribute(mesh, tokens).to_local(
         grad_placements=grads) for t in (x, gates, pos_c, keep))
-    wl = {k: v.to_local() for k, v in we.items()}
-    block = 0
-    coord = mesh.get_coordinate()
-    for d in along:
-        block = block * mesh.size(d) + coord[d]
-    out = func(wl, xl, gl, pl, kl, cap, K, act,
-               first + block * w.to_local().shape[0])
+    wl = {k: v.to_local(grad_placements=_rows_share(v.placements, tokens))
+          for k, v in we.items()}
+    out = func(wl, xl, gl, pl, kl, *rest,
+               first=first + _block(mesh, along) * w.to_local().shape[0])
     return _reduced(DTensor.from_local(out, mesh, grads, run_check=False))
+
+
+# the dim of F in each expert weight, (E, D, F) and (E, F, D)
+_EXPERT_F = {"w_in": 2, "w_gate": 2, "w_out": 1}
+
+
+def _local_decode_experts(func, we, xk, top_idx, w_eff, act, first=0):
+    """``models/moe.py::_decode_experts`` with every expert's weights
+    split along F over the mesh dims that shard E (an all-to-all of the
+    expert weights, as torch 2.13's DTensor moves them for the gather,
+    there along D): each device gathers the (B, k, D, F/16) slices of
+    its batch rows' selected experts, runs Megatron's expert FFN on them
+    (the up and gate products on its F columns, the down product a
+    partial sum), and the (B, D) sums are reduced over those dims.  A
+    device's expert work is its share; DTensor on the card's torch 2.11
+    gathers the (B, k, D, F) weights whole on every device.
+    NotImplemented (the ops one by one) where no mesh dim shards E or a
+    weight is split along another dim."""
+    w = we["w_in"]
+    mesh = w.device_mesh
+    along = _expert_dims(w)
+    if not along or any(v.shape[_EXPERT_F[k]] % mesh.size(d)
+                        for k, v in we.items() for d in along):
+        return NotImplemented
+    xk = _replicated_dt(xk, mesh)
+    rows = _rows_of(xk, along)
+    wl = {}
+    for k, v in we.items():
+        place = [Shard(_EXPERT_F[k]) if d in along else p
+                 for d, p in enumerate(v.placements)]
+        wl[k] = v.redistribute(mesh, place).to_local(
+            grad_placements=_rows_share(place, rows))
+    xl, il, el = (_replicated_dt(t, mesh).redistribute(mesh, rows).to_local()
+                  for t in (xk, top_idx, w_eff))
+    out = func(wl, xl, il, el, act, first=first)
+    return _reduced(DTensor.from_local(
+        out, mesh, [Partial() if d in along else p
+                    for d, p in enumerate(rows)], run_check=False))
+
+
+def _local_split_in(func, p, x, cfg):
+    """``models/mamba2.py::_split_in`` with each of its five outputs split
+    over the mesh dim that splits the in-projection's columns ('model'),
+    as the reference's five slices of its output are: each device
+    multiplies its batch rows (gathered along any other dim, a
+    sequence-parallel input) by its own columns of xs, gate, B, C and dt
+    (the weight gathered there, its gradient reduce-scattered), so xs,
+    gate and dt keep 1/16 of their columns (dt two of 32 heads, xs and
+    gate those heads' channels) and B and C, which every head reads, are
+    gathered ((B, S, N) each).  A device's FLOPs are its share of the
+    projection; DTensor (torch 2.11) gathers the output z, whose
+    boundaries fall inside its 16 blocks of 522 columns, and torch 2.13
+    its gradient.  NotImplemented (the ops one by one) where a width does
+    not divide that mesh dim or the weight is split another way."""
+    w = p["w_in"]
+    if not isinstance(w, DTensor):
+        return NotImplemented
+    mesh = w.device_mesh
+    cols = [d for d, q in enumerate(w.placements)
+            if isinstance(q, Shard) and q.dim == w.ndim - 1]
+    widths = mamba_mod.in_widths(cfg)
+    if len(cols) != 1 or any(
+            isinstance(q, Shard) and d not in cols or q.is_partial()
+            for d, q in enumerate(w.placements)) or any(
+            k % mesh.size(cols[0]) for k in widths):
+        return NotImplemented
+    m, n = cols[0], mesh.size(cols[0])
+    x = _replicated_dt(x, mesh)
+    rows = _rows_of(x, cols)
+    partial = [Partial() if d == m else q for d, q in enumerate(rows)]
+    xl = x.redistribute(mesh, rows).to_local(grad_placements=partial)
+    whole = [Replicate() if d == m else q for d, q in enumerate(w.placements)]
+    # each device's columns and batch rows: the weight's and the bias's
+    # gradients are its share there
+    share = [Partial() if d == m else q
+             for d, q in enumerate(_rows_share(whole, rows))]
+    wl = w.redistribute(mesh, whole).to_local(grad_placements=share)
+    j = mesh.get_coordinate()[m]
+    at, starts = 0, []
+    for k in widths:
+        starts.append(at + j * (k // n))
+        at += k
+    idx = torch.cat([torch.arange(a, a + k // n, device=wl.device)
+                     for a, k in zip(starts, widths)])
+    bias = _replicated_dt(p["dt_bias"], mesh).full_tensor(
+        grad_placements=[Partial() if q.is_partial() else Replicate()
+                         for q in share])
+    H = widths[-1]
+    outs = mamba_mod.split_z(xl @ wl.index_select(1, idx),
+                             bias.narrow(0, j * (H // n), H // n),
+                             [k // n for k in widths])
+    split = [Shard(x.ndim - 1) if d == m else q for d, q in enumerate(rows)]
+    res = []
+    for t, k, name in zip(outs, widths, ("xs", "gate", "B", "C", "dt")):
+        shape = tuple(x.shape[:-1]) + (k,)
+        t = _global(t, mesh, split, shape)
+        res.append(t.redistribute(mesh, rows) if name in ("B", "C") else t)
+    return tuple(res)
 
 
 # calls the dry run runs on the local shards: function -> its runner,
@@ -966,9 +1097,15 @@ def _local_gather_dispatch(func, we, x, gates, pos_c, keep, cap, K, act,
 # OP_BY_OP has them
 LOCAL_CALLS = {wkv_scan: _local_wkv_scan,
                common_mod._grouped_attn: _local_grouped_attn,
-               moe_mod._gather_dispatch: _local_gather_dispatch}
+               moe_mod._einsum_dispatch: _local_dispatch,
+               moe_mod._gather_dispatch: _local_dispatch,
+               moe_mod._decode_experts: _local_decode_experts,
+               mamba_mod._split_in: _local_split_in}
 OP_BY_OP = {common_mod._grouped_attn: common_mod.grouped_einsums,
-            moe_mod._gather_dispatch: moe_mod.gather_dispatch_ops}
+            moe_mod._einsum_dispatch: moe_mod.einsum_dispatch_ops,
+            moe_mod._gather_dispatch: moe_mod.gather_dispatch_ops,
+            moe_mod._decode_experts: moe_mod.decode_experts_ops,
+            mamba_mod._split_in: mamba_mod.split_in_ops}
 
 
 @contextmanager

@@ -21,6 +21,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.overrides import handle_torch_function, has_torch_function
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import dense_init, rmsnorm
@@ -64,19 +65,36 @@ def mamba2_params(generator: torch.Generator, cfg: ArchConfig,
     }
 
 
+def in_widths(cfg: ArchConfig):
+    """The widths of the input projection's five outputs, in its column
+    order: xs (d_inner), gate (d_inner), B (N), C (N), dt (H)."""
+    d_inner, H, P, N = mamba2_dims(cfg)
+    return d_inner, d_inner, N, N, H
+
+
 def _split_in(p, x, cfg: ArchConfig):
     """(xs, gate, B, C, dt) of the input projection; dt = softplus(dt +
     dt_bias) in f32.  ``F.softplus`` returns its input above 20, where
-    ``jax.nn.softplus`` adds log1p(exp(-x)): at most 2.1e-9 apart."""
-    d_inner, H, P, N = mamba2_dims(cfg)
-    z = x @ p["w_in"]
-    xs = z[..., :d_inner]
-    gate = z[..., d_inner:2 * d_inner]
-    Bm = z[..., 2 * d_inner:2 * d_inner + N]
-    Cm = z[..., 2 * d_inner + N:2 * d_inner + 2 * N]
-    dt = F.softplus(z[..., 2 * d_inner + 2 * N:].float()
-                    + p["dt_bias"].float())
-    return xs, gate, Bm, Cm, dt
+    ``jax.nn.softplus`` adds log1p(exp(-x)): at most 2.1e-9 apart.  A
+    torch function, so a torch function mode may run it its own way: the
+    dry run gives each output its own shard (``launch/dryrun.py``)."""
+    operands = (x, p["w_in"], p["dt_bias"])
+    if has_torch_function(operands):
+        return handle_torch_function(_split_in, operands, p, x, cfg)
+    return split_in_ops(p, x, cfg)
+
+
+def split_in_ops(p, x, cfg: ArchConfig):
+    """The ops of ``_split_in`` (see there), as plain ops."""
+    return split_z(x @ p["w_in"], p["dt_bias"], in_widths(cfg))
+
+
+def split_z(z, dt_bias, widths):
+    """The input projection's output z cut into its five outputs of
+    ``widths`` (:func:`in_widths`, or a shard's), dt through the
+    softplus with its heads' ``dt_bias``."""
+    xs, gate, Bm, Cm, dt = torch.split(z, list(widths), dim=-1)
+    return xs, gate, Bm, Cm, F.softplus(dt.float() + dt_bias.float())
 
 
 def _causal_conv(p, xs, conv_state=None):

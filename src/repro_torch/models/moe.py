@@ -115,6 +115,44 @@ def _add_shared_and_dense(p, routed, xt, act: str):
     return out
 
 
+def _einsum_dispatch(we, x, gates, pos_c, keep, cap: int, act: str,
+                     first: int = 0):
+    """The routed output (B, S, D) of ``moe_forward`` by GShard's one-hot
+    dispatch: a (B, S, E, C) plane, one-hot over the slot of each kept
+    (token, expert) pair, takes the tokens into the (B, E, C, D) expert
+    input by an einsum, and the same plane weighted by the gates combines
+    the experts' outputs back.
+
+    ``we`` may hold a run of the experts, ``first`` … ``first`` + its
+    count − 1: ``gates``, ``pos_c`` and ``keep`` (B, S, E) are cut to
+    the run's columns, so the runs' outputs sum to the whole.  A torch
+    function, as ``_gather_dispatch`` is: the dry run runs each device's
+    experts on their run (``launch/dryrun.py``)."""
+    operands = (x, gates, pos_c, keep, *we.values())
+    if has_torch_function(operands):
+        return handle_torch_function(_einsum_dispatch, operands, we, x,
+                                     gates, pos_c, keep, cap, act,
+                                     first=first)
+    return einsum_dispatch_ops(we, x, gates, pos_c, keep, cap, act, first)
+
+
+def einsum_dispatch_ops(we, x, gates, pos_c, keep, cap: int, act: str,
+                        first: int = 0):
+    """The ops of ``_einsum_dispatch`` (see there), as plain ops."""
+    B, S, D = x.shape
+    E = we["w_in"].shape[0]
+    if first or E != gates.shape[-1]:
+        gates, pos_c, keep = (t[..., first:first + E]
+                              for t in (gates, pos_c, keep))
+    # dispatch: (B, S, E, C), one-hot over the slot of kept tokens
+    oh_cap = x.new_zeros((B, S, E, cap)).scatter_(
+        -1, pos_c[..., None], keep[..., None].to(x.dtype))
+    combine = oh_cap * gates[..., None].to(x.dtype)
+    expert_in = torch.einsum("bsec,bsd->becd", oh_cap, x)  # (B, E, C, D)
+    expert_out = _expert_ffn(we, expert_in, act)
+    return torch.einsum("bsec,becd->bsd", combine, expert_out)
+
+
 def _gather_dispatch(we, x, gates, pos_c, keep, cap: int, K: int, act: str,
                      first: int = 0):
     """The routed output (B, S, D) of ``moe_forward`` by scatter and
@@ -133,7 +171,8 @@ def _gather_dispatch(we, x, gates, pos_c, keep, cap: int, K: int, act: str,
     operands = (x, gates, pos_c, keep, *we.values())
     if has_torch_function(operands):
         return handle_torch_function(_gather_dispatch, operands, we, x,
-                                     gates, pos_c, keep, cap, K, act, first)
+                                     gates, pos_c, keep, cap, K, act,
+                                     first=first)
     return gather_dispatch_ops(we, x, gates, pos_c, keep, cap, K, act, first)
 
 
@@ -193,13 +232,8 @@ def moe_forward(p, x, cfg: MoEConfig, act: str, *, with_counts: bool = False):
     keep = (pos_in_expert < cap) & (mask > 0)
     pos_c = torch.clamp(pos_in_expert, 0, cap - 1).long()
     if DISPATCH_MODE == "einsum":
-        # dispatch: (B, S, E, C), one-hot over the slot of kept tokens
-        oh_cap = x.new_zeros((B, S, E, cap)).scatter_(
-            -1, pos_c[..., None], keep[..., None].to(x.dtype))
-        combine = oh_cap * gates[..., None].to(x.dtype)
-        expert_in = torch.einsum("bsec,bsd->becd", oh_cap, x)  # (B, E, C, D)
-        expert_out = _expert_ffn(p["experts"], expert_in, act)
-        routed = torch.einsum("bsec,becd->bsd", combine, expert_out)
+        routed = _einsum_dispatch(p["experts"], x, gates, pos_c, keep, cap,
+                                  act)
     else:
         routed = _gather_dispatch(p["experts"], x, gates, pos_c, keep, cap,
                                   K, act)
@@ -209,6 +243,41 @@ def moe_forward(p, x, cfg: MoEConfig, act: str, *, with_counts: bool = False):
         counts = torch.sum(mask, dim=1).to(torch.int32)  # (B, E)
         return out, aux.float(), counts
     return out, aux.float()
+
+
+def _decode_experts(we, xk, top_idx, w_eff, act: str, first: int = 0):
+    """The routed output (B, D) of ``moe_decode``: each token's k
+    selected experts run on it by a gather of their weights, (B, k, d, F)
+    each, and their outputs are summed with the weights ``w_eff`` (B, k)
+    (the gates, 0 for a dropped pair).
+
+    ``we`` may hold a run of the experts, ``first`` … ``first`` + its
+    count − 1: a pair routed to another adds nothing, so the runs'
+    outputs sum to the whole.  A torch function, as ``_gather_dispatch``
+    is: the dry run runs it on its own layout (``launch/dryrun.py``)."""
+    operands = (xk, top_idx, w_eff, *we.values())
+    if has_torch_function(operands):
+        return handle_torch_function(_decode_experts, operands, we, xk,
+                                     top_idx, w_eff, act, first=first)
+    return decode_experts_ops(we, xk, top_idx, w_eff, act, first)
+
+
+def decode_experts_ops(we, xk, top_idx, w_eff, act: str, first: int = 0):
+    """The ops of ``_decode_experts`` (see there), as plain ops."""
+    E = we["w_in"].shape[0]
+    # the pairs of another run: weight 0 on a clamped expert of this one
+    top_idx = top_idx - first
+    w_eff = torch.where((top_idx >= 0) & (top_idx < E), w_eff, 0.0)
+    top_idx = top_idx.clamp(0, E - 1)
+    w_in = we["w_in"][top_idx]  # (B, K, D, F)
+    if act in ("silu", "swiglu"):
+        h = F.silu(torch.einsum("bd,bkdf->bkf", xk, we["w_gate"][top_idx])) \
+            * torch.einsum("bd,bkdf->bkf", xk, w_in)
+    else:
+        h = gelu(torch.einsum("bd,bkdf->bkf", xk, w_in))
+    del w_in
+    y = torch.einsum("bkf,bkfd->bkd", h, we["w_out"][top_idx])  # (B, K, D)
+    return torch.sum(y * w_eff[..., None], dim=1)  # (B, D)
 
 
 def moe_decode(p, x, cfg: MoEConfig, act: str, counts, cap: int):
@@ -233,17 +302,9 @@ def moe_decode(p, x, cfg: MoEConfig, act: str, counts, cap: int):
     top_gates, top_idx = torch.topk(gates, K, dim=-1)  # (B, K)
     kept = torch.gather(keep, 1, top_idx)  # (B, K)
     we = p["experts"]
-    xk = xt.to(we["w_in"].dtype)
-    w_in = we["w_in"][top_idx]  # (B, K, D, F)
-    if act in ("silu", "swiglu"):
-        h = F.silu(torch.einsum("bd,bkdf->bkf", xk, we["w_gate"][top_idx])) \
-            * torch.einsum("bd,bkdf->bkf", xk, w_in)
-    else:
-        h = gelu(torch.einsum("bd,bkdf->bkf", xk, w_in))
-    del w_in
-    y = torch.einsum("bkf,bkfd->bkd", h, we["w_out"][top_idx])  # (B, K, D)
-    w_eff = torch.where(kept, top_gates, 0.0).to(y.dtype)
-    routed = torch.sum(y * w_eff[..., None], dim=1)  # (B, D)
+    w_eff = torch.where(kept, top_gates, 0.0).to(we["w_in"].dtype)
+    routed = _decode_experts(we, xt.to(we["w_in"].dtype), top_idx, w_eff,
+                             act)
     out = _add_shared_and_dense(p, routed, xt, act)
     new_counts = counts + mask.to(counts.dtype)
     return out.reshape(B, S, D), aux.float(), new_counts

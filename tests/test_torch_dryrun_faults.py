@@ -140,8 +140,11 @@ def test_deepseek_long_context_decode_traces_sequence_sharded():
         row = dryrun.trace_one(cfg, LONG, mesh, mesh_name="fake(2,2)",
                                device="cpu", verbose=False)
     assert row["status"] == "ok" and row["decode_plan"]["seq_shard"]
-    # the latent and rope caches of both layers, each written by its owner
-    assert row["local_scatter_calls"] == {"scatter_": 2 * cfg.num_layers}
+    # the latent and rope caches of both layers, each written by its owner,
+    # and the MoE layer's experts on their shards (C17)
+    assert row["local_scatter_calls"] == {
+        "scatter_": 2 * cfg.num_layers,
+        "_decode_experts": sum("moe" in k for k in cfg.layer_kinds())}
     assert row["flops_global"] > 0 and \
         row["collective_bytes_per_device"]["total"] > 0
 

@@ -29,7 +29,11 @@ sweeps on the card):
     scatters and gathers its own experts' pairs; and the expert runs'
     outputs sum to the whole dispatch's on plain tensors;
   * C18: a stack of a sharded tensor's copies (a prefill's stacked
-    caches) is split as the tensor is.
+    caches) is split as the tensor is;
+  * C17, C20: the MoE dispatches and zamba2's in-projection run on each
+    device's shard, and their runners hand back the weights' gradients
+    as partial sums over the batch's mesh dims, so the train step still
+    reduces them.
 """
 import dataclasses
 from contextlib import contextmanager
@@ -47,13 +51,15 @@ from repro_torch.configs.base import (InputShape, MoEConfig,  # noqa: E402
                                       get_config, reduced)
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import fake_mesh  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import mamba2, moe  # noqa: E402
 
 SINGLE = ((16, 16), ("data", "model"))
 CEILING = 1.10
 SAME = 1.05
+SAME_LOW = 0.95
 PREFILL = InputShape("prefill_32k", 4096, 32, "prefill")
 DECODE = InputShape("decode_32k", 32768, 128, "decode")
+TRAIN = InputShape("train_4k", 4096, 32, "train")
 
 
 class Products(TorchFunctionMode):
@@ -200,17 +206,164 @@ def test_c14_chunked_prefill_counts_what_naive_counts(monkeypatch):
     assert chunked["gathered_calls"] == {}
 
 
-def test_c12_gather_dispatch_moves_no_more_than_einsum():
+def dispatch_bytes_held(gather, einsum) -> bool:
+    """C12's bytes clause: the gather dispatch's bytes a device at most
+    1.10 × the einsum dispatch's.  The one-hot planes are split over
+    'model' since C17, so the yardstick fell (×0.44 at arctic-480b's
+    full prefill_32k row on this container); the gather form's (B, S·K,
+    D) token copies, counted op by op and unfused, then outweigh the
+    einsum form's E/16 planes by a few percent (×1.02–1.08 at the cuts
+    here and that row), and an expert input built whole over 'model'
+    by ×2.3 or more."""
+    return gather["bytes_per_device"] <= CEILING * einsum["bytes_per_device"]
+
+
+def test_c12_gather_dispatch_moves_no_more_than_einsum(monkeypatch):
     cfg = cut("arctic-480b", 1)
     shape = InputShape("prefill_32k", 1024, 32, "prefill")
     rows = {mode: trace(cfg, shape, dispatch=mode)[0]
             for mode in ("einsum", "gather")}
     ein, gat = rows["einsum"], rows["gather"]
+    assert ein["local_scatter_calls"]["_einsum_dispatch"] == 1
     assert gat["local_scatter_calls"]["_gather_dispatch"] == 1
     assert gat["flops_per_device"] < ein["flops_per_device"]
-    assert gat["bytes_per_device"] <= ein["bytes_per_device"]
+    assert dispatch_bytes_held(gat, ein)
     assert gat["collective_bytes_per_device"]["total"] <= \
         ein["collective_bytes_per_device"]["total"]
+    # the gather dispatch's ops one by one, as before C12: the expert
+    # input (B, E·(C + 1), D) whole over 'model' misses the clause
+    monkeypatch.setitem(dryrun.LOCAL_CALLS, moe._gather_dispatch,
+                        lambda *args, **kwargs: NotImplemented)
+    whole = trace(cfg, shape, dispatch="gather")[0]
+    assert "_gather_dispatch" not in whole["local_scatter_calls"]
+    assert not dispatch_bytes_held(whole, ein)
+
+
+def moe_layers(cfg) -> int:
+    return sum("moe" in kind for kind in cfg.layer_kinds())
+
+
+@pytest.mark.parametrize("arch, layers", [("arctic-480b", 1),
+                                          ("deepseek-v3-671b", 4)])
+def test_c17_einsum_dispatch_runs_each_devices_experts(arch, layers):
+    """C17: the one-hot dispatch at prefill (S 4096, B 32) on each
+    device's E/16 experts: at most 1.10 × the plain step's share, with no
+    product that drops a shard.  The planes and the expert input whole
+    over 'model' gave ×2.608 (arctic-480b, 1 layer) and ×2.196
+    (deepseek-v3-671b, 4 layers, one of them MoE)."""
+    cfg = cut(arch, layers)
+    row, _ = row_of(arch, cfg, PREFILL)
+    assert row["opts"]["dispatch"] == "einsum"
+    assert row["local_scatter_calls"]["_einsum_dispatch"] == moe_layers(cfg)
+    assert row["flops_over_plain"] <= CEILING
+    assert row["gathered_calls"] == {}
+
+
+def test_c17_decode_experts_run_on_their_shard_of_f(monkeypatch):
+    """C17 at decode: arctic-480b's expert part at decode_32k (B 128) runs
+    on the (B/16, k, D, F/16) slices of its batch rows' selected experts
+    (the weights moved from a split of E to one of F over 'model'), at
+    most 1.10 × the plain step's share.  Torch 2.11's DTensor gathered
+    the (B, k, D, F) weights whole on every device (×4.53 on the card)."""
+    cfg = cut("arctic-480b", 1)
+    shapes = []
+    ops = moe.decode_experts_ops
+
+    def recorded(we, xk, *args, **kwargs):
+        shapes.append((tuple(we["w_in"].shape), tuple(xk.shape)))
+        return ops(we, xk, *args, **kwargs)
+
+    monkeypatch.setattr(moe, "decode_experts_ops", recorded)
+    row, _ = trace(cfg, DECODE)
+    assert row["local_scatter_calls"]["_decode_experts"] == 1
+    assert row["flops_over_plain"] <= CEILING
+    assert row["gathered_calls"] == {}
+    E, F = cfg.moe.num_experts, cfg.moe.expert_d_ff
+    assert shapes[0] == ((E, cfg.d_model, F // 16),
+                         (DECODE.global_batch // 16, cfg.d_model))
+
+
+@pytest.mark.parametrize("shape", [PREFILL, TRAIN], ids=lambda s: s.name)
+def test_c20_zamba2_in_projection_splits_its_outputs(shape, monkeypatch):
+    """C20: zamba2-1.2b's in-projection (1 layer; S 4096, B 32) gives xs,
+    gate and dt 1/16 of their columns over 'model' and B and C whole,
+    each device multiplying its own columns: at most 1.10 × the plain
+    step's share.  Its output z, 8352 columns in blocks of 522, was
+    gathered for the slices (torch 2.11: ×1.368 and ×1.595 at the full
+    rows on the card), and on torch 2.13 its gradient: with the call's
+    ops run one by one the train cut misses the ceiling (×4.17: every
+    device computes the weight's whole gradient)."""
+    cfg = cut("zamba2-1.2b", 1)
+    widths = []
+    split_z = mamba2.split_z
+
+    def recorded(z, dt_bias, w):
+        widths.append(list(w))
+        return split_z(z, dt_bias, w)
+
+    monkeypatch.setattr(mamba2, "split_z", recorded)
+    row, _ = trace(cfg, shape)
+    assert row["local_scatter_calls"] == {"_split_in": 1}
+    assert row["flops_over_plain"] <= CEILING
+    assert row["gathered_calls"] == {}
+    assert widths[0] == [k // 16 for k in mamba2.in_widths(cfg)]
+    if shape.kind == "train":
+        monkeypatch.setitem(dryrun.LOCAL_CALLS, mamba2._split_in,
+                            lambda *args, **kwargs: NotImplemented)
+        whole, _ = trace(cfg, shape)
+        assert "_split_in" not in whole["local_scatter_calls"]
+        assert whole["flops_over_plain"] > CEILING
+
+
+def reduced_bytes(row) -> float:
+    """A row's collective bytes a device that sum partial results (the
+    gradients' all-reduces and reduce-scatters among them)."""
+    coll = row["collective_bytes_per_device"]
+    return coll["all-reduce"] + coll["reduce-scatter"]
+
+
+GRAD_TRAIN = InputShape("train_4k", 256, 8, "train")
+
+
+def declined_row(arch, runner):
+    """The 1-layer train cut of ``arch`` on a fake (2, 4) mesh with the
+    default switches and ``runner``'s call run op by op."""
+    key = ("declined", arch)
+    if key not in _ROWS:
+        saved = dryrun.LOCAL_CALLS[runner]
+        dryrun.LOCAL_CALLS[runner] = lambda *args, **kwargs: NotImplemented
+        try:
+            _ROWS[key] = trace(cut(arch, 1), GRAD_TRAIN, (2, 4))
+        finally:
+            dryrun.LOCAL_CALLS[runner] = saved
+    row = _ROWS[key][0]
+    assert runner.__name__ not in row["local_scatter_calls"]
+    return row
+
+
+@pytest.mark.parametrize("arch, name, switches, yardstick", [
+    ("arctic-480b", "_einsum_dispatch", {}, moe._einsum_dispatch),
+    ("arctic-480b", "_gather_dispatch", {"dispatch": "gather"},
+     moe._einsum_dispatch),
+    ("zamba2-1.2b", "_split_in", {}, mamba2._split_in)],
+    ids=["einsum", "gather", "split_in"])
+def test_runners_sum_the_weights_gradients(arch, name, switches,
+                                           yardstick):
+    """A runner hands back each weight's gradient as a partial sum over
+    the mesh dims that split its batch rows, as a product on the local
+    shards does, so the train step still reduces it there (the FSDP
+    reduce-scatter): the bytes that sum partial results (1 layer, S 256,
+    B 8, a fake (2, 4) mesh) are at least 0.95 × those of the default
+    step with the einsum dispatch, or the in-projection, run op by op
+    (the op-by-op gather dispatch is no yardstick: it builds its expert
+    input whole over 'data', so every device computes the whole
+    gradient).  A weight gradient marked replicated over 'data' lost
+    them: arctic-480b's expert weights ×0.13, zamba2-1.2b's
+    in-projection ×0.93."""
+    mine, _ = trace(cut(arch, 1), GRAD_TRAIN, (2, 4), **switches)
+    assert mine["local_scatter_calls"][name] == 1
+    theirs = declined_row(arch, yardstick)
+    assert reduced_bytes(mine) >= SAME_LOW * reduced_bytes(theirs)
 
 
 def test_c18_a_stack_is_split_as_its_layers():
@@ -228,26 +381,55 @@ def test_c18_a_stack_is_split_as_its_layers():
     assert calls.replicated == {}
 
 
-@pytest.mark.parametrize("runs", [2, 4])
-def test_gather_dispatch_expert_runs_sum_to_the_whole(runs):
-    """``moe.gather_dispatch_ops`` over runs of the experts (``first``),
-    what each device of the dry run computes, sums to the whole
-    dispatch's output, a pair's dropped share included."""
+def routed_inputs(gen, cfg, p, B: int, S: int):
+    """Tokens (B, S, 12) and their routing, as ``moe_forward`` makes it:
+    (x, gates, pos_c, keep, cap)."""
+    x = torch.randn(B, S, 12, generator=gen)
+    gates, mask, _ = moe._top_k_gating((x @ p["router"]).float(), cfg.top_k)
+    cap = moe.capacity(S, cfg)
+    pos = torch.cumsum(mask, dim=1) * mask - 1.0
+    keep = (pos < cap) & (mask > 0)
+    return x, gates, torch.clamp(pos, 0, cap - 1).long(), keep, cap
+
+
+def decode_inputs(gen, cfg, p, B: int):
+    """One token's (xk, top_idx, w_eff) as ``moe_decode`` makes them,
+    with counters that drop some pairs."""
+    xt = torch.randn(B, 12, generator=gen)
+    gates, mask, _ = moe._top_k_gating((xt @ p["router"]).float(), cfg.top_k)
+    counts = torch.randint(0, 3, (B, cfg.num_experts), generator=gen)
+    top_gates, top_idx = torch.topk(gates, cfg.top_k, dim=-1)
+    kept = torch.gather((counts < 2) & (mask > 0), 1, top_idx)
+    return xt, top_idx, torch.where(kept, top_gates, 0.0)
+
+
+@pytest.mark.parametrize("helper, runs", [
+    pytest.param("gather", 2, id="2"), pytest.param("gather", 4, id="4"),
+    pytest.param("einsum", 2, id="einsum-2"),
+    pytest.param("einsum", 4, id="einsum-4"),
+    pytest.param("decode", 2, id="decode-2"),
+    pytest.param("decode", 4, id="decode-4")])
+def test_gather_dispatch_expert_runs_sum_to_the_whole(helper, runs):
+    """``moe.gather_dispatch_ops``, ``einsum_dispatch_ops`` and
+    ``decode_experts_ops`` over runs of the experts (``first``), what
+    each device of the dry run computes, sum to the whole call's output,
+    a pair's dropped share included."""
     gen = torch.Generator().manual_seed(runs)
     cfg = MoEConfig(num_experts=8, top_k=2, expert_d_ff=16,
                     capacity_factor=0.75)
     p = moe.moe_params(gen, 12, cfg, "silu")
-    x = torch.randn(3, 20, 12, generator=gen)
-    logits = (x @ p["router"]).float()
-    gates, mask, _ = moe._top_k_gating(logits, cfg.top_k)
-    cap = moe.capacity(20, cfg)
-    pos = torch.cumsum(mask, dim=1) * mask - 1.0
-    keep = (pos < cap) & (mask > 0)
-    pos_c = torch.clamp(pos, 0, cap - 1).long()
-    args = (x, gates, pos_c, keep, cap, cfg.top_k, "silu")
-    whole = moe.gather_dispatch_ops(p["experts"], *args)
+    if helper == "decode":
+        ops, args = moe.decode_experts_ops, (*decode_inputs(gen, cfg, p, 7),
+                                             "silu")
+    else:
+        x, gates, pos_c, keep, cap = routed_inputs(gen, cfg, p, 3, 20)
+        ops, args = (moe.gather_dispatch_ops,
+                     (x, gates, pos_c, keep, cap, cfg.top_k, "silu")) \
+            if helper == "gather" else (moe.einsum_dispatch_ops,
+                                        (x, gates, pos_c, keep, cap, "silu"))
+    whole = ops(p["experts"], *args)
     n = cfg.num_experts // runs
-    parts = sum(moe.gather_dispatch_ops(
-        {k: v[i * n:(i + 1) * n] for k, v in p["experts"].items()}, *args,
-        first=i * n) for i in range(runs))
+    parts = sum(ops({k: v[i * n:(i + 1) * n]
+                     for k, v in p["experts"].items()}, *args, first=i * n)
+                for i in range(runs))
     torch.testing.assert_close(parts, whole, rtol=1e-6, atol=1e-6)

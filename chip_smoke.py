@@ -264,7 +264,8 @@ its own):
                 and zamba2-1.2b train_4k (C7; C17, C20: at most 1.10 x
                 their plain step's share), arctic-480b long_500k,
                 internlm2-1.8b decode_32k on multi(2,16,16), rwkv6-7b
-                train_4k, internlm2-20b prefill_32k (C15, under (a)'s
+                train_4k (C10; C21: at most 1.10 x its plain step's
+                share), internlm2-20b prefill_32k (C15, under (a)'s
                 ceiling), whisper-large-v3 train_4k (C19, at most 1.10 x
                 its plain step's share), arctic-480b and
                 deepseek-v3-671b prefill_32k and decode_32k,
@@ -396,7 +397,7 @@ DRYRUN_CLEARED = (
     ("zamba2-1.2b", "train_4k", False),     # C7: aten.flip, C20
     ("arctic-480b", "long_500k", False),    # C8: seq_shard
     ("internlm2-1.8b", "decode_32k", True),  # C9: pod mesh
-    ("rwkv6-7b", "train_4k", False),        # C10: token loop
+    ("rwkv6-7b", "train_4k", False),        # C10: token loop, C21
     ("internlm2-20b", "prefill_32k", False),  # C15: ceiling
     ("whisper-large-v3", "train_4k", False),  # C19: ceiling
     ("arctic-480b", "prefill_32k", False),  # C17: one-hot dispatch
@@ -408,7 +409,7 @@ DRYRUN_CLEARED = (
 # (d): the cleared train rows held under DRYRUN_CEILING x their plain
 # step's share (a serving row always is)
 DRYRUN_TRAIN_CEILING = ("whisper-large-v3", "arctic-480b", "zamba2-1.2b",
-                        "deepseek-v3-671b")
+                        "deepseek-v3-671b", "rwkv6-7b")
 # (a) and (d): a serving row's FLOPs a device over the closed form (and
 # the plain step) over the devices its work splits over (ROADMAP C15)
 DRYRUN_CEILING = 1.10

@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.overrides import handle_torch_function, has_torch_function
 
 from repro_torch.core import embedding_table as tbl
 from repro_torch.core import segment as seg
@@ -131,7 +132,19 @@ def pairwise_hinge_loss(preds, labels):
 
 
 def gather_segments(seg_inputs: Dict[str, torch.Tensor], idx: torch.Tensor):
-    """Tensors (B, J, ...) gathered at idx (B, S) -> (B, S, ...)."""
+    """Tensors (B, J, ...) gathered at idx (B, S) -> (B, S, ...).  A torch
+    function, so a torch function mode may run it its own way: the dry run
+    keeps each output in its input's layout (``launch/dryrun.py``)."""
+    operands = (*seg_inputs.values(), idx)
+    if has_torch_function(operands):
+        return handle_torch_function(gather_segments, operands, seg_inputs,
+                                     idx)
+    return gather_segments_ops(seg_inputs, idx)
+
+
+def gather_segments_ops(seg_inputs: Dict[str, torch.Tensor],
+                        idx: torch.Tensor):
+    """The ops of ``gather_segments`` (see there), as plain ops."""
     b_idx = torch.arange(idx.shape[0], device=idx.device)[:, None]
     return {k: x[b_idx, idx] for k, x in seg_inputs.items()}
 

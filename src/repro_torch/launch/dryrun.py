@@ -37,6 +37,8 @@ the trace does what GSPMD does, and the row counts it:
   stack of a sharded tensor is split as it (:func:`_stacked`); products
   of mixed dtypes run in the promoted type, as ``jnp``'s do.  A product
   that still drops an operand's shard is counted (``gathered_calls``),
+  and so is a column-parallel product whose input came split along the
+  contracted index and was gathered (``input_gathered_calls``),
   and each row carries the plain step's FLOPs over the devices its work
   splits over (``plain_flops_per_device``, ``work_split``) and its ratio
   to them (``flops_over_plain``);
@@ -52,9 +54,10 @@ the trace does what GSPMD does, and the row counts it:
 * rwkv6's token loop runs on each device's batch and heads, with no
   collective inside, grouped GQA on each device's query heads, both MoE
   dispatches and the decode's experts on each device's experts or
-  their shard of F, and zamba2's in-projection with each output split
-  (:data:`LOCAL_CALLS`); a long loop is counted from its runs at 2 and
-  3 steps (:func:`counted_loop`).
+  their shard of F, zamba2's in-projection with each output split, and
+  the GST step's segment gather on each device's batch rows, its outputs
+  in its inputs' layout (:data:`LOCAL_CALLS`); a long loop is counted
+  from its runs at 2 and 3 steps (:func:`counted_loop`).
 The reference's exact rewrites act as its flags set them, for the row
 being traced (:func:`trace_one` sets the module attributes and restores
 them after): ``--dispatch`` (``models/moe.py::DISPATCH_MODE``),
@@ -90,6 +93,7 @@ from torch.utils._pytree import tree_leaves, tree_map_only
 from repro_torch import resolve_device
 from repro_torch.configs.base import ARCH_IDS, INPUT_SHAPES, ArchConfig, \
     InputShape, get_config
+from repro_torch.core import gst as gst_mod
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import fsdp_axes, make_production_mesh
 from repro_torch.launch.sharding import head_aligned_overrides
@@ -147,6 +151,9 @@ _NO_STRATEGY = (
     # 2.11: index_add's strategy splits the source along the indexed dim
     # and keeps the index whole (the gather dispatch run op by op)
     "should be equal to tensor.size(dim)",
+    # 2.13: an in-place op into a partial sum from a sharded source (the
+    # backward of qwen2-vl-7b's patch write into its embeddings)
+    "to P(sum) not supported",
 )
 _ERRORS = (RuntimeError, NotImplementedError, ValueError)
 
@@ -173,7 +180,9 @@ class DTensorCalls(TorchFunctionMode):
     fit the shard's strides), the call's DTensor operands are gathered
     over the mesh's last axis, then over the last two, and so on, until
     the call goes through, as XLA's partitioner inserts a gather where it
-    cannot partition an op.  An in-place call is never retried that way.
+    cannot partition an op.  An in-place call keeps its target and has
+    only its other operands gathered (torch 2.13 cannot split a source
+    into the partial sums of a gradient it is copied into).
     An autograd call (``torch.autograd.grad``) is not retried either (a
     gathered copy of a parameter is not in the graph): the ops it runs,
     which reach no torch function mode, get the same treatment one aten
@@ -184,8 +193,8 @@ class DTensorCalls(TorchFunctionMode):
     or sequence-sharded; the MoE's one-hot masks; the card's torch 2.11
     has no scatter strategy).  A call listed in :data:`LOCAL_CALLS`
     (rwkv6's token loop, grouped GQA, the MoE dispatches and decode
-    experts, zamba2's in-projection) runs on the local shards as its
-    entry says, or, where its runner declines, its
+    experts, zamba2's in-projection, the segment gather) runs on the
+    local shards as its entry says, or, where its runner declines, its
     ops one by one (:data:`OP_BY_OP`).  A product (:data:`_PRODUCTS`)
     runs in its operands' promoted dtype, on the local shards where they
     are laid out for it, and its partial sums, and a lookup's, are
@@ -199,6 +208,7 @@ class DTensorCalls(TorchFunctionMode):
         self.replicated: Dict[str, int] = {}
         self.local: Dict[str, int] = {}
         self.gathered: Dict[str, int] = {}
+        self.input_gathered: Dict[str, int] = {}
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -229,7 +239,8 @@ class DTensorCalls(TorchFunctionMode):
                 out = _local_einsum(func, args, kwargs)
             elif name in ("matmul", "__matmul__", "mm", "bmm") and \
                     not kwargs:
-                out = _local_matmul(func, *args)
+                out = _local_matmul(func, *args, gathered=lambda axis: (
+                    self.count(self.input_gathered, f"{name} over {axis}")))
             if out is NotImplemented:
                 out = self.partitioned(func, name, args, kwargs,
                                        name.endswith("_"))
@@ -252,14 +263,19 @@ class DTensorCalls(TorchFunctionMode):
             if shard and (isinstance(p, Replicate)
                           or (p.is_partial() and partial)):
                 key = f"{name} over {out.device_mesh.mesh_dim_names[d]}"
-                self.gathered[key] = self.gathered.get(key, 0) + 1
+                self.count(self.gathered, key)
 
     def count_local(self, name: str) -> None:
-        self.local[name] = self.local.get(name, 0) + 1
+        self.count(self.local, name)
+
+    @staticmethod
+    def count(tally: Dict[str, int], key: str) -> None:
+        tally[key] = tally.get(key, 0) + 1
 
     def partitioned(self, func, name: str, args, kwargs, inplace: bool):
         """``func(*args, **kwargs)``, its DTensor operands gathered over
-        the mesh's last axes where DTensor has no strategy for it."""
+        the mesh's last axes where DTensor has no strategy for it (an
+        in-place op's target as it is)."""
         try:
             return func(*args, **kwargs)
         except _ERRORS as e:
@@ -268,21 +284,25 @@ class DTensorCalls(TorchFunctionMode):
             if name == "scatter_" and _local_scatter(*args, **kwargs):
                 self.count_local(name)
                 return args[0]
-            if inplace:
-                raise
             err = e
         mesh = _mesh_of((args, kwargs))
         names = mesh.mesh_dim_names
+        # an in-place op writes into its own target: only the other
+        # operands are gathered
+        keep = args[:1] if inplace else ()
         for k in range(len(names) - 1, -1, -1):
             a, kw = tree_map_only(DTensor, lambda t: _gathered_from(t, k),
-                                  (args, kwargs))
+                                  (args[len(keep):], kwargs))
             try:
-                out = self._replicated(name, names[k:], func(*a, **kw))
+                out = self._replicated(name, names[k:],
+                                       func(*keep, *a, **kw))
             except _ERRORS as e:
                 if not _no_strategy(e):
                     raise
             else:
                 return _split_again(args[0], out) if name in _VIEWS else out
+        if inplace:
+            raise err
         # no strategy even replicated: the whole tensors on every device,
         # laid out densely (DTensor's gather can leave a layout a view
         # cannot take), the op run on them
@@ -298,7 +318,7 @@ class DTensorCalls(TorchFunctionMode):
 
     def _replicated(self, name: str, axes, out):
         key = f"{name} over {','.join(axes)}"
-        self.replicated[key] = self.replicated.get(key, 0) + 1
+        self.count(self.replicated, key)
         return out
 
 
@@ -537,7 +557,7 @@ def _local_einsum(func, args, kwargs):
     return _global(local, mesh, out, [size[c] for c in res])
 
 
-def _local_matmul(func, a, b):
+def _local_matmul(func, a, b, gathered=None):
     """``a @ b`` on the local shards where each mesh dim splits one of
     its indices alike on both (or on one, the other replicated there): a
     batch index (a size-1 or missing one of the other side broadcasts; a
@@ -545,10 +565,10 @@ def _local_matmul(func, a, b):
     the columns of ``b``, or the contracted index on both (a partial
     sum); where ``a`` splits the contracted index and ``b`` its columns,
     ``a`` is gathered there first (a column-parallel projection's
-    input).  GSPMD partitions a dot so; DTensor gathers the sharded side of
-    a batched product whose other side broadcasts (zamba2's SSD state
-    against its C).  NotImplemented where the operands are laid out any
-    other way."""
+    input; ``gathered(axis)`` is told of each such gather).  GSPMD
+    partitions a dot so; DTensor gathers the sharded side of a batched
+    product whose other side broadcasts (zamba2's SSD state against its
+    C).  NotImplemented where the operands are laid out any other way."""
     if not (isinstance(a, DTensor) and isinstance(b, DTensor)) or \
             a.ndim < 2 or b.ndim < 2:
         return NotImplemented
@@ -574,7 +594,7 @@ def _local_matmul(func, a, b):
         return j if j >= 0 else None
 
     out, grads = [], [list(a.placements), list(b.placements)]
-    ops = [a, b]
+    ops, gathers = [a, b], []
     for d in range(mesh.ndim):
         ra, rb = role(a, a.placements[d]), role(b, b.placements[d])
         if "other" in (ra, rb):
@@ -596,6 +616,7 @@ def _local_matmul(func, a, b):
             ops[0] = ops[0].redistribute(mesh, place)
             grads[0][d] = Replicate()
             out.append(Shard(nb + 1))
+            gathers.append(mesh.mesh_dim_names[d])
         elif ra == "m" and rb is None:
             out.append(Shard(nb))
             grads[1][d] = Partial()
@@ -625,6 +646,8 @@ def _local_matmul(func, a, b):
                 return NotImplemented
     local = func(*[t.to_local(grad_placements=g)
                    for t, g in zip(ops, grads)])
+    for axis in gathers if gathered else ():
+        gathered(axis)
     return DTensor.from_local(local, mesh, out, run_check=False)
 
 
@@ -1092,6 +1115,35 @@ def _local_split_in(func, p, x, cfg):
     return tuple(res)
 
 
+def _local_gather_segments(func, seg_inputs, idx):
+    """``core/gst.py::gather_segments`` on each device's own batch rows:
+    each input (B, J, ...) gathered on its local shard at the local rows
+    of idx (B, S), its output laid out as the input is on every mesh dim
+    (the batch split where the input's is, replicated where it is
+    replicated), as GSPMD partitions the reference's ``take_along_axis``.
+    DTensor (torch 2.13) splits the output's token axis over 'model' (the
+    frames' over 'data', and their features over 'model'), and the norms
+    and projections after it carry that split: a row-parallel weight's
+    gradient is then formed whole on every device (rwkv6-7b's ``w_rec``,
+    MLA's ``wkv_a``).  NotImplemented (the ops one by one) where a mesh
+    dim splits J, a placement is partial, or the index is not split as
+    an input's batch."""
+    mesh = _mesh_of((seg_inputs, idx))
+    idx = _replicated_dt(idx, mesh)
+    out = {}
+    for k, x in seg_inputs.items():
+        x = _replicated_dt(x, mesh)
+        rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0
+                else Replicate() for p in x.placements]
+        if any(isinstance(p, Shard) and p.dim == 1 or p.is_partial()
+               for p in x.placements) or list(idx.placements) != rows:
+            return NotImplemented
+        local = func({k: x.to_local()}, idx.to_local())[k]
+        out[k] = _global(local, mesh, x.placements,
+                         tuple(idx.shape) + tuple(x.shape[2:]))
+    return out
+
+
 # calls the dry run runs on the local shards: function -> its runner,
 # which may return NotImplemented for the call's ops one by one, run as
 # OP_BY_OP has them
@@ -1100,12 +1152,14 @@ LOCAL_CALLS = {wkv_scan: _local_wkv_scan,
                moe_mod._einsum_dispatch: _local_dispatch,
                moe_mod._gather_dispatch: _local_dispatch,
                moe_mod._decode_experts: _local_decode_experts,
-               mamba_mod._split_in: _local_split_in}
+               mamba_mod._split_in: _local_split_in,
+               gst_mod.gather_segments: _local_gather_segments}
 OP_BY_OP = {common_mod._grouped_attn: common_mod.grouped_einsums,
             moe_mod._einsum_dispatch: moe_mod.einsum_dispatch_ops,
             moe_mod._gather_dispatch: moe_mod.gather_dispatch_ops,
             moe_mod._decode_experts: moe_mod.decode_experts_ops,
-            mamba_mod._split_in: mamba_mod.split_in_ops}
+            mamba_mod._split_in: mamba_mod.split_in_ops,
+            gst_mod.gather_segments: gst_mod.gather_segments_ops}
 
 
 @contextmanager
@@ -1206,7 +1260,8 @@ def trace_spec(cfg: ArchConfig, shape: InputShape, spec: StepSpec, mesh, *,
     rep.update(params_total=n_total, params_active=n_active,
                tokens_per_step=tokens, replicated_calls=calls.replicated,
                local_scatter_calls=calls.local,
-               gathered_calls=calls.gathered)
+               gathered_calls=calls.gathered,
+               input_gathered_calls=calls.input_gathered)
     split = work_split(mesh, shape.global_batch)
     plain = plain_flops(spec, device) / split
     rep.update(work_split=split, plain_flops_per_device=plain,

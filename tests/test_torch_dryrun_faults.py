@@ -63,6 +63,7 @@ from repro_torch.launch import sharding as SH  # noqa: E402
 from repro_torch.launch import specs as SP  # noqa: E402
 from repro_torch.launch.mesh import (POD_DATA, dtensor_mesh,  # noqa: E402
                                      fake_mesh, make_debug_mesh)
+from repro_torch.models.rwkv6 import wkv_scan  # noqa: E402
 from repro_torch.roofline.analysis import analyze_trace  # noqa: E402
 from test_torch_dryrun import SMALL, check_row  # noqa: E402
 from test_torch_sharding_launch import _ref_local  # noqa: E402
@@ -228,11 +229,14 @@ def test_local_loop_counts_what_the_plain_trace_counts(shape_name,
     counted = _row(cfg, shape)
     monkeypatch.setattr(dryrun, "LOOP_STEPS", 16)
     whole = _row(cfg, shape)
-    monkeypatch.setattr(dryrun, "LOCAL_CALLS", {})
+    # the loop alone run op by op; a train step's segment gather keeps its
+    # runner (C21)
+    monkeypatch.delitem(dryrun.LOCAL_CALLS, wkv_scan)
     plain = _row(cfg, shape)
+    gather = {"gather_segments": 1} if shape.kind == "train" else {}
     assert counted["local_scatter_calls"] == whole["local_scatter_calls"] \
-        == {"wkv_scan": cfg.num_layers}
-    assert plain["local_scatter_calls"] == {}
+        == {"wkv_scan": cfg.num_layers, **gather}
+    assert plain["local_scatter_calls"] == gather
     for key in COUNTS:
         assert counted[key] == plain[key], key
         assert whole[key] == plain[key], key

@@ -33,7 +33,10 @@ sweeps on the card):
   * C17, C20: the MoE dispatches and zamba2's in-projection run on each
     device's shard, and their runners hand back the weights' gradients
     as partial sums over the batch's mesh dims, so the train step still
-    reduces them.
+    reduces them;
+  * C21: the GST step's segment gather keeps its inputs' layout, so no
+    train row splits its tokens along the sequence over 'model' and
+    forms a row-parallel weight's gradient whole.
 """
 import dataclasses
 from contextlib import contextmanager
@@ -43,12 +46,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
-from torch.distributed.tensor import (DTensor, Shard,  # noqa: E402
-                                      distribute_tensor)
+from torch.distributed.tensor import (DTensor, Replicate,  # noqa: E402
+                                      Shard, distribute_tensor)
 from torch.overrides import TorchFunctionMode  # noqa: E402
 
 from repro_torch.configs.base import (InputShape, MoEConfig,  # noqa: E402
                                       get_config, reduced)
+from repro_torch.core import gst  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import fake_mesh  # noqa: E402
 from repro_torch.models import mamba2, moe  # noqa: E402
@@ -57,6 +61,7 @@ SINGLE = ((16, 16), ("data", "model"))
 CEILING = 1.10
 SAME = 1.05
 SAME_LOW = 0.95
+AT_SHARE = 1.01
 PREFILL = InputShape("prefill_32k", 4096, 32, "prefill")
 DECODE = InputShape("decode_32k", 32768, 128, "decode")
 TRAIN = InputShape("train_4k", 4096, 32, "train")
@@ -291,8 +296,10 @@ def test_c20_zamba2_in_projection_splits_its_outputs(shape, monkeypatch):
     step's share.  Its output z, 8352 columns in blocks of 522, was
     gathered for the slices (torch 2.11: ×1.368 and ×1.595 at the full
     rows on the card), and on torch 2.13 its gradient: with the call's
-    ops run one by one the train cut misses the ceiling (×4.17: every
-    device computes the weight's whole gradient)."""
+    ops run one by one, and the segment gather's too (as before C21,
+    whose sequence split over 'model' the gradient met), the train cut
+    misses the ceiling (×4.17: every device computes the weight's whole
+    gradient; the gather in its layout alone reads ×1.0091)."""
     cfg = cut("zamba2-1.2b", 1)
     widths = []
     split_z = mamba2.split_z
@@ -303,15 +310,17 @@ def test_c20_zamba2_in_projection_splits_its_outputs(shape, monkeypatch):
 
     monkeypatch.setattr(mamba2, "split_z", recorded)
     row, _ = trace(cfg, shape)
-    assert row["local_scatter_calls"] == {"_split_in": 1}
+    gather = {"gather_segments": 1} if shape.kind == "train" else {}
+    assert row["local_scatter_calls"] == {"_split_in": 1, **gather}
     assert row["flops_over_plain"] <= CEILING
     assert row["gathered_calls"] == {}
     assert widths[0] == [k // 16 for k in mamba2.in_widths(cfg)]
     if shape.kind == "train":
-        monkeypatch.setitem(dryrun.LOCAL_CALLS, mamba2._split_in,
-                            lambda *args, **kwargs: NotImplemented)
+        for func in (mamba2._split_in, gst.gather_segments):
+            monkeypatch.setitem(dryrun.LOCAL_CALLS, func,
+                                lambda *args, **kwargs: NotImplemented)
         whole, _ = trace(cfg, shape)
-        assert "_split_in" not in whole["local_scatter_calls"]
+        assert whole["local_scatter_calls"] == {}
         assert whole["flops_over_plain"] > CEILING
 
 
@@ -433,3 +442,137 @@ def test_gather_dispatch_expert_runs_sum_to_the_whole(helper, runs):
                      for k, v in p["experts"].items()}, *args, first=i * n)
                 for i in range(runs))
     torch.testing.assert_close(parts, whole, rtol=1e-6, atol=1e-6)
+
+
+def shard_of(t, mesh, place):
+    """``t`` as a DTensor laid out as ``place`` on ``mesh``, this rank's
+    shard cut from it (``distribute_tensor`` over a fake group scatters
+    nothing on torch 2.11, so its shard holds no values)."""
+    local = t
+    for d, (p, at) in enumerate(zip(place, mesh.get_coordinate())):
+        if isinstance(p, Shard):
+            local = local.chunk(mesh.size(d), p.dim)[at]
+    return DTensor.from_local(local.contiguous(), mesh, place,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def gather_unit_case():
+    """The runner on a fake (2, 4) mesh, on real tensors: tokens (B, J, L)
+    split as the batch, whisper-style frames (B, J, L, d) with their
+    features split over 'model' too.  Its outputs keep those placements
+    and, shard for shard, the plain gather's values bit for bit; it
+    declines where a mesh dim splits J or the index is not split as the
+    batch.  -> the (input, output) placements of each leaf."""
+    gen = torch.Generator().manual_seed(21)
+    B, J, L, d, S = 4, 5, 6, 8, 2
+    tokens = torch.randint(0, 1000, (B, J, L), generator=gen,
+                           dtype=torch.int32)
+    frames = torch.randn(B, J, L, d, generator=gen)
+    idx = torch.randint(0, J, (B, S), generator=gen)
+    # the plain gather, bitwise a row-by-row lookup
+    plain = gst.gather_segments({"tokens": tokens, "frames": frames}, idx)
+    for k, x in (("tokens", tokens), ("frames", frames)):
+        assert torch.equal(plain[k], torch.stack([x[b, idx[b]]
+                                                  for b in range(B)]))
+    rows, feat = [Shard(0), Replicate()], [Shard(0), Shard(3)]
+    with fake_mesh((2, 4), SINGLE[1], "cpu") as mesh:
+        with dryrun.DTensorCalls() as calls:
+            xs = {"tokens": shard_of(tokens, mesh, rows),
+                  "frames": shard_of(frames, mesh, feat)}
+            di = shard_of(idx, mesh, rows)
+            out = gst.gather_segments(xs, di)
+            runner = dryrun._local_gather_segments
+            func = gst.gather_segments
+            whole = [Replicate(), Replicate()]
+            for x, i in ((shard_of(tokens, mesh, [Shard(1), Replicate()]),
+                          di),
+                         (xs["tokens"], shard_of(idx, mesh, whole))):
+                assert runner(func, {"tokens": x}, i) is NotImplemented
+        data, model = mesh.get_coordinate()
+    assert calls.local == {"gather_segments": 1}
+    assert calls.replicated == {}
+    want = {"tokens": plain["tokens"].chunk(2)[data],
+            "frames": plain["frames"].chunk(2)[data].chunk(4, 3)[model]}
+    for k in want:
+        assert out[k].shape == plain[k].shape
+        assert torch.equal(out[k].to_local(), want[k])
+    return [(xs[k].placements, out[k].placements) for k in xs]
+
+
+def gather_row_case(arch, layers, ceiling, monkeypatch, record):
+    """The train row of ``arch`` cut to ``layers`` (S 4096, B 32) on
+    single(16,16), its segment gather run by the runner (``ceiling``) or
+    op by op (None; ``record``: the gather's layouts and the row's ratio
+    recorded).  -> the (input, output) placements of each leaf the
+    runner gathered."""
+    layouts = []
+
+    def recorded(run):
+        def gather(*args):
+            out = run(*args)
+            if out is not NotImplemented:
+                inputs = args[-2]
+                layouts.extend((inputs[k].placements, out[k].placements)
+                               for k in out)
+            return out
+        return gather
+
+    func = gst.gather_segments
+    if ceiling is None:
+        monkeypatch.setitem(dryrun.LOCAL_CALLS, func,
+                            lambda *args, **kwargs: NotImplemented)
+        monkeypatch.setitem(dryrun.OP_BY_OP, func,
+                            recorded(dryrun.OP_BY_OP[func]))
+    else:
+        monkeypatch.setitem(dryrun.LOCAL_CALLS, func,
+                            recorded(dryrun.LOCAL_CALLS[func]))
+    row, _ = trace(cut(arch, layers), TRAIN)
+    assert row["gathered_calls"] == {}
+    if ceiling is not None:
+        assert row["local_scatter_calls"]["gather_segments"] == 1
+        assert row["flops_over_plain"] <= ceiling
+        return layouts
+    assert "gather_segments" not in row["local_scatter_calls"]
+    # where the ops one by one split the tokens along the sequence over
+    # 'model' (torch 2.13), a layer's w_rec gradient is formed whole
+    (inp, out), = layouts
+    record("op_by_op_gather", f"{inp} -> {out}")
+    record("flops_over_plain", row["flops_over_plain"])
+    if out[-1] == Shard(2) and inp[-1] == Replicate():
+        assert row["flops_over_plain"] > CEILING
+    return []
+
+
+@pytest.mark.parametrize("arch, layers, ceiling", [
+    pytest.param(None, None, None, id="unit-2x4"),
+    pytest.param("rwkv6-7b", 1, AT_SHARE, id="rwkv6-7b-1"),
+    pytest.param("deepseek-v3-671b", 4, AT_SHARE, id="deepseek-v3-671b-4"),
+    pytest.param("qwen2-vl-7b", 1, AT_SHARE, id="qwen2-vl-7b-1"),
+    pytest.param("whisper-large-v3", 1, CEILING, id="whisper-large-v3-1"),
+    pytest.param("rwkv6-7b", 1, None, id="rwkv6-7b-1-declined")])
+def test_c21_segment_gather_keeps_its_inputs_layout(arch, layers, ceiling,
+                                                    monkeypatch,
+                                                    record_property):
+    """C21: ``core/gst.py::gather_segments`` under the dry run gives each
+    output its input's placements on every mesh dim, as GSPMD partitions
+    the reference's ``take_along_axis``, and the train rows sit at the
+    plain step's share: rwkv6-7b (1 layer), deepseek-v3-671b (4) and
+    qwen2-vl-7b (1) at most 1.01 ×, whisper-large-v3 (its decoder cut to
+    1 layer, the encoder whole) at most 1.10 ×.  Run op by op on torch
+    2.13 the gather split the tokens along the sequence over 'model', and
+    each row-parallel projection's weight gradient was formed whole:
+    ×1.3832 (rwkv6-7b), ×1.0393 (deepseek-v3-671b), and whisper's frames
+    split along the sequence and the features ×1.9375.  The declined case
+    shows rwkv6-7b's miss where the ops so split, and skips that clause
+    where they do not; it records their layout and the row's ratio
+    (``record_property``).  C23: qwen2-vl-7b's patches, written into
+    embeddings no longer split along the sequence, lead its backward to
+    copy a sharded source into a partial sum, which torch 2.13 cannot
+    place (the row failed); the copy keeps its target and gathers its
+    source."""
+    layouts = gather_unit_case() if arch is None else gather_row_case(
+        arch, layers, ceiling, monkeypatch, record_property)
+    for inp, out in layouts:
+        assert tuple(out) == tuple(inp)
+    assert layouts or ceiling is None

@@ -284,7 +284,13 @@ its own):
                 1.10 x, collective bytes no higher), each ok, its opts
                 as set,
                 both rows' terms printed, a row that misses its criteria
-                failing the phase
+                failing the phase; (e) internlm2-20b decode_32k (8 KV
+                heads over the 16-way 'model' axis: calls retried), at
+                2 of 48 layers, traced in two processes (the second with
+                Python's collector at threshold 1): the same temp and
+                peak bytes (C24); every row of (a), (b), (d) and (e)
+                with collector_bytes 0 (no storage freed only by the
+                collector)
  12. kernels    one JSON line: per kernel, launches on the main path
                 (serving, training, distributed training, dist_prefetch,
                 the store's (a), (c) and (d), telemetry, memory, paper,
@@ -410,6 +416,10 @@ DRYRUN_CLEARED = (
 # step's share (a serving row always is)
 DRYRUN_TRAIN_CEILING = ("whisper-large-v3", "arctic-480b", "zamba2-1.2b",
                         "deepseek-v3-671b", "rwkv6-7b")
+# (e): a serving row whose calls DTensor refuses at the 16-way 'model' axis
+# (8 KV heads), at DRYRUN_CUTS' layers, traced in two processes, the
+# second with Python's collector at threshold 1 (ROADMAP C24)
+DRYRUN_REPEAT = ("internlm2-20b", "decode_32k")
 # (a) and (d): a serving row's FLOPs a device over the closed form (and
 # the plain step) over the devices its work splits over (ROADMAP C15)
 DRYRUN_CEILING = 1.10
@@ -4298,6 +4308,7 @@ def dryrun_debug_step(torch, dev):
     if flops != fake["flops_per_device"]:
         raise AssertionError(f"[dryrun] (b) FlopCounterMode {flops} vs the "
                              f"fake trace's {fake['flops_per_device']}")
+    no_collector_bytes(fake, f"(b) reduced {SEQ_ARCH} train step")
     ma = fake["memory_analysis"]
     log(f"[dryrun] (b) reduced {SEQ_ARCH} train step, seq {seq} batch "
         f"{batch}, f32, real on the 1x1 debug mesh: loss {loss:.6f} within "
@@ -4329,7 +4340,9 @@ def phase_dryrun(torch, dev):
     paper suite's roofline entry over (a)'s rows; (d) the rows of
     DRYRUN_CLEARED (full size, or at their layer cut), each ok, a train
     row's FLOPs at least 6·N_proj·tokens, their trace seconds and
-    gathered and local calls printed."""
+    gathered and local calls printed; (e) DRYRUN_REPEAT traced in two
+    processes with the same temp and peak bytes.  Every row of (a), (b),
+    (d) and (e) has collector_bytes 0 (no_collector_bytes)."""
     from repro_torch.launch import dryrun
     from repro_torch.paper import paper_tables
 
@@ -4340,6 +4353,8 @@ def phase_dryrun(torch, dev):
     bad = [r for r in rows if r["status"] != "ok"]
     if bad:
         raise AssertionError(f"[dryrun] rows not ok: {bad}")
+    for r in rows:
+        no_collector_bytes(r, f"(a) {SEQ_ARCH} {r['shape']}")
     ceilings = [dryrun_ceiling(r) for r in rows if r["shape"] != "train_4k"]
     DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     path = DRYRUN_DIR / "dryrun_single.json"
@@ -4380,7 +4395,67 @@ def phase_dryrun(torch, dev):
     out["switched"] = [
         dryrun_switched_row(arch, shape, switches, criteria, dev, defaults)
         for arch, shape, switches, criteria in DRYRUN_SWITCHED]
+
+    # (e)
+    out["repeat"] = dryrun_repeat(*DRYRUN_REPEAT)
     return out
+
+
+def no_collector_bytes(row, where):
+    """Fail where a row's trace left storages that only Python's
+    collector freed (``memory_analysis.collector_bytes``, ROADMAP C24):
+    its temp bytes would then depend on when the collector ran."""
+    got = row["memory_analysis"]["collector_bytes"]
+    if got:
+        raise AssertionError(f"[dryrun] {where}: {got} B of the trace's "
+                             "storages freed only by Python's collector")
+
+
+REPEAT_CODE = (
+    "import gc, json, sys; root = sys.argv[1]; "
+    "sys.path[:0] = [root + '/src', root]; "
+    "sys.argv[4] == 'default' or gc.set_threshold(int(sys.argv[4])); "
+    "import torch, chip_smoke as c; "
+    "row = c.dryrun_row(sys.argv[2], sys.argv[3], False, "
+    "torch.device('cuda', 0))[0]; "
+    "print('REPEAT ' + json.dumps({k: row[k] for k in ('status', "
+    "'memory_analysis', 'flops_per_device', 'bytes_per_device', "
+    "'replicated_calls', 'trace_s')}))")
+
+
+def dryrun_repeat(arch, shape):
+    """(e) of phase_dryrun: ``arch`` at ``shape`` on single(16,16), at
+    DRYRUN_CUTS' layers, traced in two processes, the second with Python's
+    collector at threshold 1: both ok with calls retried, the same FLOPs,
+    bytes, temp and peak bytes, and no collector bytes."""
+    runs = {}
+    for threshold in ("default", "1"):
+        out = subprocess.run(
+            [sys.executable, "-c", REPEAT_CODE, str(ROOT), arch, shape,
+             threshold], cwd=ROOT, capture_output=True, text=True,
+            timeout=600, check=True).stdout
+        row = json.loads(next(line[7:] for line in out.splitlines()
+                              if line.startswith("REPEAT ")))
+        if row["status"] != "ok" or not row["replicated_calls"]:
+            raise AssertionError(f"[dryrun] (e) {arch} {shape} at threshold "
+                                 f"{threshold}: {row}")
+        no_collector_bytes(row, f"(e) {arch} {shape} at threshold "
+                                f"{threshold}")
+        runs[threshold] = row
+    a, b = runs.values()
+    log(f"[dryrun] (e) {arch} {shape} on single(16,16), "
+        f"{DRYRUN_CUTS.get(arch)} layers, in two processes (collector at "
+        "its default, then at threshold 1): temp "
+        + " and ".join(f"{r['memory_analysis']['temp_bytes']} B (peak "
+                       f"{r['memory_analysis']['peak_bytes']} B, "
+                       f"collector {r['memory_analysis']['collector_bytes']}"
+                       f" B, trace {r['trace_s']} s)" for r in (a, b))
+        + f"; replicated_calls {a['replicated_calls']}")
+    for k in ("flops_per_device", "bytes_per_device", "memory_analysis"):
+        if a[k] != b[k]:
+            raise AssertionError(f"[dryrun] (e) {arch} {shape}: {k} differs "
+                                 f"between two processes: {a[k]} vs {b[k]}")
+    return runs
 
 
 def dryrun_ceiling(row, cfg=None):
@@ -4479,6 +4554,7 @@ def dryrun_cleared_row(arch, shape, multi, dev):
     if row["status"] != "ok":
         raise AssertionError(f"[dryrun] (d) {arch} {shape} on {mesh}: "
                              f"{row['status']}")
+    no_collector_bytes(row, f"(d) {arch} {shape} on {mesh}")
     floor = None
     if shape != "train_4k":
         dryrun_ceiling(row, cfg)
@@ -4534,6 +4610,7 @@ def dryrun_switched_row(arch, shape, switches, criteria, dev, defaults):
         if row["status"] != "ok":
             raise AssertionError(f"[dryrun] (d) {arch} {shape} {label} "
                                  f"{kw}: {row['status']}")
+        no_collector_bytes(row, f"(d) {arch} {shape} {label} {kw}")
         rows[label] = {k: row[k] for k in keys}
     opts = rows["switched"]["opts"]
     with dryrun.switched(**switches) as want:

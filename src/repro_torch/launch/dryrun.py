@@ -103,8 +103,8 @@ from repro_torch.launch.specs import (StepSpec, build_step_spec,
 from repro_torch.models import common as common_mod, mamba2 as mamba_mod, \
     mla as mla_mod, moe as moe_mod
 from repro_torch.models.rwkv6 import wkv_scan
-from repro_torch.roofline.analysis import HW, active_counter, \
-    analyze_trace, param_counts
+from repro_torch.roofline.analysis import HW, TraceCounter, \
+    active_counter, analyze_trace, param_counts
 
 # the dry run's options for the reference's exact rewrites (switched)
 SWITCHES = ("dispatch", "cache_update", "attn_impl", "gqa", "mla_naive")
@@ -162,6 +162,25 @@ def _no_strategy(e: Exception) -> bool:
     """DTensor cannot partition the op at its operands' placements."""
     msg = str(e)
     return any(m in msg for m in _NO_STRATEGY)
+
+
+def _let_go(e: BaseException) -> BaseException:
+    """``e``, a refused call's exception, with the frames of its traceback
+    and of its cause and context chain cleared (``traceback.clear_frames``;
+    an executing frame is kept).  DTensor re-raises inside its own
+    ``except ... as e``, so its frame holds the exception it caught, whose
+    traceback holds the frame: a cycle that would keep every frame the
+    traceback reaches (``f_back`` up to the model's layers), and their
+    tensors, until Python's collector ran."""
+    seen, todo = set(), [e]
+    while todo:
+        x = todo.pop()
+        if x is None or id(x) in seen:
+            continue
+        seen.add(id(x))
+        traceback.clear_frames(x.__traceback__)
+        todo += [x.__cause__, x.__context__]
+    return e
 
 
 class DTensorCalls(TorchFunctionMode):
@@ -275,16 +294,27 @@ class DTensorCalls(TorchFunctionMode):
     def partitioned(self, func, name: str, args, kwargs, inplace: bool):
         """``func(*args, **kwargs)``, its DTensor operands gathered over
         the mesh's last axes where DTensor has no strategy for it (an
-        in-place op's target as it is)."""
+        in-place op's target as it is).  Each exception it declines lets
+        go of its frames (:func:`_let_go`), and the one it may re-raise
+        is dropped on every return: else the frames of a refused call, and
+        their tensors, live until Python's collector finds the cycle."""
         try:
             return func(*args, **kwargs)
         except _ERRORS as e:
             if not _no_strategy(e):
                 raise
-            if name == "scatter_" and _local_scatter(*args, **kwargs):
-                self.count_local(name)
-                return args[0]
-            err = e
+            err = _let_go(e)
+        try:
+            return self._gathered(func, name, args, kwargs, inplace, err)
+        finally:
+            del err
+
+    def _gathered(self, func, name: str, args, kwargs, inplace: bool, err):
+        """:meth:`partitioned`'s retries of a call DTensor refused with
+        ``err``."""
+        if name == "scatter_" and _local_scatter(*args, **kwargs):
+            self.count_local(name)
+            return args[0]
         mesh = _mesh_of((args, kwargs))
         names = mesh.mesh_dim_names
         # an in-place op writes into its own target: only the other
@@ -299,6 +329,7 @@ class DTensorCalls(TorchFunctionMode):
             except _ERRORS as e:
                 if not _no_strategy(e):
                     raise
+                _let_go(e)
             else:
                 return _split_again(args[0], out) if name in _VIEWS else out
         if inplace:
@@ -841,7 +872,8 @@ class _CountedLoop(torch.autograd.Function):
     the loop's shapes, the counts those of the loop (see there).  The
     backward runs the short loops' backwards under their forwards'
     counters, so the storages their forwards saved are freed as the
-    backward goes, as the loop's are."""
+    backward goes, as the loop's are, and lets go of the short runs, so
+    the loop's input is freed with its backward too."""
 
     @staticmethod
     def forward(ctx, func, counter, x, state):
@@ -873,7 +905,11 @@ class _CountedLoop(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, gs):
         counter, tallies, gxs = ctx.counter, [], []
-        for (sub, xn, (yn, sn)), since in ctx.runs:
+        # the short runs go with this backward, as the loop's saved tensors
+        # do: their inputs are views of x, whose storage the graph would
+        # otherwise keep until it is dropped
+        runs, ctx.runs = ctx.runs, None
+        for (sub, xn, (yn, sn)), since in runs:
             n = xn.shape[1]
             outs, grads = [yn], [gy[:, :n].detach()]
             if gs is not None:
@@ -1193,11 +1229,14 @@ def step_tokens(cfg: ArchConfig, shape: InputShape):
 def plain_flops(spec: StepSpec, device) -> float:
     """The FLOPs of ``spec``'s step on one device, unsharded: the plain
     step traced on fake tensors under the roofline's counter (no
-    ``DTensor``, no collective), the work its formulation does."""
-    with FakeTensorMode(), PlainCalls():
-        rep, _ = analyze_trace(spec.fn, materialize(spec, None, device),
-                               chips=1)
-    return rep["flops_per_device"]
+    ``DTensor``, no collective), the work its formulation does.  Only
+    the FLOPs are read, so the trace skips ``analyze_trace``'s memory
+    report (its collection after the trace scans the whole heap)."""
+    with FakeTensorMode() as fake, PlainCalls():
+        args = materialize(spec, None, device)
+        with TraceCounter(fake) as counter:
+            spec.fn(*args)
+    return float(counter.flops)
 
 
 def work_split(mesh, batch: int) -> int:

@@ -161,7 +161,14 @@ class LiveBytes(TorchDispatchMode):
     """Counts, in the thread that enters it, the bytes of every storage the
     ops run under it create (an output that is a view or an in-place
     result creates none), each until the storage is freed.  ``peak`` is
-    the most live at once, ``largest`` the largest single storage."""
+    the most live at once, ``largest`` the largest single storage.
+
+    A storage is released through a finalizer on it: a storage that a
+    reference cycle holds stays counted until Python's collector frees
+    the cycle, and when that is depends on what else the process has
+    allocated, so the peak would too.  The dry run's trace runs with the
+    collector off and reports what a collection after it frees
+    (``roofline/analysis.py::analyze_trace``, ``collector_bytes``)."""
 
     def __init__(self):
         super().__init__()

@@ -33,11 +33,24 @@ host bookkeeping and its sharding propagation's global-shape stand-ins
 query.  Work no op of the counter runs (a loop counted from shorter runs,
 ``launch/dryrun.py::counted_loop``) is added with :meth:`TraceCounter.add`.
 
+Temp bytes are frees by reference count alone.  The step runs with
+Python's cyclic collector off, so a storage is freed in the count when the
+step drops its last reference to it, as the card's caching allocator
+frees it, and the figure is the same in every process.  A storage that a
+reference cycle holds stays counted to the end of the trace: a
+``gc.collect()`` then frees it, and the bytes it frees are reported as
+``memory_analysis.collector_bytes``, neither subtracted nor hidden (0 in
+every row of the dry run; ``launch/dryrun.py::DTensorCalls.partitioned``
+breaks the cycles of the calls it retries).  With the collector on, that
+storage would have been freed whenever the collector happened to run,
+which depends on what else the process had allocated.
+
 Per-device figures are rank 0's; global ones multiply by the chip count,
 as the reference does with XLA's per-device module.
 """
 from __future__ import annotations
 
+import gc
 import weakref
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -336,6 +349,20 @@ def roofline_report(*, chips: int, flops_dev: float, bytes_dev: float,
     return result
 
 
+@contextmanager
+def collector_off() -> Iterator[None]:
+    """Python's cyclic collector off inside, and back as it was on exit
+    (also when the body raises): a storage is then freed only when its
+    last reference goes, the same in every process."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def analyze_trace(fn: Callable, args: tuple, *, chips: int, hw: HW = HW(),
                   n_active: Optional[float] = None,
                   tokens: Optional[float] = None,
@@ -344,17 +371,25 @@ def analyze_trace(fn: Callable, args: tuple, *, chips: int, hw: HW = HW(),
     three roofline terms and the diagnostics: (the report, fn's result).
     ``memory_analysis`` holds the accounting of the device that traces:
     ``arg_bytes`` (its shards of the arguments), ``temp_bytes`` (the peak
-    of the storages the step created), ``peak_bytes`` (their sum) and
-    ``accounting_bound_bytes`` (the largest single buffer)."""
+    of the storages the step created), ``peak_bytes`` (their sum),
+    ``accounting_bound_bytes`` (the largest single buffer) and
+    ``collector_bytes`` (what only the collector freed: see the module
+    docstring).  The step runs with the collector off
+    (:func:`collector_off`)."""
     arg = local_argument_bytes(args)
     fakes = [t for t in _local_tensors(args) if isinstance(t, FakeTensor)]
     counter = TraceCounter(fakes[0].fake_mode if fakes else None)
-    with counter:
-        out = fn(*args)
+    with collector_off():
+        with counter:
+            out = fn(*args)
+        live = counter.live_bytes
+        gc.collect()
+        freed = live - counter.live_bytes
     mem = {"mode": "accounting", "arg_bytes": int(arg),
            "temp_bytes": int(counter.peak),
            "peak_bytes": int(arg + counter.peak),
-           "accounting_bound_bytes": int(counter.largest)}
+           "accounting_bound_bytes": int(counter.largest),
+           "collector_bytes": int(freed)}
     rep = roofline_report(chips=chips, flops_dev=float(counter.flops),
                           bytes_dev=float(counter.bytes_accessed),
                           coll=counter.collective_bytes,

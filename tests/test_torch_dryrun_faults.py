@@ -30,9 +30,8 @@ of tests/test_torch_dryrun.py):
     train and prefill rows, the loop counted from its short runs, give
     the FLOPs, bytes a device and collectives (counts and bytes) of the
     plain DTensor trace, whose every step is a DTensor call; the whole
-    local loop gives the same, and its memory accounting too; the
-    counted loop's temp bytes are the plain trace's without a backward
-    and at most 5% above with one.
+    local loop and the counted loop give the same, and their memory
+    accounting too, with a backward or without.
 
   * C11: the gather dispatch (``--dispatch gather``,
     ``models/moe.py::_gather_dispatch``) keeps its expert input's batch
@@ -241,16 +240,13 @@ def test_local_loop_counts_what_the_plain_trace_counts(shape_name,
         assert counted[key] == plain[key], key
         assert whole[key] == plain[key], key
     assert whole["memory_analysis"] == plain["memory_analysis"]
-    # the counted loop's storages are extrapolated from its short runs:
-    # exact without a backward; with one a little high, by when the
-    # collector frees the graphs' storages (+2.1% here)
-    got, want = counted["memory_analysis"], plain["memory_analysis"]
+    # the counted loop's storages are extrapolated from its short runs,
+    # exact with a backward too: the short runs, whose inputs are views of
+    # the loop's, go with the loop's backward (kept until the graph was
+    # dropped, they held that input's storage: +2.1% here)
+    assert counted["memory_analysis"] == plain["memory_analysis"]
     if shape.kind == "train":
-        assert want["temp_bytes"] <= got["temp_bytes"] <= \
-            1.05 * want["temp_bytes"]
         check_row(cfg, "train_4k", counted)    # the backward is counted
-    else:
-        assert got == want
 
 
 def test_gather_dispatch_keeps_the_batch_sharded():

@@ -1,0 +1,10 @@
+"""train.gemm_ms: device ms a step in matmul kernels (cuBLAS, CUTLASS),
+from the profiler's trace."""
+from gstbench.trace import is_gemm
+
+
+def read(rec):
+    if rec["kind"] != "train" or not rec["trace"] or not rec["units"]:
+        return None
+    s = sum(v for k, v in rec["trace"]["device_s"].items() if is_gemm(k))
+    return 1e3 * s / rec["units"]
